@@ -17,6 +17,9 @@ Ported backends:
   ``"pallas"`` so flag values match the reference.
 * :class:`NullMixer` — identity.
 
+:class:`CommPipeline` stages the combination step of the engines; the port
+runs its identity mode (no compression), where the pipeline is the mixer.
+
 ``make_mixer("auto")`` resolves to the fused kernel on CUDA, as the
 reference's TPU branch does, and follows the reference's non-TPU policy
 elsewhere.  The sparse, gather and robust backends are not ported yet and
@@ -36,7 +39,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 PyTree = Any
 
 __all__ = ["Mixer", "NullMixer", "DenseMixer", "PallasFusedMixer",
-           "make_mixer", "mix_dense"]
+           "CommPipeline", "make_mixer", "mix_dense"]
 
 # the reference's "auto" thresholds (repro.core.mixing)
 _AUTO_SPARSE_MAX_OFFSETS = 8
@@ -220,3 +223,53 @@ def make_mixer(name: str | Mixer, topology: topo_lib.Topology | None = None,
     raise ValueError(f"unknown mixer {name!r} (expected dense|sparse|"
                      "pallas|gather|auto|none|trimmed_mean|median|"
                      "adaptive_trim)")
+
+
+_COMPRESSION_ITEM = "ROADMAP.md queue 1 item 20 (compression)"
+
+
+class CommPipeline:
+    """The staged combination step of the engines, in identity mode.
+
+    Counterpart of ``repro.core.mixing.CommPipeline``.  Without compression
+    the pipeline IS the mixer (the reference's identity mode, bit-identical
+    to the plain mixer): ``pipeline(params, active, A_t, comm_state)``
+    returns ``(mixer(params, active, A_t), comm_state)``.  The combination
+    runs under ``torch.no_grad()``.
+
+    A compressor, error feedback and the ``direct``/``diff`` exchange modes
+    are not ported yet and raise ``NotImplementedError`` naming ROADMAP.md
+    item 20; secure-aggregation masks name item 22.  The reference's
+    ``gamma`` and ``base_A`` belong to the compressed modes and come with
+    them.
+    """
+
+    def __init__(self, mixer: Mixer, compressor=None, *, mode: str = "auto",
+                 secure_agg=None):
+        if compressor not in (None, "none"):
+            raise NotImplementedError(f"compressor {compressor!r} is not "
+                                      f"ported yet: see {_COMPRESSION_ITEM}")
+        if mode in ("direct", "diff"):
+            raise NotImplementedError(f"the {mode!r} exchange mode is not "
+                                      f"ported yet: see {_COMPRESSION_ITEM}")
+        if mode not in ("auto", "identity"):
+            raise ValueError(f"unknown pipeline mode {mode!r} "
+                             "(expected identity|direct|diff|auto)")
+        if secure_agg is not None:
+            raise NotImplementedError("secure-aggregation wire masks are not "
+                                      "ported yet: see ROADMAP.md queue 1 "
+                                      "item 22 (privacy)")
+        self.mixer = mixer
+        self.mode = "identity"
+
+    #: the identity pipeline carries no memory between blocks
+    stateful = False
+
+    def init_state(self, params: PyTree) -> PyTree:
+        return ()
+
+    def __call__(self, params: PyTree, active: torch.Tensor,
+                 A_t: torch.Tensor, comm_state: PyTree = (), key=None):
+        """Apply the combination step; returns ``(params, comm_state)``."""
+        with torch.no_grad():
+            return self.mixer(params, active, A_t), comm_state

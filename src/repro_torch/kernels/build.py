@@ -16,10 +16,12 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_log", "find_nvcc",
-           "load_library"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "build_log",
+           "find_nvcc", "load_library"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".repro_torch_build"
@@ -83,6 +85,25 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _loaded[name] = lib
         return lib
+
+
+def build_all() -> dict[str, float]:
+    """Compile every source in ``csrc`` that has no library yet, one
+    ``nvcc`` per source, all started together; returns the seconds each
+    took (0 for a library already built).  Loading stays with
+    :func:`load_library`."""
+    def one(src: Path) -> float:
+        out = _lib_path(src.stem)
+        if out.exists():
+            return 0.0
+        t0 = time.perf_counter()
+        _compile(src, out)
+        return time.perf_counter() - t0
+
+    sources = sorted(CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
+        secs = list(pool.map(one, sources))
+    return {src.stem: s for src, s in zip(sources, secs)}
 
 
 def build_log(name: str) -> str:

@@ -1,0 +1,178 @@
+"""Training entry point: diffusion learning (Algorithm 1) of a transformer
+on one device.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --blocks 2
+  PYTHONPATH=src python -m repro_torch.launch.train --full --agents 4 \
+      --local-steps 2 --batch 2 --seq 1024 --blocks 3 --mix pallas \
+      --optimizer adam --step-size 1e-4
+
+Counterpart of ``repro.launch.train`` on the stacked engine (on one device
+the reference's ``engine="auto"`` sharded engine equals it).  The flags are
+the ported subset of the reference's shared flag set, with its defaults;
+a reference flag outside the subset raises ``NotImplementedError`` naming
+the ROADMAP item that brings it.  ``--device`` defaults to CUDA and never
+falls back to the CPU by itself.
+
+Every random draw (initial weights, batches, activation masks) comes from
+one host generator seeded with ``--seed``, so the card and the CPU realize
+the same run.  The attention of the local updates is chosen by
+``cfg.use_kernels``, as in the reference: ``main(..., use_kernels=True)``
+applies ``dataclasses.replace(cfg, use_kernels=True)``, which runs the
+flash-attention kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.core.diffusion import DiffusionConfig, DiffusionEngine
+from repro_torch.data.synthetic import lm_token_batch
+from repro_torch.device import resolve_device
+from repro_torch.launch.serve import MIX_CHOICES
+from repro_torch.models import transformer as tf
+from repro_torch.optim import adam, momentum, sgd
+from repro_torch.tree import tree_map
+
+__all__ = ["main", "init_stacked"]
+
+_OPTIMIZERS = {"sgd": sgd, "momentum": momentum, "adam": adam}
+
+#: reference flags the port does not take yet -> the ROADMAP.md queue-1
+#: item that brings them (prefix match)
+_PENDING_FLAGS = {
+    "--spec": 16, "--preset": 16, "--checkpoint": 16, "--engine": 16,
+    "--topology-": 16,
+    "--graph": 18, "--link-drop": 18, "--participation-process": 18,
+    "--markov-corr": 18, "--num-groups": 18,
+    "--compress": 20, "--error-feedback": 20, "--comm-gamma": 20,
+    "--trim": 21, "--robust-": 21, "--attack": 21,
+    "--privacy": 22, "--data": 23, "--async-": 24, "--ef-host-offload": 25,
+}
+
+
+def _reject_unported(ap: argparse.ArgumentParser, extra: list[str]) -> None:
+    for tok in extra:
+        name = tok.split("=")[0]
+        for prefix, item in _PENDING_FLAGS.items():
+            if name.startswith(prefix):
+                raise NotImplementedError(
+                    f"{name} is not ported yet: see ROADMAP.md queue 1 item "
+                    f"{item}")
+    if extra:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--smoke", action="store_true", default=True,
+                    help="reduced smoke config (default)")
+    ap.add_argument("--full", dest="smoke", action="store_false",
+                    help="full-size model config")
+    ap.add_argument("--agents", type=int, default=4, help="K")
+    ap.add_argument("--local-steps", type=int, default=2, help="T")
+    ap.add_argument("--step-size", type=float, default=0.5, help="mu")
+    ap.add_argument("--topology", default="ring")
+    ap.add_argument("--participation", type=float, default=0.9,
+                    help="activation probability q")
+    ap.add_argument("--drift-correction", action="store_true", default=False,
+                    help="eq. (31) mu/q_k step sizes")
+    ap.add_argument("--local-steps-mode", default="uniform",
+                    choices=["uniform", "degree"])
+    ap.add_argument("--optimizer", default="adam", choices=list(_OPTIMIZERS))
+    ap.add_argument("--mix", default="dense", choices=MIX_CHOICES,
+                    help="combination-step backend")
+    ap.add_argument("--blocks", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=2, help="per-agent batch")
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; never falls back)")
+    return ap
+
+
+def init_stacked(key: torch.Generator, cfg, num_agents: int,
+                 device: torch.device):
+    """K agents initialized one after another from ``key`` and stacked on a
+    leading axis on ``device``."""
+    agents = [tree_map(lambda x: x.to(device), tf.init_params(key, cfg))
+              for _ in range(num_agents)]
+    return tree_map(lambda *xs: torch.stack(xs), *agents)
+
+
+def main(argv=None, *, use_kernels: bool = False) -> dict:
+    """Train.  Returns the final ``EngineState`` (``state``), the
+    config (``cfg``), and per logged block the agents' losses on local step
+    0's batch (``losses``) and the realized masks (``active``), and per
+    block the seconds (``timings``: ``block_s``, ``local_s``,
+    ``combine_s``) and ``tokens_per_s`` (K T B S over the block's
+    seconds)."""
+    ap = _parser()
+    args, extra = ap.parse_known_args(argv)
+    _reject_unported(ap, extra)
+    device = resolve_device(args.device)
+    bundle = get_config(args.arch)
+    cfg = bundle.smoke if args.smoke else bundle.model
+    if use_kernels:
+        cfg = dataclasses.replace(cfg, use_kernels=True)
+    K, T = args.agents, args.local_steps
+    dcfg = DiffusionConfig(
+        num_agents=K, local_steps=T, step_size=args.step_size,
+        topology=args.topology, participation=args.participation,
+        drift_correction=args.drift_correction, mix=args.mix,
+        local_steps_mode=args.local_steps_mode)
+    optimizer = _OPTIMIZERS[args.optimizer]()
+
+    def loss(p, b):
+        return tf.train_loss(p, cfg, b, remat=False)
+
+    eng = DiffusionEngine(
+        dcfg, loss, None if args.optimizer == "sgd" else optimizer.update,
+        device=device)
+    key = torch.Generator().manual_seed(args.seed)
+    params = init_stacked(key, cfg, K, device)
+    state = eng.init_state(params, optimizer.init(params), key=key)
+    del params
+    if eng.step_mask is not None:
+        t_k = eng.step_mask.sum(dim=0).long()
+        print(f"local steps: degree-aware T_k in [{int(t_k.min())}, "
+              f"{int(t_k.max())}] (uniform T={T})")
+
+    out = {"cfg": cfg, "losses": [], "active": [], "timings": [],
+           "tokens_per_s": []}
+    tokens = K * T * args.batch * args.seq
+    t_start = time.perf_counter()
+    for i in range(args.blocks):
+        batch = tree_map(lambda x: x.to(device), lm_token_batch(
+            key, (T, K, args.batch, args.seq), cfg.vocab_size))
+        t0 = time.perf_counter()
+        state, metrics = eng.step(state, batch, key)
+        block_s = time.perf_counter() - t0
+        out["timings"].append({"block_s": block_s,
+                               "local_s": metrics["local_s"],
+                               "combine_s": metrics["combine_s"]})
+        out["tokens_per_s"].append(tokens / block_s)
+        if i % args.log_every == 0:
+            active = metrics["active"]
+            with torch.no_grad():
+                losses = torch.stack([
+                    loss(tree_map(lambda x, k=k: x[k], state.params),
+                         tree_map(lambda x, k=k: x[0, k], batch))
+                    for k in range(K)]).cpu()
+            out["losses"].append(losses.tolist())
+            out["active"].append(active.cpu().tolist())
+            print(f"block {i:4d}  active={int(active.sum())}/{K}  "
+                  f"mean_loss={float(losses.mean()):.4f}  "
+                  f"spread={float(losses.max() - losses.min()):.4f}  "
+                  f"t={time.perf_counter() - t_start:.1f}s")
+    out["state"] = state
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,14 +1,19 @@
-"""Decoder assembly for serving: parameters, ring-buffer cache, prefill and
-decode.
+"""Decoder assembly: parameters, the training forward and loss, the
+ring-buffer cache, prefill and decode.
 
-Counterpart of ``repro.models.transformer`` for the serving slice.  Layers
-are grouped into *segments* (runs of one block type) whose per-layer
-parameters are stacked on a leading axis, under the reference's segment keys
-(``"00.attn.032"``), and segments run in sorted key order.  This slice runs
-``attn`` segments; ``mamba``, ``moe`` and ``shared_attn`` segments, the
-image prefix and multi-codebook embeddings raise ``NotImplementedError``
-(ROADMAP.md queue 1 item 17), and ``forward``/``train_loss`` come with the
-training slice (item 15).
+Counterpart of ``repro.models.transformer``.  Layers are grouped into
+*segments* (runs of one block type) whose per-layer parameters are stacked
+on a leading axis, under the reference's segment keys (``"00.attn.032"``),
+and segments run in sorted key order; where the reference scans a segment,
+the port loops over its layers.  The port runs ``attn`` segments; ``mamba``,
+``moe`` and ``shared_attn`` segments, the image prefix and multi-codebook
+embeddings raise ``NotImplementedError`` (ROADMAP.md queue 1 item 17).
+
+``cfg.use_kernels`` selects the attention of :func:`forward` as the
+reference does: the flash-attention kernel through
+:func:`repro_torch.kernels.ops.attention_op`, else the streaming
+:func:`repro_torch.models.layers.flash_attention_jnp`.  Prefill always
+streams, as the reference's does.
 
 The cache is the reference's whole-batch ring buffer: position p lives in
 slot p % C, ``slot_pos`` records the absolute position held by each slot
@@ -24,15 +29,18 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import attention_op
 from repro_torch.models import layers as L
 
 PyTree = Any
 
-__all__ = ["init_params", "param_specs", "Cache", "init_cache", "prefill",
-           "decode_step", "sample_logits", "decode_loop"]
+__all__ = ["init_params", "param_specs", "forward", "train_loss", "Cache",
+           "init_cache", "prefill", "decode_step", "sample_logits",
+           "decode_loop"]
 
 
 def _seg_key(index: int, kind: str, n: int) -> str:
@@ -153,6 +161,73 @@ def _lm_logits(params: PyTree, cfg: ModelConfig,
     if cfg.tie_embeddings:
         return x @ params["embed"].T
     return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# block application (no cache: the training / loss path)
+# ---------------------------------------------------------------------------
+
+def _apply_block(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+                 positions: torch.Tensor, window: int | None, q_chunk: int,
+                 kv_chunk: int) -> torch.Tensor:
+    """One ``attn`` block: attention then the dense MLP, each residual."""
+    h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+    q, k, v = L.qkv_project(bp["attn"], h, _adims(cfg), positions=positions,
+                            rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta,
+                            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
+    if cfg.use_kernels:
+        o = attention_op(q, k, v, causal=True, window=window)
+    else:
+        o = L.flash_attention_jnp(q, k, v, causal=True, window=window,
+                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
+    B, S = x.shape[:2]
+    x = x + o.reshape(B, S, -1) @ bp["attn"]["wo"]
+    h = L.rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+    return x + L.mlp_forward(bp["mlp"], h, cfg.mlp_act)
+
+
+def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            img_embeds: torch.Tensor | None = None,
+            window: int | None = None, remat: bool = True,
+            q_chunk: int = 512, kv_chunk: int = 512):
+    """Full-sequence forward.  Returns (logits, aux_loss, n_prefix), as the
+    reference does; ``aux_loss`` is 0 and ``n_prefix`` 0 for the ported
+    (dense, text-only) configs.
+
+    tokens: (B, S) integer.  ``remat`` recomputes each block's activations
+    in the backward pass (``torch.utils.checkpoint``, non-reentrant), as
+    the reference's ``jax.checkpoint`` of the scan body does.
+    """
+    _check_supported(cfg)
+    if img_embeds is not None:
+        raise NotImplementedError(
+            "image-prefix embeddings are not ported yet; see ROADMAP.md "
+            "queue 1 item 17")
+    window = window if window is not None else cfg.attention_window
+    x = _embed_inputs(params, tokens)
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    for _, n, seg_params in _seg_items(params["segments"]):
+        for j in range(n):
+            args = (cfg, _layer(seg_params, j), x, positions, window,
+                    q_chunk, kv_chunk)
+            x = (checkpoint(_apply_block, *args, use_reentrant=False)
+                 if remat else _apply_block(*args))
+    x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _lm_logits(params, cfg, x), aux, 0
+
+
+def train_loss(params: PyTree, cfg: ModelConfig, batch: dict,
+               rng=None, *, remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy in float32.  batch: ``tokens``/``labels``
+    (B, S).  ``rng`` is unused, as in the reference."""
+    del rng
+    logits, _, _ = forward(params, cfg, batch["tokens"],
+                           img_embeds=batch.get("img_embeds"), remat=remat)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    labels = batch["labels"].long()
+    return -logp.gather(-1, labels[..., None])[..., 0].mean()
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,159 @@
+"""Port parity: the training forward and loss, and ``launch.train.main``.
+
+``repro_torch.models.transformer.forward``/``train_loss`` and their
+gradients against the reference's at the smoke config, with
+``use_kernels`` off (streaming attention) and on (the attention op: the
+reference's Pallas kernel in interpret mode, the port's plain version on
+the CPU); the gates are those of ``tests/test_kernel_integration.py``.
+Then ``repro_torch.launch.train.main`` on the CPU."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_threads import one_torch_thread  # noqa: E402,F401
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.models import transformer as ref_tf  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.convert import params_from_jax  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
+
+
+@pytest.fixture(scope="module")
+def model():
+    """Seeded numpy weights at the reference's init scales and one batch
+    of 2 x 128 tokens, in both packages."""
+    ref_cfg = ref_get_config("smollm-360m").smoke
+    rng = np.random.default_rng(0)
+
+    def leaf(path, s):
+        name = jax.tree_util.keystr(path)
+        if "scale" in name:
+            w = 1.0 + 0.1 * rng.standard_normal(s.shape)
+        elif "embed" in name:
+            w = 0.02 * rng.standard_normal(s.shape)
+        else:
+            w = rng.standard_normal(s.shape) / np.sqrt(s.shape[-2])
+        return jnp.asarray(w, s.dtype)
+
+    ref_params = jax.tree_util.tree_map_with_path(
+        leaf, ref_tf.param_specs(ref_cfg))
+    tok = rng.integers(0, ref_cfg.vocab_size, (2, 128)).astype(np.int32)
+    lab = np.concatenate([tok[:, 1:], np.zeros_like(tok[:, :1])], -1)
+    ref_batch = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab)}
+    batch = {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab)}
+    params = params_from_jax(jax.device_get(ref_params), device="cpu")
+    return ref_cfg, ref_params, ref_batch, params, batch
+
+
+def _cfgs(ref_cfg, use_kernels):
+    return (dataclasses.replace(ref_cfg, use_kernels=use_kernels),
+            dataclasses.replace(get_config("smollm-360m").smoke,
+                                use_kernels=use_kernels))
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_forward_matches_reference(model, use_kernels):
+    ref_cfg, ref_params, ref_batch, params, batch = model
+    rc, c = _cfgs(ref_cfg, use_kernels)
+    want, _, _ = jax.jit(lambda p, t: ref_tf.forward(p, rc, t, remat=False))(
+        ref_params, ref_batch["tokens"])
+    got, aux, n_prefix = tf.forward(params, c, batch["tokens"], remat=False)
+    assert float(aux) == 0.0 and n_prefix == 0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-3,
+                               rtol=2e-3)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_train_loss_and_gradients_match_reference(model, use_kernels):
+    ref_cfg, ref_params, ref_batch, params, batch = model
+    rc, c = _cfgs(ref_cfg, use_kernels)
+    want_loss, want_g = jax.jit(jax.value_and_grad(
+        lambda p: ref_tf.train_loss(p, rc, ref_batch, remat=False)))(
+            ref_params)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    loss = tf.train_loss(params, c, batch, remat=False)
+    grads = torch.autograd.grad(loss, leaves)
+    for p in leaves:
+        p.requires_grad_(False)
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=2e-3)
+    for g, w in zip(grads, jax.tree.leaves(want_g)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
+def test_remat_recomputes_the_same_loss_and_gradients(model):
+    _, _, _, params, batch = model
+    c = dataclasses.replace(get_config("smollm-360m").smoke, use_kernels=True)
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    out = []
+    for remat in (False, True):
+        loss = tf.train_loss(params, c, batch, remat=remat)
+        out.append((loss, torch.autograd.grad(loss, leaves)))
+    for p in leaves:
+        p.requires_grad_(False)
+    # the same arithmetic; only the order in which autograd accumulates
+    # the tied embedding's gradients may differ
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=0, atol=0)
+    for a, b in zip(out[0][1], out[1][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-7)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_train_main_runs_on_the_cpu(use_kernels):
+    """The default flags, cut to 2 blocks."""
+    out = train.main(["--device", "cpu", "--blocks", "2"],
+                     use_kernels=use_kernels)
+    assert out["cfg"].use_kernels is use_kernels
+    assert len(out["losses"]) == 2 and len(out["timings"]) == 2
+    assert all(np.isfinite(x).all() for x in out["losses"])
+    assert all(len(a) == 4 and set(a) <= {0.0, 1.0} for a in out["active"])
+    state = out["state"]
+    assert state.params["embed"].shape[0] == 4
+    assert int(state.opt_state["t"]) == 4           # adam, T=2, 2 blocks
+
+
+def test_train_main_is_reproducible_and_kernel_path_agrees():
+    argv = ["--device", "cpu", "--blocks", "2", "--mix", "pallas",
+            "--optimizer", "sgd", "--step-size", "0.05", "--seq", "32"]
+    a = train.main(argv)
+    b = train.main(argv, use_kernels=True)
+    assert a["active"] == b["active"]
+    np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-5)
+    for x, y in zip(tree_leaves(a["state"].params),
+                    tree_leaves(b["state"].params)):
+        torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("flag,item", [
+    (["--spec", "x.json"], "item 16"), (["--preset", "fedavg_full"],
+                                        "item 16"),
+    (["--checkpoint", "c.npz"], "item 16"), (["--compress", "topk"],
+                                             "item 20"),
+    (["--graph=gossip"], "item 18"), (["--privacy"], "item 22"),
+])
+def test_unported_flags_name_their_roadmap_item(flag, item):
+    with pytest.raises(NotImplementedError, match=item):
+        train.main(["--device", "cpu"] + flag)
+
+
+def test_entry_points_without_device_refuse_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: device=None means the card")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--blocks", "1"])
+    from repro_torch.core.diffusion import DiffusionConfig, DiffusionEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DiffusionEngine(DiffusionConfig(num_agents=2), lambda p, b: 0.0)
+
+
+def test_unknown_flag_is_an_argument_error():
+    with pytest.raises(SystemExit):
+        train.main(["--device", "cpu", "--no-such-flag"])
