@@ -11,7 +11,9 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
    and random masks, odd M; one K=8, M=3.0e8 case (K*M > 2^31); and each
    path's own shape, with M = smollm-360m's parameter count: training's
    K=4 ring under a partial mask and serving's K=8 FedAvg collapse, where
-   the kernel, the plain version and ``A_eff.T @ W`` are timed.
+   the kernel, the plain version and ``A_eff.T @ W`` are timed; and
+   mamba2-2.7b's training shape, K=2 with M past 2^31, full and partial
+   mask, held against the plain version in column slices and timed.
    Tolerance: max |kernel - plain| <= 1e-5 * max(1, |plain|).
 2. Serve, small: a K=4 stacked smoke checkpoint through
    ``repro_torch.launch.serve.main`` with ``--mix pallas``, on the card and
@@ -26,7 +28,8 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
 4. ``flash_attention`` against its plain version ``attention_ref``: every
    case of the reference's kernel tests (f32 and bf16, windows 32 and 96,
    S = 160 and 192, D = 32/64/128), a non-causal ragged pair of lengths,
-   q past 2^31 elements, and the full-width training shape in f32 and
+   q past 2^31 elements, zamba2-1.2b's full-width shape (1, 1024, 32, 32,
+   64) in bf16, and the full-width training shape in f32 and
    bf16, where the kernel, the plain version and
    ``scaled_dot_product_attention`` are timed in bf16.  Tolerances: the
    reference's, 2e-5 (f32) and 2e-2 (bf16).
@@ -39,9 +42,31 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
 6. Train, small: smoke training with SGD and with Adam on the card and on
    the CPU from one seed; the realized masks are equal and the losses and
    parameters agree within the stated gates.
+7. ``ssd_intra_chunk`` against its plain version ``ssd_intra_chunk_ref``
+   (Y_diag, states, dA_cumsum; max |kernel - plain| <= 2e-4 max(1,
+   |plain|)) and ``ssd_op`` end to end against the sequential ``ssd_ref``
+   at the reference's gates (2e-3 float32, 5e-2 bf16): the reference's
+   sweep in float32 and bf16, an initial state, and the paths' own shapes
+   (mamba2-2.7b: h = 80, p = 64, n = 128; zamba2-1.2b: h = 64, n = 64;
+   s = 1024, chunk 128, B/C bf16 slices of xBC), where the kernel and the
+   plain version are timed.
+8. Train mamba2-2.7b at full width: Algorithm 1 through
+   ``repro_torch.launch.train.main`` (64 layers, K=2, T=2, B=1, S=1024,
+   3 blocks, SGD, ``--mix pallas``, ``use_kernels=True``); the launch
+   counts, finite losses and parameters, block times, peak memory, a
+   profiled block, and one local step's loss and gradients with the SSD
+   kernel against the plain SSD, held against two witnesses: two plain
+   forwards that differ only in float32 summation order (bf16), and the
+   same step with float32 parameters.  Phase 8 alone runs under the
+   caching allocator's expandable segments.
+9. The SSM paths on the card against the CPU: mamba2- and zamba2-smoke
+   training with SGD and with Adam (phase 6's gates), smoke prefill and
+   greedy decode of both (the same tokens), and one full-width
+   zamba2-1.2b forward (B=1, S=1024) with the kernels on and off, the one
+   path where ``flash_attention`` and ``ssd_intra_chunk`` run together.
 
 Each path's launch counts are reset just before its first run and read
-just after it (phases 3 and 5).  The last lines are a JSON object of the
+just after it (phases 3, 5, 8 and 9).  The last lines are a JSON object of the
 kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
@@ -49,6 +74,7 @@ to ``.repro_torch_build/`` in the checkout and are removed at the end.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -72,6 +98,36 @@ TRAIN_ATTN_SHAPE = (2, 1024, 15, 5, 64)
 # differently, and 32 bf16 layers carry those roundings into the gradients
 TRAIN_LOSS_TOL = 2e-3
 TRAIN_GRAD_TOL = 5e-2
+TF32_FLOPS_PER_S = 495e12        # H100 SXM, TF32 tensor cores, dense
+# the reference's SSD gates (tests/test_kernels.py), atol = rtol
+SSD_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+# the intra-chunk kernel against its plain version: both sum float32
+# products of the same inputs (bf16 widened exactly), in other orders; at
+# mamba2's shape each Y_diag entry gathers Q N = 16,384 products of terms
+# up to about 10, and on an H100 (80 GB HBM3, 700 W) the two orders were
+# at most 7.3e-5 apart (relative to max(1, |plain|)), so the gate is 2e-4
+INTRA_TOL = 2e-4
+# (b, s, h, p, n, chunk) of one mamba layer's SSD on each path
+SSD_PATH_SHAPES = {"mamba2-2.7b": (1, 1024, 80, 64, 128, 128),
+                   "zamba2-1.2b": (1, 1024, 64, 64, 64, 128)}
+# one full-width mamba2 local step, SSD kernel vs plain SSD, and the
+# full-width zamba2 forward, kernels on vs off: the loss within phase 5's
+# 2e-3 relative
+SSM_LOSS_TOL = 2e-3
+# the step's gradients, worst leaf in relative Frobenius norm, are held
+# against two witnesses taken in the same run.  In bf16 they may be at most
+# SSM_GRAD_WITNESS_RATIO times the distance between two plain forwards that
+# differ only in float32 summation order (plain SSD at chunk 128 against
+# plain SSD at chunk 64): the noise floor of bf16 rounding carried through
+# 64 layers.  With float32 parameters, where rounding is 2^16 times finer,
+# every layer of every leaf within SSM_GRAD_TOL_F32 and the loss within
+# SSM_LOSS_TOL_F32: a kernel fault of any size that shows in bf16 shows
+# there far above rounding.  On an H100 (80 GB HBM3, 700 W) the kernel's
+# worst bf16 leaf read 4.86e-2 against the witness's 4.89e-2, the float32
+# worst layer 4.6e-5 and the float32 loss 8.6e-8.
+SSM_GRAD_WITNESS_RATIO = 2.0
+SSM_GRAD_TOL_F32 = 1e-3
+SSM_LOSS_TOL_F32 = 1e-5
 
 
 def card_info() -> str:
@@ -113,12 +169,12 @@ def ptxas_lines(name: str) -> list[str]:
             if any(k in line for k in keep)]
 
 
-def full_width_M() -> int:
+def full_width_M(arch: str = "smollm-360m") -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config("smollm-360m").model
+    cfg = get_config(arch).model
     return sum(t.numel() for t in tree_leaves(tf.param_specs(cfg)))
 
 
@@ -214,6 +270,55 @@ def phase_kernel(card: str) -> dict:
         "train": at_path_shape(make_topology("ring", 4).A,
                                np.array([1.0, 0.0, 1.0, 1.0]), "training"),
         "serve": at_path_shape(averaging_matrix(8), np.ones(8), "serving")}
+
+    # mamba2-2.7b's training path: K=2 agents on a ring, M past 2^31, so the
+    # column index itself leaves the int32 range.  The plain version's full
+    # (K, M) result does not fit beside W and the kernel's, so it is held
+    # against the kernel in column slices that cover every column.  With
+    # K=2 a partial mask leaves A_eff = I (out = W exactly) and the full
+    # mask mixes; both are checked.
+    K, M = 2, full_width_M("mamba2-2.7b")
+    A = torch.as_tensor(make_topology("ring", K).A, dtype=torch.float32,
+                        device=dev)
+    W = torch.randn((K, M), generator=gen, device=dev)
+    tile = 1 << 28
+    mamba = {"shape": [K, M], "slices_of_columns": tile}
+    for mask_np in (np.ones(K), np.array([1.0, 0.0])):
+        m = torch.as_tensor(mask_np, dtype=torch.float32, device=dev)
+        out = dm.diffusion_mix(A, m, W)
+        err = max_abs = 0.0
+        for a in range(0, M, tile):
+            # contiguous: cuBLAS takes no row stride past 2^31
+            ref = mix_ref(A, m, W[:, a:a + tile].contiguous())
+            err = max(err, rel_err(out[:, a:a + tile], ref))
+            max_abs = max(max_abs,
+                          (out[:, a:a + tile] - ref).abs().max().item())
+            del ref
+        del out
+        label = f"mask={[int(x) for x in mask_np]}"
+        if not err <= TOL:
+            raise AssertionError(f"diffusion_mix at mamba2's shape K={K} "
+                                 f"M={M} {label}: rel err {err:.3e} > {TOL}")
+        mamba[label] = {"rel_err": err, "max_abs_err": max_abs}
+    m = torch.ones(K, device=dev)
+    mamba["ms"] = time_ms(lambda: dm.diffusion_mix(A, m, W), iters=3)
+    nbytes = 4 * (K * K + K + 2 * K * M)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = 2 * K * K * M / FP32_FLOPS_PER_S * 1e3
+    mamba.update(bound_ms=max(bound_bytes, bound_ops),
+                 bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                 bytes=nbytes)
+    del W
+    torch.cuda.empty_cache()
+    print(f"phase 1: mamba2 training shape K={K} M={M} (> 2^31 columns), "
+          f"ring: every column within {TOL} of the plain version in slices of "
+          f"{tile} columns: "
+          + "; ".join(f"{k} rel err {v['rel_err']:.3e}"
+                      for k, v in mamba.items() if k.startswith("mask"))
+          + f"; kernel {mamba['ms']:.3f} ms, bound {mamba['bound_ms']:.3f} ms "
+          f"({mamba['bound_by']}); the plain version is not timed at this M "
+          f"[{card}]")
+    by_path["train_mamba2"] = mamba
     train = by_path["train"]
     return {"name": "diffusion_mix", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/diffusion_mix.cu",
@@ -269,6 +374,8 @@ def phase_attention(card: str) -> dict:
     cases += [(2, 200, 333, 4, 2, 64, dt, False, None) for dt in (f32, bf16)]
     cases += [(2, 1024, 1024, 15, 5, 64, dt, True, None)
               for dt in (f32, bf16)]
+    # zamba2-1.2b's shared attention at full width (phase 9's forward)
+    cases += [(1, 1024, 1024, 32, 32, 64, bf16, True, None)]
     worst = {f32: 0.0, bf16: 0.0}
     for B, Sq, Skv, H, Kv, D, dt, causal, window in cases:
         q, k, v = _attention_inputs(gen, B, Sq, Skv, H, Kv, D, dt)
@@ -341,7 +448,7 @@ def phase_attention(card: str) -> dict:
     return row
 
 
-def _grads_one_step(params, cfg, batch):
+def _grads_one_step(params, cfg, batch, *, remat: bool = False):
     """Loss and gradients of one agent's local step."""
     import torch
 
@@ -350,13 +457,14 @@ def _grads_one_step(params, cfg, batch):
 
     leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
     loss = tf.train_loss(tree_unflatten(params, leaves), cfg, batch,
-                         remat=False)
+                         remat=remat)
     grads = torch.autograd.grad(loss, leaves)
     return loss.item(), grads
 
 
-def _profile_block(state, cfg, K, T, B, S, steady_s: float,
-                   card: str) -> dict:
+def _profile_block(state, cfg, K, T, B, S, steady_s: float, card: str, *,
+                   optimizer: str = "adam", mu: float = 1e-4,
+                   label: str = "phase 5") -> dict:
     """One more block from ``state`` under ``torch.profiler``: the device
     time of its kernels (kernel events only: an operator's row repeats the
     time of the kernels it launched), their share of the steady unprofiled
@@ -372,10 +480,10 @@ def _profile_block(state, cfg, K, T, B, S, steady_s: float,
     from repro_torch.tree import tree_map
 
     eng = DiffusionEngine(
-        DiffusionConfig(num_agents=K, local_steps=T, step_size=1e-4,
+        DiffusionConfig(num_agents=K, local_steps=T, step_size=mu,
                         participation=0.9, mix="pallas"),
-        lambda p, b: tf.train_loss(p, cfg, b, remat=False), adam().update,
-        device="cuda")
+        lambda p, b: tf.train_loss(p, cfg, b, remat=False),
+        adam().update if optimizer == "adam" else None, device="cuda")
     gen = torch.Generator().manual_seed(11)
     batch = tree_map(lambda x: x.cuda(), lm_token_batch(
         gen, (T, K, B, S), cfg.vocab_size))
@@ -399,10 +507,10 @@ def _profile_block(state, cfg, K, T, B, S, steady_s: float,
            "top_kernels": [{"name": n[:100], "ms": ms, "count": c}
                            for n, ms, c in top]}
     if not busy_ms:
-        print("phase 5: the trace holds no device time: busy share not "
+        print(f"{label}: the trace holds no device time: busy share not "
               "measured")
     else:
-        print(f"phase 5: profiled block: kernels busy {busy_ms:.1f} ms = "
+        print(f"{label}: profiled block: kernels busy {busy_ms:.1f} ms = "
               f"{100 * out['device_busy_share']:.1f} % of the steady "
               f"{steady_s:.3f}s block ({out['device_launches']} kernel "
               f"launches; {wall:.3f}s on the host clock under the "
@@ -422,6 +530,7 @@ def phase_train(card: str) -> tuple[dict, dict]:
     from repro_torch.data.synthetic import lm_token_batch
     from repro_torch.kernels import diffusion_mix as dm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -432,11 +541,13 @@ def phase_train(card: str) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     dm.diffusion_mix.launches = 0
     fa.flash_attention.launches = 0
+    ssd_scan.ssd_intra_chunk.launches = 0
     t0 = time.perf_counter()
     out = train.main(argv, use_kernels=True)
     wall = time.perf_counter() - t0
     launches = {"flash_attention": fa.flash_attention.launches,
-                "diffusion_mix": dm.diffusion_mix.launches}
+                "diffusion_mix": dm.diffusion_mix.launches,
+                "ssd_intra_chunk": ssd_scan.ssd_intra_chunk.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = out["cfg"]
     # one launch per layer per agent per local step, plus the logging
@@ -495,16 +606,19 @@ def phase_train(card: str) -> tuple[dict, dict]:
     return launches, row
 
 
-def phase_train_devices() -> None:
-    """Phase 6: smoke training on the card and on the CPU, same seed."""
+def phase_train_devices(arch: str = "smollm-360m",
+                        label: str = "phase 6") -> None:
+    """Phase 6 (and 9): smoke training on the card and on the CPU, same
+    seed."""
     import numpy as np
     import torch
 
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
-    base = ["--agents", "4", "--local-steps", "2", "--blocks", "3", "--mix",
-            "pallas", "--batch", "2", "--seq", "64"]
+    base = ["--arch", arch, "--agents", "4", "--local-steps", "2",
+            "--blocks", "3", "--mix", "pallas", "--batch", "2", "--seq",
+            "64"]
     for optimizer, mu in (("sgd", 0.05), ("adam", 1e-3)):
         argv = base + ["--optimizer", optimizer, "--step-size", str(mu)]
         gpu = train.main(argv, use_kernels=True)
@@ -531,12 +645,12 @@ def phase_train_devices() -> None:
             ok = loss_rel <= 1e-3 and worst <= bound and far <= 1e-3 * total
             gate = (f"losses 1e-3 relative, parameters within {bound:g} and "
                     f"99.9 % within 1e-5 ({far} of {total} beyond)")
-        print(f"phase 6: smoke {optimizer}: card vs CPU losses rel "
+        print(f"{label}: {arch} smoke {optimizer}: card vs CPU losses rel "
               f"{loss_rel:.2e}, parameters max |diff| {worst:.2e} "
               f"(gate: {gate})")
         if not ok:
-            raise AssertionError(f"smoke training ({optimizer}): card and "
-                                 "CPU disagree")
+            raise AssertionError(f"{arch} smoke training ({optimizer}): "
+                                 "card and CPU disagree")
 
 
 def _stack_agents(cfg, K: int, seed: int):
@@ -613,6 +727,7 @@ def phase_full(scratch: Path, card: str) -> tuple[dict, dict]:
     from repro_torch.configs import get_config
     from repro_torch.kernels import diffusion_mix as dm
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
     from repro_torch.launch import serve
     from repro_torch.tree import tree_leaves
 
@@ -635,10 +750,12 @@ def phase_full(scratch: Path, card: str) -> tuple[dict, dict]:
 
     dm.diffusion_mix.launches = 0
     fa.flash_attention.launches = 0
+    ssd_scan.ssd_intra_chunk.launches = 0
     torch.cuda.reset_peak_memory_stats()
     first = serve.main(argv + ["--mix", "pallas"])
     launches = {"diffusion_mix": dm.diffusion_mix.launches,
-                "flash_attention": fa.flash_attention.launches}
+                "flash_attention": fa.flash_attention.launches,
+                "ssd_intra_chunk": ssd_scan.ssd_intra_chunk.launches}
     if launches["diffusion_mix"] < 1:
         raise AssertionError("the serving path never launched diffusion_mix")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -679,6 +796,425 @@ def phase_full(scratch: Path, card: str) -> tuple[dict, dict]:
     return launches, serve_row
 
 
+def _ssd_inputs(gen, b, s, h, p, n, dtype, conv_dim=None):
+    """SSD inputs as the mixer makes them: x and B, C in ``dtype`` (with
+    ``conv_dim``, B and C are strided slices of one xBC row), dt > 0 and
+    A < 0 in float32."""
+    import torch
+
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device="cuda")) * 0.5
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.3)
+    if conv_dim is None:
+        B = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+        C = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+    else:
+        xBC = torch.randn((b, s, conv_dim), generator=gen,
+                          device="cuda").to(dtype)
+        B = xBC[..., conv_dim - 2 * n:conv_dim - n]
+        C = xBC[..., conv_dim - n:]
+    return x, dt, A, B, C
+
+
+def _check_intra(x, dt, A, B, C, chunk, label) -> float:
+    """The intra-chunk kernel against its plain version on s padded to the
+    chunk; returns the largest |kernel - plain| of the three outputs."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ssd_intra_chunk_ref
+
+    pad = (-x.shape[1]) % chunk
+    if pad:
+        x, dt = F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad))
+        B, C = F.pad(B, (0, 0, 0, pad)), F.pad(C, (0, 0, 0, pad))
+    xd = x.float() * dt[..., None]
+    dA = dt * A
+    outs = ssd_scan.ssd_intra_chunk(xd, dA, B, C, chunk=chunk)
+    refs = ssd_intra_chunk_ref(xd, dA, B, C, chunk=chunk)
+    worst = 0.0
+    for name, out, ref in zip(("Y_diag", "states", "dA_cumsum"), outs, refs):
+        err = rel_err(out, ref)
+        if not err <= INTRA_TOL:
+            raise AssertionError(f"ssd_intra_chunk {label}: {name} rel err "
+                                 f"{err:.3e} > {INTRA_TOL}")
+        worst = max(worst, (out - ref).abs().max().item())
+    return worst
+
+
+def _check_ssd_op(x, dt, A, B, C, chunk, label, init=None) -> float:
+    """``ssd_op`` against the sequential ``ssd_ref`` at the reference's
+    gate for x's dtype; returns max |y - y_ref|."""
+    from repro_torch.kernels.ops import ssd_op
+    from repro_torch.kernels.ref import ssd_ref
+
+    y, fin = ssd_op(x, dt, A, B, C, chunk=chunk, initial_state=init)
+    yr, finr = ssd_ref(x, dt, A, B, C, initial_state=init)
+    tol = SSD_TOL[str(x.dtype).removeprefix("torch.")]
+    for name, a, b in (("y", y, yr), ("final state", fin, finr)):
+        a, b = a.float(), b.float()
+        if not bool(((a - b).abs() <= tol * (1 + b.abs())).all()):
+            raise AssertionError(f"ssd_op {label}: {name} max |err| "
+                                 f"{(a - b).abs().max().item():.3e} beyond "
+                                 f"{tol}")
+    return (y.float() - yr.float()).abs().max().item()
+
+
+def phase_ssd(card: str) -> dict:
+    """Phase 7: the SSD intra-chunk kernel against its plain version, and
+    ``ssd_op`` against ``ssd_ref``."""
+    import torch
+
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.kernels.ref import ssd_intra_chunk_ref
+
+    ssd_scan.build()
+    ptxas = ptxas_lines("ssd_scan")
+    for line in ptxas:
+        print("  ptxas:", line)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst_intra = worst_op = 0.0
+    n_cases = 0
+    # the reference's sweep (tests/test_kernels.py; s = 100 is padded)
+    for b, s, h, p, n, chunk in ((1, 64, 2, 16, 8, 32),
+                                 (2, 128, 4, 32, 16, 64),
+                                 (1, 100, 3, 64, 32, 32)):
+        for dt in (f32, bf16):
+            args = _ssd_inputs(gen, b, s, h, p, n, dt)
+            label = f"{(b, s, h, p, n, chunk)} {dt}"
+            worst_intra = max(worst_intra, _check_intra(*args, chunk, label))
+            worst_op = max(worst_op, _check_ssd_op(*args, chunk, label))
+            n_cases += 1
+    # an initial state (the reference's test)
+    args = _ssd_inputs(gen, 1, 64, 2, 16, 8, f32)
+    init = torch.randn((1, 2, 16, 8), generator=gen, device="cuda")
+    worst_op = max(worst_op, _check_ssd_op(*args, 32, "initial state",
+                                           init=init))
+    print(f"phase 7: {n_cases} sweep cases and an initial state: intra-chunk "
+          f"within {INTRA_TOL} of the plain version (max |err| "
+          f"{worst_intra:.3e}), ssd_op within the reference's gates "
+          f"{SSD_TOL} of ssd_ref (max |err| {worst_op:.3e})")
+
+    rows = {}
+    for arch, (b, s, h, p, n, chunk) in SSD_PATH_SHAPES.items():
+        conv_dim = h * p + 2 * n
+        x, dt, A, B, C = _ssd_inputs(gen, b, s, h, p, n, bf16,
+                                     conv_dim=conv_dim)
+        label = f"{arch} path shape {(b, s, h, p, n, chunk)}"
+        max_abs = _check_intra(x, dt, A, B, C, chunk, label)
+        op_err = _check_ssd_op(x, dt, A, B, C, chunk, label)
+        xd = (x.float() * dt[..., None]).contiguous()
+        dA = (dt * A).contiguous()
+        ms = time_ms(lambda: ssd_scan.ssd_intra_chunk(xd, dA, B, C,
+                                                      chunk=chunk), iters=20)
+        plain_ms = time_ms(lambda: ssd_intra_chunk_ref(xd, dA, B, C,
+                                                       chunk=chunk), iters=5)
+        nc = s // chunk
+        nbytes = (4 * (2 * b * s * h * p + 2 * b * s * h + b * nc * h * p * n)
+                  + 2 * B.element_size() * b * s * n)
+        tri = chunk * (chunk + 1) // 2      # the kept (j <= i) pairs
+        flops = 2 * b * h * nc * (tri * (n + p) + chunk * p * n)
+        square = 2 * b * h * nc * (chunk * chunk * (n + p) + chunk * p * n)
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / FP32_FLOPS_PER_S * 1e3
+        rows[arch] = {
+            "shape": [b, s, h, p, n, chunk], "max_abs_err": max_abs,
+            "ssd_op_max_abs_err": op_err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bound_bytes, bound_ops),
+            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+            "tf32_bound_ms": max(bound_bytes,
+                                 flops / TF32_FLOPS_PER_S * 1e3),
+            "square_fp32_ms": square / FP32_FLOPS_PER_S * 1e3,
+            "bytes": nbytes, "flops": flops, "flops_square": square}
+        print(f"phase 7: {label}, B/C bf16: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {rows[arch]['bound_ms']:.4f} ms "
+              f"({rows[arch]['bound_by']}: {flops:.4e} float32 operations of "
+              f"the kept j <= i pairs at {FP32_FLOPS_PER_S:.3g}/s, "
+              f"{nbytes:,} bytes at {HBM_BYTES_PER_S:.3g} B/s); the full "
+              f"square the kernel computes, {square:.4e} operations, "
+              f"{rows[arch]['square_fp32_ms']:.4f} ms; tf32_bound_ms "
+              f"{rows[arch]['tf32_bound_ms']:.4f}; library ms: none (no "
+              f"single PyTorch call computes this function); max |err| "
+              f"intra {max_abs:.3e}, ssd_op {op_err:.3e} [{card}]")
+        del x, dt, A, B, C, xd, dA
+    torch.cuda.empty_cache()
+    main = rows["mamba2-2.7b"]
+    return {"name": "ssd_intra_chunk", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:57",
+            "launches": None, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": None, "tf32_bound_ms": main["tf32_bound_ms"],
+            "bytes": main["bytes"], "flops": main["flops"],
+            "shape": main["shape"], "by_path": rows, "ptxas": ptxas}
+
+
+def phase_train_mamba(card: str) -> tuple[dict, dict]:
+    """Phase 8: Algorithm 1 on full-width mamba2-2.7b through train.main,
+    with the SSD kernel in every layer and the mix kernel once a block."""
+    import torch
+
+    from repro_torch.kernels import diffusion_mix as dm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves, tree_map
+
+    K, T, B, S, blocks, mu = 2, 2, 1, 1024, 3, 0.05
+    argv = ["--arch", "mamba2-2.7b", "--full", "--agents", str(K),
+            "--local-steps", str(T), "--batch", str(B), "--seq", str(S),
+            "--blocks", str(blocks), "--optimizer", "sgd", "--step-size",
+            str(mu), "--mix", "pallas"]
+    torch.cuda.reset_peak_memory_stats()
+    dm.diffusion_mix.launches = 0
+    fa.flash_attention.launches = 0
+    ssd_scan.ssd_intra_chunk.launches = 0
+    t0 = time.perf_counter()
+    out = train.main(argv, use_kernels=True)
+    wall = time.perf_counter() - t0
+    launches = {"ssd_intra_chunk": ssd_scan.ssd_intra_chunk.launches,
+                "diffusion_mix": dm.diffusion_mix.launches,
+                "flash_attention": fa.flash_attention.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = out["cfg"]
+    # one launch per layer per agent per local step, plus the logging
+    # forward of every agent after each block
+    want = {"ssd_intra_chunk": cfg.num_layers * K * (T * blocks
+                                                     + len(out["losses"])),
+            "diffusion_mix": blocks, "flash_attention": 0}
+    if launches != want:
+        raise AssertionError(f"launches on the mamba2 training path "
+                             f"{launches}, expected {want}")
+    losses = torch.tensor(out["losses"])
+    if not torch.isfinite(losses).all():
+        raise AssertionError(f"non-finite training losses {out['losses']}")
+    state = out["state"]
+    if not all(torch.isfinite(x).all() for x in tree_leaves(state.params)):
+        raise AssertionError("non-finite parameters after training")
+    for i, (t, tps) in enumerate(zip(out["timings"], out["tokens_per_s"])):
+        print(f"phase 8: block {i}: {t['block_s']:.3f}s (local updates "
+              f"{t['local_s']:.3f}s, combination {t['combine_s']:.3f}s), "
+              f"{tps:.0f} tokens/s [{card}]")
+    print(f"phase 8: {launches} launches on the training path; losses "
+          f"{out['losses']}; peak device memory {peak_gb:.2f} GB; train.main "
+          f"took {wall:.1f}s [{card}]")
+    steady_s = min(t["block_s"] for t in out["timings"][1:])
+    profile = _profile_block(state, cfg, K, T, B, S, steady_s, card,
+                             optimizer="sgd", mu=mu, label="phase 8")
+    row = {"phase": "train", "arch": "mamba2-2.7b", "agents": K,
+           "local_steps": T, "batch": B, "seq": S, "blocks": blocks,
+           "optimizer": "sgd", "step_size": mu, "mix": "pallas",
+           "timings": out["timings"], "tokens_per_s": out["tokens_per_s"],
+           "losses": out["losses"], "launches": launches,
+           "peak_mem_gb": peak_gb, "profile": profile, "card": card}
+    params = tree_map(lambda x: x[0].clone(), state.params)
+    del out, state
+    torch.cuda.empty_cache()
+    row.update(_mamba_step_check(params, cfg, B, S))
+    print(json.dumps(row))
+    return launches, row
+
+
+def _grad_rels(params, g_a, g_b) -> tuple[dict, dict]:
+    """|a - b| / |b| in Frobenius norm for every gradient leaf, and for
+    every layer of the layer-stacked segment leaves."""
+    from repro_torch.tree import tree_flatten_with_path
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm()
+                / b.float().norm().clamp(min=1e-30)).item()
+
+    leaf, layer = {}, {}
+    for (path, _), a, b in zip(tree_flatten_with_path(params), g_a, g_b):
+        name = "/".join(map(str, path))
+        leaf[name] = rel(a, b)
+        if path[0] == "segments":
+            for i, (ai, bi) in enumerate(zip(a.unbind(0), b.unbind(0))):
+                layer[f"{name}[{i}]"] = rel(ai, bi)
+    return leaf, layer
+
+
+def _summary(rels: dict) -> dict:
+    worst = max(rels, key=rels.get)
+    return {"worst": worst, "worst_rel": rels[worst],
+            "median_rel": sorted(rels.values())[len(rels) // 2]}
+
+
+def _mamba_step_check(params, cfg, B: int, S: int) -> dict:
+    """One local step of one agent at full mamba2 width, SSD kernel
+    against plain SSD, beside its two witnesses (see SSM_GRAD_*)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.tree import tree_map
+
+    batch = tree_map(lambda x: x.cuda(), lm_token_batch(
+        torch.Generator().manual_seed(8), (B, S), cfg.vocab_size))
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    loss_k, g_k = _grads_one_step(params, cfg, batch)
+    loss_p, g_p = _grads_one_step(params, plain, batch)
+    kernel, kernel_layers = _grad_rels(params, g_k, g_p)
+    del g_k
+    loss_w, g_w = _grads_one_step(
+        params, dataclasses.replace(plain, ssm_chunk=64), batch)
+    witness, witness_layers = _grad_rels(params, g_w, g_p)
+    del g_w, g_p
+    # float32 parameters; remat keeps the float32 activations to one layer
+    p32 = tree_map(lambda x: x.float(), params)
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    loss_k32, g_k32 = _grads_one_step(p32, cfg32, batch, remat=True)
+    loss_p32, g_p32 = _grads_one_step(
+        p32, dataclasses.replace(cfg32, use_kernels=False), batch, remat=True)
+    f32, f32_layers = _grad_rels(p32, g_k32, g_p32)
+    del p32, g_k32, g_p32
+    torch.cuda.empty_cache()
+
+    res = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_plain_chunk64": loss_w,
+           "loss_rel_kernel_vs_plain": abs(loss_k - loss_p) / abs(loss_p),
+           "loss_rel_f32": abs(loss_k32 - loss_p32) / abs(loss_p32),
+           "grad_bf16_kernel_vs_plain": {"leaf": _summary(kernel),
+                                         "layer": _summary(kernel_layers)},
+           "grad_bf16_chunk64_vs_chunk128": {
+               "leaf": _summary(witness), "layer": _summary(witness_layers)},
+           "grad_f32_kernel_vs_plain": {"leaf": _summary(f32),
+                                        "layer": _summary(f32_layers)}}
+    for name in ("grad_bf16_kernel_vs_plain",
+                 "grad_bf16_chunk64_vs_chunk128", "grad_f32_kernel_vs_plain"):
+        for unit in ("leaf", "layer"):
+            r = res[name][unit]
+            print(f"phase 8: {name} per {unit}: worst {r['worst']} "
+                  f"{r['worst_rel']:.3e}, median {r['median_rel']:.3e}")
+    k_rel = res["grad_bf16_kernel_vs_plain"]["leaf"]["worst_rel"]
+    w_rel = res["grad_bf16_chunk64_vs_chunk128"]["leaf"]["worst_rel"]
+    f_rel = res["grad_f32_kernel_vs_plain"]["layer"]["worst_rel"]
+    print(f"phase 8: one local step, SSD kernel vs plain SSD: bf16 loss "
+          f"{loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{res['loss_rel_kernel_vs_plain']:.2e}, gate {SSM_LOSS_TOL}); "
+          f"float32 loss rel {res['loss_rel_f32']:.2e} (gate "
+          f"{SSM_LOSS_TOL_F32}); bf16 worst leaf {k_rel:.3e} against the "
+          f"chunk-64 witness {w_rel:.3e} (gate {SSM_GRAD_WITNESS_RATIO}x the "
+          f"witness); float32 worst layer {f_rel:.3e} (gate "
+          f"{SSM_GRAD_TOL_F32})")
+    if not res["loss_rel_kernel_vs_plain"] <= SSM_LOSS_TOL:
+        raise AssertionError("full-width mamba2 loss: kernel path != plain")
+    if not res["loss_rel_f32"] <= SSM_LOSS_TOL_F32:
+        raise AssertionError("full-width mamba2 float32 loss: kernel != plain")
+    if not k_rel <= SSM_GRAD_WITNESS_RATIO * w_rel:
+        raise AssertionError("full-width mamba2 bf16 gradients: kernel vs "
+                             "plain beyond the rounding witness")
+    if not f_rel <= SSM_GRAD_TOL_F32:
+        raise AssertionError("full-width mamba2 float32 gradients: kernel "
+                             "!= plain")
+    return res
+
+
+def phase_ssm_devices(scratch: Path, card: str) -> dict:
+    """Phase 9: the SSM paths on the card against the CPU, and the one
+    full-width forward that runs both the SSD and the attention kernel."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.kernels import diffusion_mix as dm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    for arch in ("mamba2-2.7b", "zamba2-1.2b"):
+        phase_train_devices(arch, label="phase 9")
+        # prefill + greedy decode from one checkpoint on both devices
+        cfg = get_config(arch).smoke
+        path = str(scratch / f"{arch}_smoke.npz")
+        save_checkpoint(path, tf.init_params(
+            torch.Generator().manual_seed(90), cfg))
+        argv = ["--arch", arch, "--smoke", "--checkpoint", path, "--batch",
+                "2", "--prompt-len", "40", "--decode", "8", "--temperature",
+                "0"]
+        gpu = serve.main(argv)
+        cpu = serve.main(argv + ["--device", "cpu"])
+        lg_err = (gpu["prefill_logits"].cpu()
+                  - cpu["prefill_logits"]).abs().max().item()
+        if not lg_err <= 1e-4:
+            raise AssertionError(f"{arch} smoke prefill logits: card vs CPU "
+                                 f"{lg_err:.3e} > 1e-4")
+        if not torch.equal(gpu["tokens"], cpu["tokens"]):
+            raise AssertionError(f"{arch} smoke greedy tokens differ: card "
+                                 f"{gpu['tokens'].tolist()} vs CPU "
+                                 f"{cpu['tokens'].tolist()}")
+        print(f"phase 9: {arch} smoke prefill logits card vs CPU "
+              f"{lg_err:.2e}; 8 greedy tokens equal")
+
+    # full-width zamba2-1.2b: one forward, kernels on and off
+    cfg = get_config("zamba2-1.2b").model
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(91),
+                            cfg)
+    batch = {k: v.cuda() for k, v in lm_token_batch(
+        torch.Generator().manual_seed(92), (1, 1024), cfg.vocab_size).items()}
+    fa.flash_attention.launches = 0
+    ssd_scan.ssd_intra_chunk.launches = 0
+    dm.diffusion_mix.launches = 0
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        loss_k = tf.train_loss(params, dataclasses.replace(
+            cfg, use_kernels=True), batch, remat=False).item()
+        kernel_s = time.perf_counter() - t0
+        launches = {"flash_attention": fa.flash_attention.launches,
+                    "ssd_intra_chunk": ssd_scan.ssd_intra_chunk.launches,
+                    "diffusion_mix": dm.diffusion_mix.launches}
+        loss_p = tf.train_loss(params, cfg, batch, remat=False).item()
+    n_attn = sum(n for kind, n in cfg.segments() if kind == "attn")
+    want = {"flash_attention": n_attn,
+            "ssd_intra_chunk": cfg.num_layers - n_attn, "diffusion_mix": 0}
+    if launches != want:
+        raise AssertionError(f"zamba2 forward launches {launches}, expected "
+                             f"{want}")
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"phase 9: zamba2-1.2b full width, B=1, S=1024: loss kernels on "
+          f"{loss_k:.6f}, off {loss_p:.6f} (rel {loss_rel:.2e}, gate "
+          f"{SSM_LOSS_TOL}); launches {launches}; kernel forward "
+          f"{kernel_s:.3f}s [{card}]")
+    if not (loss_rel <= SSM_LOSS_TOL and torch.isfinite(
+            torch.tensor([loss_k, loss_p])).all()):
+        raise AssertionError("zamba2 full-width forward: kernels on != off")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+@contextlib.contextmanager
+def _expandable_segments():
+    """Run phase 8 under the caching allocator's expandable segments, and
+    the other phases under its default fixed segments.
+
+    Phase 8 holds 40 GiB of live tensors when the combination asks for one
+    more 20 GiB buffer; with fixed segments the freed activation blocks
+    stay scattered over partly used segments (25 GiB of them on an H100
+    80 GB) and the request fails.  Expandable segments map that memory
+    anew.  The cache is emptied on both sides of the switch, so each phase
+    allocates only segments of its own kind."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
 def main() -> int:
     import torch
 
@@ -707,18 +1243,29 @@ def main() -> int:
         attn_row = phase_attention(card)
         train_launches, _ = phase_train(card)
         phase_train_devices()
+        ssd_row = phase_ssd(card)
+        with _expandable_segments():
+            mamba_launches, _ = phase_train_mamba(card)
+        zamba_launches = phase_ssm_devices(scratch, card)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    # each row's numbers are at the training path's shape; diffusion_mix's
-    # "by_path" also gives the serving path's shape and times
-    for row in (mix_row, attn_row):
-        row["launches"] = train_launches[row["name"]]
-        row["launches_by_path"] = {
-            "serve": serve_launches[row["name"]],
-            "train": train_launches[row["name"]]}
+    # each row's numbers are at its own training path's shape (smollm for
+    # the mix and attention kernels, mamba2 for the SSD kernel);
+    # "launches_by_path" gives every path's counts
+    by_path = {"serve_smollm": serve_launches,
+               "train_smollm": train_launches,
+               "train_mamba2": mamba_launches,
+               "forward_zamba2": zamba_launches}
+    for row, main_path in ((mix_row, "train_smollm"),
+                           (attn_row, "train_smollm"),
+                           (ssd_row, "train_mamba2")):
+        row["launches"] = by_path[main_path][row["name"]]
+        row["launches_by_path"] = {name: counts[row["name"]]
+                                   for name, counts in by_path.items()}
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f}s [{card}]")
-    print(json.dumps({"kernels": [mix_row, attn_row], "card": card}))
+    print(json.dumps({"kernels": [mix_row, attn_row, ssd_row],
+                      "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -118,9 +118,10 @@ class ArchBundle:
 
 
 #: architectures the port runs today
-ARCH_IDS = ("smollm_360m",)
+ARCH_IDS = ("smollm_360m", "mamba2_2p7b", "zamba2_1p2b")
 
-_ALIASES = {"smollm-360m": "smollm_360m"}
+_ALIASES = {"smollm-360m": "smollm_360m", "mamba2-2.7b": "mamba2_2p7b",
+            "zamba2-1.2b": "zamba2_1p2b"}
 
 #: the reference's other architectures, with the ROADMAP item that ports
 #: what they need
@@ -130,8 +131,6 @@ _PENDING = {
     "starcoder2_15b": "queue 1 item 15 (the other dense archs)",
     "llava_next_mistral_7b": "queue 1 item 17 (image prefix)",
     "musicgen_medium": "queue 1 item 17 (multi-codebook embeddings)",
-    "mamba2_2p7b": "queue 1 item 17 (SSM) and queue 2 kernel 3",
-    "zamba2_1p2b": "queue 1 item 17 (SSM, shared attention)",
     "granite_moe_1b_a400m": "queue 1 item 17 (MoE)",
     "kimi_k2_1t_a32b": "queue 1 item 17 (MoE)",
 }

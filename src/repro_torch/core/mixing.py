@@ -161,10 +161,12 @@ class PallasFusedMixer(Mixer):
         return buf
 
     def _unflatten(self, buf, leaves, lay) -> list:
+        # copy=True: a float32 leaf must not stay a view of ``buf``, or the
+        # whole (K, M) buffer would live as long as that leaf does
         outs, off = [], 0
         for leaf, n in zip(leaves, lay.sizes):
             outs.append(buf[:, off:off + n].reshape(leaf.shape)
-                        .to(leaf.dtype))
+                        .to(leaf.dtype, copy=True))
             off += n
         return outs
 

@@ -3,8 +3,10 @@
 Counterpart of ``repro.kernels.ops``.  :func:`attention_op` runs the
 flash-attention kernel forward (the plain version for CPU tensors) and
 differentiates the streaming twin
-:func:`repro_torch.models.layers.flash_attention_jnp`, as the reference's
-custom VJP does: kernel forward, framework backward.  The reference has no
+:func:`repro_torch.models.layers.flash_attention_jnp`; :func:`ssd_op` runs
+the SSD intra-chunk kernel forward and differentiates the plain
+:func:`repro_torch.models.ssm.ssd_chunked`.  Both do what the reference's
+custom VJPs do: kernel forward, framework backward.  The reference has no
 backward kernel, so neither has the port.
 """
 from __future__ import annotations
@@ -13,9 +15,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_chunked_kernel
 from repro_torch.models.layers import flash_attention_jnp
+from repro_torch.models.ssm import pad_to_chunk, ssd_chunked
 
-__all__ = ["attention_op"]
+__all__ = ["attention_op", "ssd_op"]
 
 #: the reference's key block (``attention_op``'s ``block_kv``)
 BLOCK_KV = 128
@@ -59,3 +63,49 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Flash attention, differentiable.  q: (B, Sq, H, D); k, v:
     (B, Skv, Kv, D).  Returns (B, Sq, H, D) in q's dtype."""
     return _Attention.apply(q, k, v, causal, window)
+
+
+class _SSD(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.chunk = chunk
+        s = x.shape[1]
+        xp, dtp, Bp, Cp = pad_to_chunk(x, dt, B, C, chunk)
+        y, final = ssd_chunked_kernel(xp, dtp, A, Bp, Cp, chunk=chunk)
+        return y[:, :s], final
+
+    @staticmethod
+    def backward(ctx, gy, gfinal):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        x, dt, A, B, C = inputs
+        s = x.shape[1]
+        with torch.enable_grad():
+            xp, dtp, Bp, Cp = pad_to_chunk(x, dt, B, C, ctx.chunk)
+            y, final = ssd_chunked(xp, dtp, A, Bp, Cp, chunk=ctx.chunk)
+            grads = torch.autograd.grad((y[:, :s], final), inputs,
+                                        (gy, gfinal), allow_unused=True)
+        return (*grads, None)
+
+
+def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+           B: torch.Tensor, C: torch.Tensor, *, chunk: int = 128,
+           initial_state: torch.Tensor | None = None):
+    """Chunked SSD through the intra-chunk kernel, with s zero-padded to a
+    multiple of ``chunk``.
+
+    x: (b, s, h, p); dt: (b, s, h); A: (h,); B, C: (b, s, n).  Returns
+    (y (b, s, h, p) in x's dtype, final_state (b, h, p, n) float32).
+    Differentiable in x, dt, A, B and C through the plain chunked twin
+    (kernel forward, framework backward).  ``initial_state`` bypasses the
+    autograd function, as in the reference (prefill continuation only; not
+    used in training).
+    """
+    if initial_state is not None:
+        s = x.shape[1]
+        xp, dtp, Bp, Cp = pad_to_chunk(x, dt, B, C, chunk)
+        y, final = ssd_chunked_kernel(xp, dtp, A, Bp, Cp, chunk=chunk,
+                                      initial_state=initial_state)
+        return y[:, :s], final
+    return _SSD.apply(x, dt, A, B, C, chunk)

@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.core.participation import masked_combination
 
-__all__ = ["attention_ref", "mix_ref"]
+__all__ = ["attention_ref", "mix_ref", "ssd_ref", "ssd_intra_chunk_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,3 +50,62 @@ def mix_ref(A: torch.Tensor, active: torch.Tensor,
     A_eff = masked_combination(A.to(device=W.device, dtype=torch.float32),
                                active)
     return torch.einsum("lk,lm->km", A_eff, W.float()).to(W.dtype)
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, *,
+            initial_state: torch.Tensor | None = None):
+    """Sequential SSD recurrence (ground truth), a float32 loop over s.
+
+    x: (b, s, h, p); dt: (b, s, h); A: (h,); B, C: (b, s, n).
+    h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t^T ;  y_t = h_t C_t.
+    Returns (y (b, s, h, p) in x's dtype, final_state (b, h, p, n) float32).
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    f32 = torch.float32
+    state = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+             if initial_state is None else initial_state.to(f32))
+    A = A.to(f32)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].to(f32)                                    # (b, h)
+        decay = torch.exp(dtt * A)
+        xd = x[:, t].to(f32) * dtt[..., None]                     # (b, h, p)
+        state = (state * decay[..., None, None]
+                 + torch.einsum("bhp,bn->bhpn", xd, B[:, t].to(f32)))
+        ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, t].to(f32)))
+    return torch.stack(ys, dim=1).to(x.dtype), state
+
+
+def ssd_intra_chunk_ref(xd: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
+                        C: torch.Tensor, *, chunk: int):
+    """The SSD intra-chunk step in float32, chunk by chunk.
+
+    xd: (b, s, h, p) dt-scaled inputs; dA: (b, s, h) = dt * A; B, C:
+    (b, s, n); s a multiple of ``chunk`` (Q).  For every chunk:
+        dA_cs   = cumsum(dA_c)
+        Y_diag  = ((C_c B_c^T) o L) xd_c,
+                  L_ij = exp(dA_cs_i - dA_cs_j) for j <= i, else 0
+        state_c = xd_c^T (B_c o exp(dA_cs_Q - dA_cs))
+    Returns (Y_diag (b, s, h, p), states (b, nc, h, p, n),
+    dA_cumsum (b, s, h)), all float32.
+    """
+    b, s, h, p = xd.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"s={s} not divisible by chunk={chunk}")
+    nc, Q = s // chunk, chunk
+    f32 = torch.float32
+    xdc = xd.to(f32).reshape(b, nc, Q, h, p)
+    Bc = B.to(f32).reshape(b, nc, Q, n)
+    Cc = C.to(f32).reshape(b, nc, Q, n)
+    cs = torch.cumsum(dA.to(f32).reshape(b, nc, Q, h), dim=2)    # (b,c,l,h)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]             # (b,c,i,j,h)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=xd.device).tril()
+    Lm = torch.exp(seg.masked_fill(~mask[:, :, None], float("-inf")))
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None] * Lm
+    y = torch.einsum("bcijh,bcjhp->bcihp", scores, xdc)
+    decay = torch.exp(cs[:, :, -1:, :] - cs)                      # (b,c,l,h)
+    states = torch.einsum("bcjhp,bcjn->bchpn", xdc * decay[..., None], Bc)
+    return y.reshape(b, s, h, p), states, cs.reshape(b, s, h)

@@ -5,6 +5,13 @@ on one device.
   PYTHONPATH=src python -m repro_torch.launch.train --full --agents 4 \
       --local-steps 2 --batch 2 --seq 1024 --blocks 3 --mix pallas \
       --optimizer adam --step-size 1e-4
+  PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
+      --full --agents 2 --local-steps 2 --batch 1 --seq 1024 --blocks 3 \
+      --mix pallas --optimizer sgd --step-size 0.05
+
+(Full-width mamba2 at K = 2 fills an 80 GB card: the combination's float32
+buffers need the expandable segments of PyTorch's caching allocator.)
 
 Counterpart of ``repro.launch.train`` on the stacked engine (on one device
 the reference's ``engine="auto"`` sharded engine equals it).  The flags are
@@ -15,10 +22,11 @@ falls back to the CPU by itself.
 
 Every random draw (initial weights, batches, activation masks) comes from
 one host generator seeded with ``--seed``, so the card and the CPU realize
-the same run.  The attention of the local updates is chosen by
+the same run.  The kernels of the local updates are chosen by
 ``cfg.use_kernels``, as in the reference: ``main(..., use_kernels=True)``
 applies ``dataclasses.replace(cfg, use_kernels=True)``, which runs the
-flash-attention kernel.
+flash-attention kernel in attention layers and the SSD intra-chunk kernel
+in mamba layers.
 """
 from __future__ import annotations
 

@@ -5,22 +5,28 @@ Counterpart of ``repro.models.transformer``.  Layers are grouped into
 *segments* (runs of one block type) whose per-layer parameters are stacked
 on a leading axis, under the reference's segment keys (``"00.attn.032"``),
 and segments run in sorted key order; where the reference scans a segment,
-the port loops over its layers.  The port runs ``attn`` segments; ``mamba``,
-``moe`` and ``shared_attn`` segments, the image prefix and multi-codebook
+the port loops over its layers.  The port runs ``attn``, ``mamba`` (the
+Mamba2 mixer, :mod:`repro_torch.models.ssm`) and ``shared_attn`` segments:
+zamba2's shared attention block is stored once, at ``params["shared_attn"]``,
+each of its segments is an empty dict, and the block is applied at every
+slot of the segment.  ``moe`` segments, the image prefix and multi-codebook
 embeddings raise ``NotImplementedError`` (ROADMAP.md queue 1 item 17).
 
-``cfg.use_kernels`` selects the attention of :func:`forward` as the
-reference does: the flash-attention kernel through
-:func:`repro_torch.kernels.ops.attention_op`, else the streaming
-:func:`repro_torch.models.layers.flash_attention_jnp`.  Prefill always
-streams, as the reference's does.
+``cfg.use_kernels`` selects the kernels of :func:`forward` as the reference
+does: attention through the flash-attention kernel
+(:func:`repro_torch.kernels.ops.attention_op`), else the streaming
+:func:`repro_torch.models.layers.flash_attention_jnp`; the SSD through the
+intra-chunk kernel (:func:`repro_torch.kernels.ops.ssd_op`), else the plain
+:func:`repro_torch.models.ssm.ssd_chunked`.  Prefill always takes the plain
+versions, as the reference's does.
 
 The cache is the reference's whole-batch ring buffer: position p lives in
 slot p % C, ``slot_pos`` records the absolute position held by each slot
 (-1 = empty), and decode masks by validity and the sliding window.  Unlike
-the JAX version, :func:`decode_step` writes the new K/V into the cache
-tensors in place (one slot per layer instead of a copy of the cache) and
-returns the same :class:`Cache`; ``pos`` is a Python int.
+the JAX version, :func:`decode_step` writes the new K/V (and the new SSM
+and conv states) into the cache tensors in place (one slot per layer
+instead of a copy of the cache) and returns the same :class:`Cache`;
+``pos`` is a Python int.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import attention_op
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 
 PyTree = Any
 
@@ -58,13 +65,18 @@ def _adims(cfg: ModelConfig) -> L.AttnDims:
     return L.AttnDims(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
 
 
+def _ssm_kw(cfg: ModelConfig) -> dict:
+    return dict(expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                state=cfg.ssm_state, conv_kernel=cfg.conv_kernel)
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = {kind for kind, _ in cfg.segments()}
-    if kinds != {"attn"} or cfg.shared_attention:
+    if not kinds <= {"attn", "mamba"}:
         raise NotImplementedError(
-            f"{cfg.name}: block types {sorted(kinds)} (shared attention "
-            f"{cfg.shared_attention}) are not ported yet — this slice runs "
-            "attention segments only; see ROADMAP.md queue 1 item 17")
+            f"{cfg.name}: block types {sorted(kinds - {'attn', 'mamba'})} "
+            "are not ported yet — the port runs attention, mamba and shared "
+            "attention segments; see ROADMAP.md queue 1 item 17")
     if cfg.num_codebooks or cfg.img_tokens:
         raise NotImplementedError(
             f"{cfg.name}: multi-codebook / image-prefix embeddings are not "
@@ -75,7 +87,12 @@ def _check_supported(cfg: ModelConfig) -> None:
 # parameter construction
 # ---------------------------------------------------------------------------
 
-def _block_init(gen: torch.Generator, cfg: ModelConfig, dtype) -> dict:
+def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                dtype) -> dict:
+    if kind == "mamba":
+        return {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device),
+                "ssm": ssm_lib.init_ssm(gen, cfg.d_model, dtype=dtype,
+                                        **_ssm_kw(cfg))}
     return {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device),
             "attn": L.init_attention(gen, cfg.d_model, _adims(cfg),
                                      cfg.qk_norm, dtype),
@@ -102,9 +119,14 @@ def init_params(key: torch.Generator, cfg: ModelConfig) -> PyTree:
                                   dtype)}
     segs = {}
     for si, (kind, n) in enumerate(cfg.segments()):
+        if kind == "attn" and cfg.shared_attention:
+            segs[_seg_key(si, "shared_attn", n)] = {}
+            continue
         segs[_seg_key(si, kind, n)] = _stack(
-            [_block_init(key, cfg, dtype) for _ in range(n)])
+            [_block_init(key, cfg, kind, dtype) for _ in range(n)])
     p["segments"] = segs
+    if cfg.shared_attention:
+        p["shared_attn"] = _block_init(key, cfg, "attn", dtype)
     p["final_norm"] = L.init_rms_norm(cfg.d_model, dtype, key.device)
     if not cfg.tie_embeddings:
         p["lm_head"] = L._normal(key, (cfg.d_model, cfg.vocab_size),
@@ -125,31 +147,47 @@ def param_specs(cfg: ModelConfig, *, num_agents: int | None = None) -> PyTree:
 
     D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
     H, Kv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    def block(kind, *n):
+        if kind == "mamba":
+            return {"ln1": {"scale": spec(*n, D)},
+                    "ssm": ssm_lib.ssm_specs(D, dtype=cfg.param_dtype,
+                                             lead=lead + n, **_ssm_kw(cfg))}
+        attn = {"wq": spec(*n, D, H * Dh), "wk": spec(*n, D, Kv * Dh),
+                "wv": spec(*n, D, Kv * Dh), "wo": spec(*n, H * Dh, D)}
+        if cfg.qk_norm:
+            attn["q_norm"] = {"scale": spec(*n, Dh)}
+            attn["k_norm"] = {"scale": spec(*n, Dh)}
+        mlp = ({"w_gate": spec(*n, D, F), "w_up": spec(*n, D, F),
+                "w_down": spec(*n, F, D)} if cfg.mlp_act == "silu"
+               else {"w_up": spec(*n, D, F), "w_down": spec(*n, F, D)})
+        return {"ln1": {"scale": spec(*n, D)}, "attn": attn,
+                "ln2": {"scale": spec(*n, D)}, "mlp": mlp}
+
     p: dict = {"embed": spec(V, D)}
     segs = {}
     for si, (kind, n) in enumerate(cfg.segments()):
-        attn = {"wq": spec(n, D, H * Dh), "wk": spec(n, D, Kv * Dh),
-                "wv": spec(n, D, Kv * Dh), "wo": spec(n, H * Dh, D)}
-        if cfg.qk_norm:
-            attn["q_norm"] = {"scale": spec(n, Dh)}
-            attn["k_norm"] = {"scale": spec(n, Dh)}
-        mlp = ({"w_gate": spec(n, D, F), "w_up": spec(n, D, F),
-                "w_down": spec(n, F, D)} if cfg.mlp_act == "silu"
-               else {"w_up": spec(n, D, F), "w_down": spec(n, F, D)})
-        segs[_seg_key(si, kind, n)] = {
-            "ln1": {"scale": spec(n, D)}, "attn": attn,
-            "ln2": {"scale": spec(n, D)}, "mlp": mlp}
+        if kind == "attn" and cfg.shared_attention:
+            segs[_seg_key(si, "shared_attn", n)] = {}
+        else:
+            segs[_seg_key(si, kind, n)] = block(kind, n)
     p["segments"] = segs
+    if cfg.shared_attention:
+        p["shared_attn"] = block("attn")
     p["final_norm"] = {"scale": spec(D)}
     if not cfg.tie_embeddings:
         p["lm_head"] = spec(D, V)
     return p
 
 
-def _layer(seg_params: dict, j: int) -> dict:
-    """Layer ``j`` of a stacked segment (views, no copy)."""
-    return {k: _layer(v, j) if isinstance(v, dict) else v[j]
-            for k, v in seg_params.items()}
+def _layers(seg_params: dict, n: int) -> list:
+    """The ``n`` layers of a stacked segment (views, no copy), each leaf
+    unbound once: the backward of one ``unbind`` stacks the n layers'
+    gradients in one pass, where n separate selects would each fill and
+    add a gradient of the whole stacked leaf."""
+    per_key = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+               for k, v in seg_params.items()}
+    return [{k: per_key[k][j] for k in seg_params} for j in range(n)]
 
 
 def _embed_inputs(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
@@ -167,11 +205,17 @@ def _lm_logits(params: PyTree, cfg: ModelConfig,
 # block application (no cache: the training / loss path)
 # ---------------------------------------------------------------------------
 
-def _apply_block(cfg: ModelConfig, bp: dict, x: torch.Tensor,
+def _apply_block(cfg: ModelConfig, kind: str, bp: dict, x: torch.Tensor,
                  positions: torch.Tensor, window: int | None, q_chunk: int,
                  kv_chunk: int) -> torch.Tensor:
-    """One ``attn`` block: attention then the dense MLP, each residual."""
+    """One block, residual: a ``mamba`` block is the Mamba2 mixer; an
+    ``attn`` block is attention then the dense MLP."""
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+    if kind == "mamba":
+        return x + ssm_lib.ssm_forward(bp["ssm"], h, chunk=cfg.ssm_chunk,
+                                       norm_eps=cfg.norm_eps,
+                                       use_kernel=cfg.use_kernels,
+                                       **_ssm_kw(cfg))
     q, k, v = L.qkv_project(bp["attn"], h, _adims(cfg), positions=positions,
                             rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta,
                             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
@@ -192,7 +236,7 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             q_chunk: int = 512, kv_chunk: int = 512):
     """Full-sequence forward.  Returns (logits, aux_loss, n_prefix), as the
     reference does; ``aux_loss`` is 0 and ``n_prefix`` 0 for the ported
-    (dense, text-only) configs.
+    (MoE-free, text-only) configs.
 
     tokens: (B, S) integer.  ``remat`` recomputes each block's activations
     in the backward pass (``torch.utils.checkpoint``, non-reentrant), as
@@ -207,10 +251,13 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = _embed_inputs(params, tokens)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    for _, n, seg_params in _seg_items(params["segments"]):
-        for j in range(n):
-            args = (cfg, _layer(seg_params, j), x, positions, window,
-                    q_chunk, kv_chunk)
+    for kind, n, seg_params in _seg_items(params["segments"]):
+        for bp in _layers(seg_params, n):
+            if kind == "shared_attn":
+                kind_j, bp = "attn", params["shared_attn"]
+            else:
+                kind_j = kind
+            args = (cfg, kind_j, bp, x, positions, window, q_chunk, kv_chunk)
             x = (checkpoint(_apply_block, *args, use_reentrant=False)
                  if remat else _apply_block(*args))
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
@@ -236,10 +283,12 @@ def train_loss(params: PyTree, cfg: ModelConfig, batch: dict,
 
 @dataclasses.dataclass
 class Cache:
-    """Decode cache.  ``segments`` mirrors ``params['segments']`` order; each
-    entry holds ``k``/``v`` of shape (n, B, C, Kv, Dh).  ``pos`` is the next
-    write position (whole batch), ``slot_pos`` (C,) int32 the absolute
-    position stored in each ring slot."""
+    """Decode cache.  ``segments`` mirrors ``params['segments']`` order; an
+    attention or shared-attention entry holds ``k``/``v`` of shape
+    (n, B, C, Kv, Dh), a mamba entry ``ssm`` (n, B, H, P, N) float32 and
+    ``conv`` (n, B, k - 1, conv_dim) in the parameter dtype.  ``pos`` is
+    the next write position (whole batch), ``slot_pos`` (C,) int32 the
+    absolute position stored in each ring slot."""
     segments: tuple
     pos: int
     slot_pos: torch.Tensor
@@ -256,13 +305,21 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     dev = resolve_device(device)
     C = _cache_len(cfg, max_seq, window)
     Kv, Dh = cfg.num_kv_heads, cfg.head_dim
-    segs = tuple(
-        {"k": torch.zeros((n, batch, C, Kv, Dh), dtype=cfg.param_dtype,
-                          device=dev),
-         "v": torch.zeros((n, batch, C, Kv, Dh), dtype=cfg.param_dtype,
-                          device=dev)}
-        for _, n in cfg.segments())
-    return Cache(segments=segs, pos=0,
+
+    def zeros(shape, dtype=cfg.param_dtype):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    segs = []
+    for kind, n in cfg.segments():
+        if kind == "mamba":
+            s_shape, c_shape = ssm_lib.ssm_state_shapes(batch, cfg.d_model,
+                                                        **_ssm_kw(cfg))
+            segs.append({"ssm": zeros((n,) + s_shape, torch.float32),
+                         "conv": zeros((n,) + c_shape)})
+        else:
+            segs.append({"k": zeros((n, batch, C, Kv, Dh)),
+                         "v": zeros((n, batch, C, Kv, Dh))})
+    return Cache(segments=tuple(segs), pos=0,
                  slot_pos=torch.full((C,), -1, dtype=torch.int32, device=dev))
 
 
@@ -303,12 +360,22 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Cache,
         valid = valid & (cache.slot_pos > pos - window)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
-    for (_, n, seg_params), seg_cache in zip(_seg_items(params["segments"]),
-                                             cache.segments):
-        for j in range(n):
-            x = _attn_block_decode(cfg, _layer(seg_params, j), x,
-                                   seg_cache["k"][j], seg_cache["v"][j],
-                                   positions, slot, valid)
+    for (kind, n, seg_params), seg_cache in zip(
+            _seg_items(params["segments"]), cache.segments):
+        for j, bp in enumerate(_layers(seg_params, n)):
+            if kind == "mamba":
+                h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+                o, st, cv = ssm_lib.ssm_decode_step(
+                    bp["ssm"], h, seg_cache["ssm"][j], seg_cache["conv"][j],
+                    norm_eps=cfg.norm_eps, **_ssm_kw(cfg))
+                seg_cache["ssm"][j] = st
+                seg_cache["conv"][j] = cv
+                x = x + o
+                continue
+            if kind == "shared_attn":
+                bp = params["shared_attn"]
+            x = _attn_block_decode(cfg, bp, x, seg_cache["k"][j],
+                                   seg_cache["v"][j], positions, slot, valid)
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     cache.pos = pos + 1
     return _lm_logits(params, cfg, x), cache
@@ -320,7 +387,8 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Process a prompt, returning (logits, cache) for subsequent decode.
 
     A full forward that also captures per-layer K/V into a ring-buffer
-    cache sized for ``max_len`` total positions (default: prompt length).
+    cache sized for ``max_len`` total positions (default: prompt length),
+    and each mamba layer's final SSM and conv states.
     """
     _check_supported(cfg)
     window = window if window is not None else cfg.attention_window
@@ -331,14 +399,28 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
     C = _cache_len(cfg, max(max_len or S, S), window)
 
     new_segs = []
-    for _, n, seg_params in _seg_items(params["segments"]):
+    for kind, n, seg_params in _seg_items(params["segments"]):
+        if kind == "mamba":
+            sts, cvs = [], []
+            for bp in _layers(seg_params, n):
+                h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+                o, (st, cv) = ssm_lib.ssm_forward(
+                    bp["ssm"], h, chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps,
+                    return_state=True, **_ssm_kw(cfg))
+                x = x + o
+                sts.append(st)
+                cvs.append(cv.to(cfg.param_dtype))
+            new_segs.append({"ssm": torch.stack(sts),
+                             "conv": torch.stack(cvs)})
+            continue
         kcs = torch.empty((n, B, C, cfg.num_kv_heads, cfg.head_dim),
                           dtype=x.dtype, device=dev)
         vcs = torch.empty_like(kcs)
-        for j in range(n):
+        for j, bp in enumerate(_layers(seg_params, n)):
+            if kind == "shared_attn":
+                bp = params["shared_attn"]
             x, (kcs[j], vcs[j]) = _attn_block_prefill(
-                cfg, _layer(seg_params, j), x, positions, window, q_chunk,
-                kv_chunk, C)
+                cfg, bp, x, positions, window, q_chunk, kv_chunk, C)
         new_segs.append({"k": kcs, "v": vcs})
 
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)

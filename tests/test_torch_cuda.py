@@ -13,10 +13,19 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.topology import make_topology  # noqa: E402
 from repro_torch.kernels import diffusion_mix as dm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
-from repro_torch.kernels.ref import attention_ref, mix_ref  # noqa: E402
+from repro_torch.kernels import ssd_scan  # noqa: E402
+from repro_torch.kernels.ops import ssd_op  # noqa: E402
+from repro_torch.kernels.ref import (attention_ref, mix_ref,  # noqa: E402
+                                     ssd_intra_chunk_ref, ssd_ref)
 
 # the reference's attention gates (tests/test_kernels.py), atol = rtol
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the reference's SSD gates (tests/test_kernels.py), atol = rtol
+SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
+# the intra-chunk kernel against its plain version: both sum float32
+# products of the same (exactly widened) inputs, in other orders (up to
+# Q N = 16,384 per output; chip_smoke.py states the gate's origin)
+INTRA_TOL = 2e-4
 
 
 def _need_card():
@@ -68,3 +77,81 @@ def test_cuda_kernel_matches_attention_ref(dtype):
         ref = attention_ref(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+
+def _ssd_inputs(gen, b, s, h, p, n, dtype):
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device="cuda")) * 0.5
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda") * 0.3)
+    B = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+    C = torch.randn((b, s, n), generator=gen, device="cuda").to(dtype)
+    return x, dt, A, B, C
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_intra_chunk_matches_plain(dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # (b, s, h, p, n, chunk): every chunk and head dim, states from 8 to
+    # 128 and an odd one, mamba2's and zamba2's path shapes cut in s
+    cases = [(1, 64, 2, 16, 8, 32), (2, 128, 4, 32, 16, 64),
+             (1, 96, 3, 64, 32, 32), (1, 64, 2, 16, 13, 32),
+             (1, 256, 4, 64, 128, 128), (2, 256, 3, 64, 64, 128),
+             (1, 128, 2, 32, 128, 64)]
+    for b, s, h, p, n, chunk in cases:
+        x, dt, A, _, _ = _ssd_inputs(gen, b, s, h, p, n, dtype)
+        # B and C as strided slices of one projection, as in the model
+        xBC = torch.randn((b, s, 3 * n + 5), generator=gen,
+                          device="cuda").to(dtype)
+        B, C = xBC[..., 1:1 + n], xBC[..., 2 * n + 3:3 * n + 3]
+        xd = x.float() * dt[..., None]
+        dA = dt * A
+        before = ssd_scan.ssd_intra_chunk.launches
+        outs = ssd_scan.ssd_intra_chunk(xd, dA, B, C, chunk=chunk)
+        assert ssd_scan.ssd_intra_chunk.launches == before + 1
+        refs = ssd_intra_chunk_ref(xd, dA, B, C, chunk=chunk)
+        torch.cuda.synchronize()
+        for name, out, ref in zip(("Y_diag", "states", "dA_cumsum"), outs,
+                                  refs):
+            assert out.dtype == torch.float32 and out.shape == ref.shape
+            err = ((out - ref).abs() / ref.abs().clamp(min=1)).max().item()
+            assert err <= INTRA_TOL, (b, s, h, p, n, chunk, name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_op_matches_ssd_ref(dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tol = SSD_TOL[dtype]
+    # the reference's sweep (tests/test_kernels.py), s = 100 padded
+    for b, s, h, p, n, chunk in ((1, 64, 2, 16, 8, 32),
+                                 (2, 128, 4, 32, 16, 64),
+                                 (1, 100, 3, 64, 32, 32)):
+        x, dt, A, B, C = _ssd_inputs(gen, b, s, h, p, n, dtype)
+        y, fin = ssd_op(x, dt, A, B, C, chunk=chunk)
+        yr, finr = ssd_ref(x, dt, A, B, C)
+        assert y.dtype == dtype and fin.dtype == torch.float32
+        torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+        torch.testing.assert_close(fin, finr, atol=tol, rtol=tol)
+    # with an initial state (the reference's test: float32, 2e-3)
+    x, dt, A, B, C = _ssd_inputs(gen, 1, 64, 2, 16, 8, torch.float32)
+    init = torch.randn((1, 2, 16, 8), generator=gen, device="cuda")
+    y, fin = ssd_op(x, dt, A, B, C, chunk=32, initial_state=init)
+    yr, finr = ssd_ref(x, dt, A, B, C, initial_state=init)
+    torch.testing.assert_close(y, yr, atol=2e-3, rtol=0)
+    torch.testing.assert_close(fin, finr, atol=2e-3, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_intra_chunk_rejects_what_it_does_not_take():
+    _need_card()
+    xd = torch.zeros((1, 64, 2, 48), device="cuda")
+    dA = torch.zeros((1, 64, 2), device="cuda")
+    B = C = torch.zeros((1, 64, 8), device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_scan.ssd_intra_chunk(xd, dA, B, C, chunk=32)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan.ssd_intra_chunk(xd[..., :16], dA, B, C, chunk=16)
