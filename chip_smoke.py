@@ -57,24 +57,47 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
    profiled block, and one local step's loss and gradients with the SSD
    kernel against the plain SSD, held against two witnesses: two plain
    forwards that differ only in float32 summation order (bf16), and the
-   same step with float32 parameters.  Phase 8 alone runs under the
-   caching allocator's expandable segments.
+   same step with float32 parameters.
 9. The SSM paths on the card against the CPU: mamba2- and zamba2-smoke
    training with SGD and with Adam (phase 6's gates), smoke prefill and
    greedy decode of both (the same tokens), and one full-width
    zamba2-1.2b forward (B=1, S=1024) with the kernels on and off, the one
    path where ``flash_attention`` and ``ssd_intra_chunk`` run together.
+10. ``gather_robust_mix`` and ``gather_mix`` against their plain versions
+    ``gather_robust_mix_ref`` and ``gather_mix_ref``: K in {8, 12, 16,
+    1024}, D in {3, 5, 8, 12} (ring, ring hops 2, grid, FedAvg), odd M,
+    all-active, all-inactive and random masks, realized link drops on the
+    base support (numpy), trimmed-mean and median slot weights; one
+    K*M > 2^31 case; and each path's shape with smollm-360m's M (training:
+    K=12 ring; serving: K=8 FedAvg, D=8), the kernel timed on the whole
+    buffer, the plain versions and ``A_eff.T @ W`` in column slices.
+    Tolerance: max |kernel - plain| <= 1e-5 * max(1, |plain|); inactive
+    rows bit-equal.
+11. Train smollm-360m at full width through ``train.main`` at K=12 (ring,
+    T=2, q=0.9, B=1, S=1024, SGD mu=0.05, ``use_kernels=True``): (a) the
+    reference's Byzantine preset (3 sign-flip adversaries of scale 3,
+    per-neighborhood trimmed mean, ``--robust-gather fused``), 3 blocks,
+    a profiled block, then one more combination of the trained stack with
+    the kernel and with the plain gather table, within one bf16 ulp and
+    inactive agents bit-equal; (b) ``--mix gather``, 2 blocks, then one
+    combination against the dense mixer within one bf16 ulp; (c) the
+    preset at smoke size on the card and on the CPU (phase 6's gates).
+12. Robust and gather consensus at full width: phase 3's K=8 stack through
+    ``serve.main`` with the neighborhood trimmed mean (kernel), the global
+    median (plain) and the gather mixer (kernel), each within one bf16 ulp
+    of a plain consensus, then prefill and 32 greedy decode steps.
 
-Each path's launch counts are reset just before its first run and read
-just after it (phases 3, 5, 8 and 9).  The last lines are a JSON object of the
-kernels' numbers, the card's name and power limit (``nvidia-smi``), and
+The kernel mixers run over a column-tiled flatten, one launch per tile
+(``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11 and 12 count
+tiles.  Each path's launch counts (all five kernels) are set to 0 just
+before its first run and read just after it (phases 3, 5, 8, 9, 11 and
+12).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import shutil
 import subprocess
@@ -126,6 +149,12 @@ SSM_LOSS_TOL = 2e-3
 # worst bf16 leaf read 4.86e-2 against the witness's 4.89e-2, the float32
 # worst layer 4.6e-5 and the float32 loss 8.6e-8.
 SSM_GRAD_WITNESS_RATIO = 2.0
+# the Byzantine preset (the reference's byzantine_robust_diffusion): K = 12
+# ring, 3 evenly spaced sign-flip adversaries of scale 3, per-neighborhood
+# trimmed mean with trim 1
+BYZANTINE_FLAGS = ["--mix", "trimmed_mean", "--trim", "1", "--robust-scope",
+                   "neighborhood", "--attack", "sign_flip", "--attack-num",
+                   "3", "--attack-scale", "3.0"]
 SSM_GRAD_TOL_F32 = 1e-3
 SSM_LOSS_TOL_F32 = 1e-5
 
@@ -167,6 +196,38 @@ def ptxas_lines(name: str) -> list[str]:
     keep = ("Compiling entry function", "registers", "spill")
     return [line.strip() for line in build.build_log(name).splitlines()
             if any(k in line for k in keep)]
+
+
+def num_tiles(K: int, M: int) -> int:
+    """Launches of one tiled combination of a (K, M) stack."""
+    from repro_torch.core.mixing import num_tiles as tiles
+
+    return tiles(K, M)
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for wrapper in kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count."""
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def kernel_wrappers() -> dict:
+    from repro_torch.kernels import diffusion_mix as dm
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gather_mix as gm
+    from repro_torch.kernels import gather_robust_mix as grm
+    from repro_torch.kernels import ssd_scan
+
+    return {"diffusion_mix": dm.diffusion_mix,
+            "flash_attention": fa.flash_attention,
+            "ssd_intra_chunk": ssd_scan.ssd_intra_chunk,
+            "gather_mix": gm.gather_mix,
+            "gather_robust_mix": grm.gather_robust_mix}
 
 
 def full_width_M(arch: str = "smollm-360m") -> int:
@@ -464,11 +525,15 @@ def _grads_one_step(params, cfg, batch, *, remat: bool = False):
 
 def _profile_block(state, cfg, K, T, B, S, steady_s: float, card: str, *,
                    optimizer: str = "adam", mu: float = 1e-4,
-                   label: str = "phase 5") -> dict:
+                   label: str = "phase 5", mix: str = "pallas",
+                   grad_transform=None, engine_kwargs=None) -> dict:
     """One more block from ``state`` under ``torch.profiler``: the device
-    time of its kernels (kernel events only: an operator's row repeats the
+    time of its kernels (device events only: an operator's row repeats the
     time of the kernels it launched), their share of the steady unprofiled
-    block ``steady_s``, and the kernels that take the most device time."""
+    block ``steady_s``, and the kernels that take the most device time.
+    The device events are summed from the trace's raw events by name:
+    ``key_averages()`` builds every host event too and took minutes at a
+    few hundred thousand launches."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -479,11 +544,13 @@ def _profile_block(state, cfg, K, T, B, S, steady_s: float, card: str, *,
     from repro_torch.optim import adam
     from repro_torch.tree import tree_map
 
+    if grad_transform is None and optimizer == "adam":
+        grad_transform = adam().update
     eng = DiffusionEngine(
         DiffusionConfig(num_agents=K, local_steps=T, step_size=mu,
-                        participation=0.9, mix="pallas"),
+                        participation=0.9, mix=mix),
         lambda p, b: tf.train_loss(p, cfg, b, remat=False),
-        adam().update if optimizer == "adam" else None, device="cuda")
+        grad_transform, device="cuda", **(engine_kwargs or {}))
     gen = torch.Generator().manual_seed(11)
     batch = tree_map(lambda x: x.cuda(), lm_token_batch(
         gen, (T, K, B, S), cfg.vocab_size))
@@ -494,10 +561,12 @@ def _profile_block(state, cfg, K, T, B, S, steady_s: float, card: str, *,
         new_state, _ = eng.step(state, batch, gen)
         wall = time.perf_counter() - t0
     del new_state
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    kernels = [(name, ms, n) for name, (ms, n) in by_name.items()]
     busy_ms = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda r: -r[1])[:8]
     out = {"profiled_wall_s": wall, "steady_block_s": steady_s,
@@ -528,9 +597,6 @@ def phase_train(card: str) -> tuple[dict, dict]:
     import torch
 
     from repro_torch.data.synthetic import lm_token_batch
-    from repro_torch.kernels import diffusion_mix as dm
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -539,15 +605,11 @@ def phase_train(card: str) -> tuple[dict, dict]:
             "--batch", str(B), "--seq", str(S), "--blocks", str(blocks),
             "--mix", "pallas", "--optimizer", "adam", "--step-size", "1e-4"]
     torch.cuda.reset_peak_memory_stats()
-    dm.diffusion_mix.launches = 0
-    fa.flash_attention.launches = 0
-    ssd_scan.ssd_intra_chunk.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = train.main(argv, use_kernels=True)
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": fa.flash_attention.launches,
-                "diffusion_mix": dm.diffusion_mix.launches,
-                "ssd_intra_chunk": ssd_scan.ssd_intra_chunk.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = out["cfg"]
     # one launch per layer per agent per local step, plus the logging
@@ -557,9 +619,11 @@ def phase_train(card: str) -> tuple[dict, dict]:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']}x on the training "
                              f"path, expected {want}")
-    if launches["diffusion_mix"] < blocks:
+    tiles = num_tiles(K, full_width_M())
+    if launches["diffusion_mix"] != tiles * blocks:
         raise AssertionError(f"diffusion_mix launched "
-                             f"{launches['diffusion_mix']}x in {blocks} blocks")
+                             f"{launches['diffusion_mix']}x in {blocks} blocks, "
+                             f"expected {tiles} tiles each")
     losses = torch.tensor(out["losses"])
     if not torch.isfinite(losses).all():
         raise AssertionError(f"non-finite training losses {out['losses']}")
@@ -607,19 +671,20 @@ def phase_train(card: str) -> tuple[dict, dict]:
 
 
 def phase_train_devices(arch: str = "smollm-360m",
-                        label: str = "phase 6") -> None:
-    """Phase 6 (and 9): smoke training on the card and on the CPU, same
-    seed."""
+                        label: str = "phase 6", agents: int = 4,
+                        mix: tuple = ("--mix", "pallas"),
+                        optimizers=(("sgd", 0.05), ("adam", 1e-3))) -> None:
+    """Phase 6 (and 9, and the Byzantine preset's check): smoke training
+    on the card and on the CPU, same seed."""
     import numpy as np
     import torch
 
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
-    base = ["--arch", arch, "--agents", "4", "--local-steps", "2",
-            "--blocks", "3", "--mix", "pallas", "--batch", "2", "--seq",
-            "64"]
-    for optimizer, mu in (("sgd", 0.05), ("adam", 1e-3)):
+    base = ["--arch", arch, "--agents", str(agents), "--local-steps", "2",
+            "--blocks", "3", *mix, "--batch", "2", "--seq", "64"]
+    for optimizer, mu in optimizers:
         argv = base + ["--optimizer", optimizer, "--step-size", str(mu)]
         gpu = train.main(argv, use_kernels=True)
         cpu = train.main(argv + ["--device", "cpu"], use_kernels=True)
@@ -645,7 +710,8 @@ def phase_train_devices(arch: str = "smollm-360m",
             ok = loss_rel <= 1e-3 and worst <= bound and far <= 1e-3 * total
             gate = (f"losses 1e-3 relative, parameters within {bound:g} and "
                     f"99.9 % within 1e-5 ({far} of {total} beyond)")
-        print(f"{label}: {arch} smoke {optimizer}: card vs CPU losses rel "
+        print(f"{label}: {arch} smoke K={agents} {' '.join(mix)} "
+              f"{optimizer}: card vs CPU losses rel "
               f"{loss_rel:.2e}, parameters max |diff| {worst:.2e} "
               f"(gate: {gate})")
         if not ok:
@@ -720,14 +786,11 @@ def _bf16_ulp_check(a, b, floor: float) -> tuple[int, int, float]:
             (diff / ulp).max().item())
 
 
-def phase_full(scratch: Path, card: str) -> tuple[dict, dict]:
+def phase_full(scratch: Path, card: str) -> tuple[dict, dict, str]:
     import torch
 
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.configs import get_config
-    from repro_torch.kernels import diffusion_mix as dm
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan
     from repro_torch.launch import serve
     from repro_torch.tree import tree_leaves
 
@@ -748,16 +811,16 @@ def phase_full(scratch: Path, card: str) -> tuple[dict, dict]:
             "--checkpoint", path, "--batch", "4", "--prompt-len", "128",
             "--decode", "32", "--temperature", "0"]
 
-    dm.diffusion_mix.launches = 0
-    fa.flash_attention.launches = 0
-    ssd_scan.ssd_intra_chunk.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     first = serve.main(argv + ["--mix", "pallas"])
-    launches = {"diffusion_mix": dm.diffusion_mix.launches,
-                "flash_attention": fa.flash_attention.launches,
-                "ssd_intra_chunk": ssd_scan.ssd_intra_chunk.launches}
-    if launches["diffusion_mix"] < 1:
-        raise AssertionError("the serving path never launched diffusion_mix")
+    launches = read_launches()
+    # one combination of the (K, M) stack: one launch per column tile
+    tiles = num_tiles(K, full_width_M())
+    if launches["diffusion_mix"] != tiles:
+        raise AssertionError(f"the serving path launched diffusion_mix "
+                             f"{launches['diffusion_mix']}x, expected one "
+                             f"launch per tile, {tiles}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     second = serve.main(argv + ["--mix", "pallas"])
@@ -793,7 +856,7 @@ def phase_full(scratch: Path, card: str) -> tuple[dict, dict]:
     print(json.dumps(serve_row))
     print(f"phase 3: kernel consensus == dense within 1 bf16 ulp; greedy "
           f"tokens repeat; launches on the serving path {launches}")
-    return launches, serve_row
+    return launches, serve_row, path
 
 
 def _ssd_inputs(gen, b, s, h, p, n, dtype, conv_dim=None):
@@ -957,9 +1020,6 @@ def phase_train_mamba(card: str) -> tuple[dict, dict]:
     with the SSD kernel in every layer and the mix kernel once a block."""
     import torch
 
-    from repro_torch.kernels import diffusion_mix as dm
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -969,22 +1029,20 @@ def phase_train_mamba(card: str) -> tuple[dict, dict]:
             "--blocks", str(blocks), "--optimizer", "sgd", "--step-size",
             str(mu), "--mix", "pallas"]
     torch.cuda.reset_peak_memory_stats()
-    dm.diffusion_mix.launches = 0
-    fa.flash_attention.launches = 0
-    ssd_scan.ssd_intra_chunk.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = train.main(argv, use_kernels=True)
     wall = time.perf_counter() - t0
-    launches = {"ssd_intra_chunk": ssd_scan.ssd_intra_chunk.launches,
-                "diffusion_mix": dm.diffusion_mix.launches,
-                "flash_attention": fa.flash_attention.launches}
+    launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = out["cfg"]
     # one launch per layer per agent per local step, plus the logging
     # forward of every agent after each block
     want = {"ssd_intra_chunk": cfg.num_layers * K * (T * blocks
                                                      + len(out["losses"])),
-            "diffusion_mix": blocks, "flash_attention": 0}
+            "diffusion_mix": num_tiles(K, full_width_M("mamba2-2.7b"))
+            * blocks, "flash_attention": 0, "gather_mix": 0,
+            "gather_robust_mix": 0}
     if launches != want:
         raise AssertionError(f"launches on the mamba2 training path "
                              f"{launches}, expected {want}")
@@ -1126,9 +1184,6 @@ def phase_ssm_devices(scratch: Path, card: str) -> dict:
     from repro_torch.checkpoint import save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import lm_token_batch
-    from repro_torch.kernels import diffusion_mix as dm
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
@@ -1162,21 +1217,18 @@ def phase_ssm_devices(scratch: Path, card: str) -> dict:
                             cfg)
     batch = {k: v.cuda() for k, v in lm_token_batch(
         torch.Generator().manual_seed(92), (1, 1024), cfg.vocab_size).items()}
-    fa.flash_attention.launches = 0
-    ssd_scan.ssd_intra_chunk.launches = 0
-    dm.diffusion_mix.launches = 0
+    reset_launches()
     with torch.no_grad():
         t0 = time.perf_counter()
         loss_k = tf.train_loss(params, dataclasses.replace(
             cfg, use_kernels=True), batch, remat=False).item()
         kernel_s = time.perf_counter() - t0
-        launches = {"flash_attention": fa.flash_attention.launches,
-                    "ssd_intra_chunk": ssd_scan.ssd_intra_chunk.launches,
-                    "diffusion_mix": dm.diffusion_mix.launches}
+        launches = read_launches()
         loss_p = tf.train_loss(params, cfg, batch, remat=False).item()
     n_attn = sum(n for kind, n in cfg.segments() if kind == "attn")
     want = {"flash_attention": n_attn,
-            "ssd_intra_chunk": cfg.num_layers - n_attn, "diffusion_mix": 0}
+            "ssd_intra_chunk": cfg.num_layers - n_attn, "diffusion_mix": 0,
+            "gather_mix": 0, "gather_robust_mix": 0}
     if launches != want:
         raise AssertionError(f"zamba2 forward launches {launches}, expected "
                              f"{want}")
@@ -1193,26 +1245,550 @@ def phase_ssm_devices(scratch: Path, card: str) -> dict:
     return launches
 
 
-@contextlib.contextmanager
-def _expandable_segments():
-    """Run phase 8 under the caching allocator's expandable segments, and
-    the other phases under its default fixed segments.
+def _link_drop(topo, rng, drop: float = 0.3):
+    """A realized matrix on the base support: every undirected base edge
+    fails with probability ``drop`` (numpy draw), the survivors take
+    Metropolis weights (the reference's link-dropout law)."""
+    import numpy as np
 
-    Phase 8 holds 40 GiB of live tensors when the combination asks for one
-    more 20 GiB buffer; with fixed segments the freed activation blocks
-    stay scattered over partly used segments (25 GiB of them on an H100
-    80 GB) and the request fails.  Expandable segments map that memory
-    anew.  The cache is emptied on both sides of the switch, so each phase
-    allocates only segments of its own kind."""
+    from repro_torch.core.topology import metropolis_weights
+
+    K = topo.num_agents
+    up = np.triu(rng.random((K, K)) >= drop, 1)
+    adj = topo.adjacency & (up | up.T)
+    return metropolis_weights(adj | np.eye(K, dtype=bool))
+
+
+def _gather_operands(topo, A_np, mask_np, robust: str = "trimmed_mean"):
+    """The (K, D) operands of both gather kernels for one realized draw,
+    as the mixers compute them: ``(idx, gw)`` for ``gather_mix`` and
+    ``(idx, member, wslot, active)`` for ``gather_robust_mix``."""
     import torch
 
+    from repro_torch.core.mixing import _gather_weights, make_mixer
+    from repro_torch.core.participation import masked_combination
+
+    A = torch.as_tensor(A_np, dtype=torch.float32, device="cuda")
+    m = torch.as_tensor(mask_np, dtype=torch.float32, device="cuda")
+    mixer = make_mixer(robust, topo, trim=1, scope="neighborhood",
+                       gather="table", device="cuda")
+    idx, member, S = mixer._gather_members(m, A)
+    idx_t, valid = mixer._table.on("cuda")
+    gw = _gather_weights(masked_combination(A, m), idx_t, valid)
+    return (idx, gw), (idx, member, mixer._slot_weights(S, idx.shape[1]), m)
+
+
+def _hold_gather(fn, plain, ops, W, m, label, width=None):
+    """Run a gather kernel on the whole (K, M) buffer and hold it against
+    its plain version in column slices of ``width`` (every column); the
+    inactive rows must come back bit-equal.  Returns (rel err, max |err|,
+    the kernel's output)."""
+    import torch
+
+    out = fn(*ops, W)
+    torch.cuda.synchronize()
+    M = W.shape[1]
+    width = width or M
+    err = max_abs = 0.0
+    for a in range(0, M, width):
+        ref = plain(*ops, W[:, a:a + width])
+        err = max(err, rel_err(out[:, a:a + width], ref))
+        max_abs = max(max_abs, (out[:, a:a + width] - ref).abs().max().item())
+        del ref
+    if not err <= TOL:
+        raise AssertionError(f"{label}: rel err {err:.3e} > {TOL}")
+    dead = m == 0
+    if not torch.equal(out[dead], W[dead]):
+        raise AssertionError(f"{label}: an inactive row was not kept exactly")
+    return err, max_abs, out
+
+
+def _sort_ops(D: int) -> int:
+    """Float operations per (target, column) of the robust kernel: the
+    compare-exchanges of the bitonic network over P = next power of 2 >= D
+    slots (a min and a max each) and the D-slot contraction (a multiply
+    and an add each)."""
+    P = 1
+    while P < D:
+        P *= 2
+    lg = P.bit_length() - 1
+    return 2 * (P // 2) * lg * (lg + 1) // 2 + 2 * D
+
+
+def phase_gather_kernels(card: str) -> tuple[dict, dict]:
+    """Phase 10: ``gather_robust_mix`` and ``gather_mix`` against their
+    plain versions on the card, then each path's shape timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.participation import masked_combination
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import gather_mix as gm
+    from repro_torch.kernels import gather_robust_mix as grm
+    from repro_torch.kernels.ref import gather_mix_ref, gather_robust_mix_ref
+
+    gm.build()
+    grm.build()
+    ptxas = {n: ptxas_lines(n) for n in ("gather_mix", "gather_robust_mix")}
+    for n, lines in ptxas.items():
+        for line in lines:
+            print(f"  ptxas ({n}):", line)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rng = np.random.default_rng(10)
+    topos = [(K, kind, kw) for K in (8, 12, 16, 1024)
+             for kind, kw in (("ring", {}), ("ring", {"hops": 2}),
+                              ("grid", {}), ("fedavg", {}))
+             if not (kind == "grid" and K == 8)
+             and not (kind == "fedavg" and K > 12)]
+    n_cases, worst = 0, {"gather_mix": 0.0, "gather_robust_mix": 0.0}
+    Ds = set()
+    for K, kind, kw in topos:
+        topo = make_topology(kind, K, **kw)
+        Ds.add(topo.max_degree + 1)
+        M = 100_003 if K <= 16 else 4_099          # odd M
+        W = torch.randn((K, M), generator=gen, device="cuda")
+        draws = [("ones", topo.A, np.ones(K)), ("zeros", topo.A, np.zeros(K)),
+                 ("random", topo.A, (rng.random(K) < 0.6) * 1.0),
+                 ("link drops", _link_drop(topo, rng),
+                  (rng.random(K) < 0.8) * 1.0)]
+        for mname, A_np, mask in draws:
+            for robust in ("trimmed_mean", "median"):
+                lin, rob = _gather_operands(topo, A_np, mask, robust)
+                label = f"{kind}{kw} K={K} D={topo.max_degree + 1} {mname}"
+                err, _, out = _hold_gather(
+                    grm.gather_robust_mix, gather_robust_mix_ref, rob, W,
+                    rob[3], f"gather_robust_mix {label} {robust}")
+                worst["gather_robust_mix"] = max(worst["gather_robust_mix"],
+                                                 err)
+                n_cases += 1
+            err, _, out = _hold_gather(gm.gather_mix, gather_mix_ref, lin, W,
+                                       rob[3], f"gather_mix {label}")
+            worst["gather_mix"] = max(worst["gather_mix"], err)
+            del out
+        del W
+    print(f"phase 10: {n_cases} robust cases (trimmed mean and median) and "
+          f"{n_cases // 2} linear cases, K in (8, 12, 16, 1024), D in "
+          f"{sorted(Ds)}, odd M, masks all-active / all-inactive / random "
+          f"and realized link drops: within {TOL} (worst gather_robust_mix "
+          f"{worst['gather_robust_mix']:.3e}, gather_mix "
+          f"{worst['gather_mix']:.3e}); inactive rows bit-equal")
     torch.cuda.empty_cache()
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    try:
-        yield
-    finally:
+
+    # 64-bit offsets: idx * M + j passes 2^31
+    K, M = 12, 190_000_001
+    topo = make_topology("ring", K)
+    mask = np.array([1.0, 0.0] * 6)
+    lin, rob = _gather_operands(topo, topo.A, mask)
+    W = torch.randn((K, M), generator=gen, device="cuda")
+    big = {}
+    for name, fn, plain, ops in (
+            ("gather_robust_mix", grm.gather_robust_mix,
+             gather_robust_mix_ref, rob),
+            ("gather_mix", gm.gather_mix, gather_mix_ref, lin)):
+        big[name], _, out = _hold_gather(fn, plain, ops, W, rob[3],
+                                         f"{name} K={K} M={M}",
+                                         width=1 << 24)
+        del out
+    del W
+    torch.cuda.empty_cache()
+    print(f"phase 10: K={K} ring, M={M} (K*M = {K * M:,} > 2^31): "
+          f"gather_robust_mix rel err {big['gather_robust_mix']:.3e}, "
+          f"gather_mix {big['gather_mix']:.3e}; inactive rows bit-equal")
+
+    def at_path_shape(K, topo, mask, label):
+        """Both kernels at one path's shape: K agents of smollm-360m's M
+        parameters, the kernel on the whole buffer, the plain versions and
+        ``A_eff.T @ W`` in column slices (the plain gather's (K, D, M)
+        intermediate does not fit)."""
+        M = full_width_M()
+        D = topo.max_degree + 1
+        lin, rob = _gather_operands(topo, topo.A, mask)
+        W = torch.randn((K, M), generator=gen, device="cuda")
+        width = (1 << 28) // (K * D)
+        rows = {}
+        A_eff = masked_combination(
+            torch.as_tensor(topo.A, dtype=torch.float32, device="cuda"),
+            rob[3])
+        table_bytes = K * D * (4 + 4 + 4) + 4 * K
+        for name, fn, plain, ops, ops_per, lib in (
+                ("gather_robust_mix", grm.gather_robust_mix,
+                 gather_robust_mix_ref, rob, _sort_ops(D), False),
+                ("gather_mix", gm.gather_mix, gather_mix_ref, lin, 2 * D,
+                 True)):
+            err, max_abs, out = _hold_gather(fn, plain, ops, W, rob[3],
+                                             f"{name} at the {label} shape",
+                                             width=width)
+            del out
+            torch.cuda.empty_cache()
+            ms = time_ms(lambda: fn(*ops, W), iters=3)
+
+            def sliced(f):
+                return lambda: [f(W[:, a:a + width])
+                                for a in range(0, M, width)]
+
+            plain_ms = time_ms(sliced(lambda w: plain(*ops, w)), iters=1)
+            library_ms = (time_ms(sliced(lambda w: A_eff.T @ w), iters=1)
+                          if lib else None)
+            nbytes = 4 * 2 * K * M + table_bytes
+            flops = ops_per * K * M
+            bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound_ops = flops / FP32_FLOPS_PER_S * 1e3
+            rows[name] = {
+                "shape": [K, M], "D": D, "mask": [int(x) for x in mask],
+                "rel_err": err, "max_abs_err": max_abs, "ms": ms,
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": max(bound_bytes, bound_ops),
+                "bound_by": "bytes" if bound_bytes >= bound_ops
+                else "operations", "bytes": nbytes, "flops": flops,
+                "column_slices": width}
+            print(f"phase 10: {name} at the {label} shape K={K} D={D} "
+                  f"M={M}: rel err {err:.3e}; kernel {ms:.3f} ms on the "
+                  f"whole buffer, plain {plain_ms:.3f} ms and "
+                  + (f"A_eff.T @ W {library_ms:.3f} ms" if lib else
+                     "no library call")
+                  + f" in slices of {width} columns, bound "
+                  f"{rows[name]['bound_ms']:.3f} ms ({rows[name]['bound_by']}"
+                  f": {nbytes:,} bytes, {flops:.3e} float32 operations) "
+                  f"[{card}]")
+        del W
         torch.cuda.empty_cache()
-        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+        return rows
+
+    train = at_path_shape(12, make_topology("ring", 12),
+                          np.array([1.0] * 5 + [0.0] + [1.0] * 5 + [0.0]),
+                          "training")
+    serve = at_path_shape(8, make_topology("fedavg", 8), np.ones(8),
+                          "serving")
+    out = []
+    for name, line in (("gather_robust_mix", 280), ("gather_mix", 245)):
+        row = train[name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/diffusion_mix.py:{line}",
+            "launches": None, "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "bytes": row["bytes"],
+            "shape": row["shape"], "D": row["D"],
+            "by_path": {"train": row, "serve": serve[name]},
+            "ptxas": ptxas[name]})
+    return tuple(out)
+
+
+def _ulp_gate(label: str, pairs) -> dict:
+    """Hold bf16 results within one bf16 ulp plus the float32 summation
+    bound (phase 3's gate); ``pairs`` yields (result, plain result, bound)
+    leaf by leaf."""
+    n_ulp = n_bad = 0
+    max_ulps = 0.0
+    for a, b, floor in pairs:
+        over, bad, worst = _bf16_ulp_check(a, b, floor)
+        n_ulp, n_bad = n_ulp + over, n_bad + bad
+        max_ulps = max(max_ulps, worst)
+    print(f"{label}: {n_ulp} elements beyond one bf16 ulp, {n_bad} beyond "
+          f"it plus the float32 summation bound; largest difference "
+          f"{max_ulps:.2f} ulp")
+    if n_bad:
+        raise AssertionError(f"{label}: beyond one bf16 ulp")
+    return {"beyond_ulp": n_ulp, "beyond_gate": n_bad, "max_ulps": max_ulps}
+
+
+#: elements per slice of the bf16 checks (a stacked layer leaf at K = 12
+#: is 1.9e9 elements; the check's float32 temporaries stay near 2 GB)
+CHECK_SLICE = 1 << 26
+
+
+def _sliced(got, want, floors):
+    """(result, plain result, bound) over flat slices of every leaf pair,
+    for :func:`_ulp_gate`."""
+    from repro_torch.tree import tree_leaves
+
+    for a, b, floor in zip(tree_leaves(got), tree_leaves(want), floors):
+        a, b = a.reshape(-1), b.reshape(-1)
+        for i in range(0, a.numel(), CHECK_SLICE):
+            yield a[i:i + CHECK_SLICE], b[i:i + CHECK_SLICE], floor
+
+
+def _sum_floors(tree, terms: int) -> list:
+    """Per leaf, the float32 summation bound of two orders over ``terms``
+    terms of the leaf's largest magnitude."""
+    from repro_torch.tree import tree_leaves
+
+    return [2 * max(terms - 1, 1) * 2.0 ** -24 * x.abs().max().item()
+            for x in tree_leaves(tree)]
+
+
+def _frozen_equal(got, params, active) -> bool:
+    """Inactive agents came back bit-equal."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    dead = active == 0
+    return all(torch.equal(a[dead], b[dead])
+               for a, b in zip(tree_leaves(got), tree_leaves(params)))
+
+
+def _train_full(card: str, label: str, flags: list, blocks: int,
+                want_fn) -> tuple[dict, dict]:
+    """Algorithm 1 on full-width smollm-360m at K = 12 through train.main
+    (ring, T = 2, q = 0.9, B = 1, S = 1024, SGD mu = 0.05,
+    ``use_kernels=True``) with ``flags``; the launch counts against
+    ``want_fn(cfg, n_logged)``, finite honest losses and parameters, the
+    block split, tokens/s and peak memory."""
+    import torch
+
+    from repro_torch.core.attacks import byzantine_mask
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    K, T, B, S, mu = 12, 2, 1, 1024, 0.05
+    argv = ["--full", "--agents", str(K), "--local-steps", str(T),
+            "--batch", str(B), "--seq", str(S), "--blocks", str(blocks),
+            "--optimizer", "sgd", "--step-size", str(mu), "--participation",
+            "0.9", *flags]
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train.main(argv, use_kernels=True)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = out["cfg"]
+    want = want_fn(cfg, len(out["losses"]))
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    n_bad = (int(flags[flags.index("--attack-num") + 1])
+             if "--attack-num" in flags else 0)
+    honest = torch.as_tensor(byzantine_mask(K, n_bad)) == 0
+    losses = torch.tensor(out["losses"])
+    if not torch.isfinite(losses[:, honest]).all():
+        raise AssertionError(f"{label}: non-finite honest losses "
+                             f"{out['losses']}")
+    state = out["state"]
+    if not all(torch.isfinite(x[honest.cuda()]).all()
+               for x in tree_leaves(state.params)):
+        raise AssertionError(f"{label}: non-finite honest parameters")
+    for i, (t, tps) in enumerate(zip(out["timings"], out["tokens_per_s"])):
+        print(f"{label}: block {i}: {t['block_s']:.3f}s (local updates "
+              f"{t['local_s']:.3f}s, combination {t['combine_s']:.3f}s), "
+              f"{tps:.0f} tokens/s [{card}]")
+    print(f"{label}: launches {launches}; losses {out['losses']}; peak "
+          f"device memory {peak_gb:.2f} GB; train.main took {wall:.1f}s "
+          f"[{card}]")
+    row = {"arch": "smollm-360m", "agents": K, "local_steps": T, "batch": B,
+           "seq": S, "blocks": blocks, "optimizer": "sgd", "step_size": mu,
+           "flags": flags, "timings": out["timings"],
+           "tokens_per_s": out["tokens_per_s"], "losses": out["losses"],
+           "active": out["active"], "launches": launches,
+           "peak_mem_gb": peak_gb, "card": card}
+    return out, row
+
+
+def phase_train_robust(card: str) -> tuple[dict, dict]:
+    """Phase 11a: the Byzantine preset at full smollm-360m width, the
+    robust combination through ``gather_robust_mix``; then one more
+    combination of the trained stack, kernel against the plain gather-table
+    path on the card."""
+    import torch
+
+    from repro_torch.core.attacks import make_attack
+    from repro_torch.core.mixing import make_mixer
+    from repro_torch.core.topology import make_topology
+
+    K, blocks = 12, 3
+    M = full_width_M()
+
+    def want(cfg, n_logged):
+        return {"gather_robust_mix": num_tiles(K, M) * blocks,
+                "flash_attention": cfg.num_layers * K * (2 * blocks
+                                                         + n_logged),
+                "diffusion_mix": 0, "gather_mix": 0, "ssd_intra_chunk": 0}
+
+    out, row = _train_full(card, "phase 11a",
+                           BYZANTINE_FLAGS + ["--robust-gather", "fused"],
+                           blocks, want)
+    state, cfg = out["state"], out["cfg"]
+    steady_s = min(t["block_s"] for t in out["timings"][1:])
+    row["profile"] = _profile_block(
+        state, cfg, K, 2, 1, 1024, steady_s, card, optimizer="sgd", mu=0.05,
+        label="phase 11a", mix="trimmed_mean",
+        grad_transform=make_attack("sign_flip", K, num_byzantine=3,
+                                   scale=3.0).update,
+        engine_kwargs={"trim": 1, "scope": "neighborhood",
+                       "gather": "fused"})
+    params = state.params
+    del out, state
+    torch.cuda.empty_cache()
+
+    topo = make_topology("ring", K)
+    A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+    active = torch.tensor([1.0] * 5 + [0.0] + [1.0] * 3 + [0.0, 1.0, 1.0],
+                          device="cuda")
+    kw = dict(trim=1, scope="neighborhood", device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    got = make_mixer("trimmed_mean", topo, gather="fused", **kw)(
+        params, active, A)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    n = read_launches()["gather_robust_mix"]
+    if n != num_tiles(K, M):
+        raise AssertionError(f"phase 11a: one combination launched "
+                             f"gather_robust_mix {n}x")
+    t0 = time.perf_counter()
+    want_p = make_mixer("trimmed_mean", topo, gather="table", **kw)(
+        params, active, A)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    row["combine_kernel_vs_table"] = _ulp_gate(
+        "phase 11a: one more combination, kernel vs plain gather table",
+        _sliced(got, want_p, _sum_floors(params, 3)))
+    if not _frozen_equal(got, params, active):
+        raise AssertionError("phase 11a: inactive agents not kept exactly")
+    row.update(combine_kernel_s=kernel_s, combine_table_s=plain_s)
+    print(f"phase 11a: inactive agents bit-equal; that combination took "
+          f"{kernel_s:.3f}s with the kernel ({n} launches), {plain_s:.3f}s "
+          f"on the plain gather table [{card}]")
+    print(json.dumps({"phase": "11a", **row}))
+    del params, got, want_p
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+def phase_train_gather(card: str) -> tuple[dict, dict]:
+    """Phase 11b: the same model with ``--mix gather``, the combination
+    through ``gather_mix``; then one combination of the trained stack
+    against the dense mixer."""
+    import torch
+
+    from repro_torch.core.mixing import DenseMixer, make_mixer
+    from repro_torch.core.topology import make_topology
+    from repro_torch.tree import tree_leaves
+
+    K, blocks = 12, 2
+    M = full_width_M()
+
+    def want(cfg, n_logged):
+        return {"gather_mix": num_tiles(K, M) * blocks,
+                "flash_attention": cfg.num_layers * K * (2 * blocks
+                                                         + n_logged),
+                "diffusion_mix": 0, "gather_robust_mix": 0,
+                "ssd_intra_chunk": 0}
+
+    out, row = _train_full(card, "phase 11b",
+                           ["--mix", "gather", "--attack", "none"], blocks,
+                           want)
+    params = out["state"].params
+    del out
+    torch.cuda.empty_cache()
+    print(f"phase 11b: {torch.cuda.memory_allocated() / 1e9:.2f} GB live "
+          f"before the combination check (the stack: "
+          f"{sum(x.numel() * x.element_size() for x in tree_leaves(params)) / 1e9:.2f} GB)")
+    topo = make_topology("ring", K)
+    A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+    active = torch.tensor([1.0, 0.0] + [1.0] * 7 + [0.0, 1.0, 1.0],
+                          device="cuda")
+    got = make_mixer("gather", topo, device="cuda")(params, active, A)
+
+    def dense():
+        # the dense mixer on bf16 leaves first rounds the weights to bf16
+        # (1/3 is not a bf16 number), so it runs on the float32 widening
+        # and rounds once at the end, as the kernel does; in column slices
+        # of each leaf, since the widened stack would not fit beside the
+        # two bf16 ones
+        width = CHECK_SLICE // K
+        for g, p, floor in zip(tree_leaves(got), tree_leaves(params),
+                               _sum_floors(params, 3)):
+            g, p = g.reshape(K, -1), p.reshape(K, -1)
+            for a in range(0, p.shape[1], width):
+                want = DenseMixer()({"x": p[:, a:a + width].float()},
+                                    active, A)["x"]
+                yield g[:, a:a + width], want.to(torch.bfloat16), floor
+
+    row["combine_gather_vs_dense"] = _ulp_gate(
+        "phase 11b: one combination, gather kernel vs dense", dense())
+    if not _frozen_equal(got, params, active):
+        raise AssertionError("phase 11b: inactive agents not kept exactly")
+    print(json.dumps({"phase": "11b", **row}))
+    del params, got
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+def phase_consensus_robust(path: str, card: str) -> dict:
+    """Phase 12: phase 3's K = 8 bf16 stack collapsed through serve.main
+    with the neighborhood trimmed mean (kernel), the global median (plain)
+    and the gather mixer (kernel), each held against a plain consensus;
+    then prefill and greedy decode from each."""
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.mixing import make_mixer
+    from repro_torch.core.serving import consensus_from_stacked
+    from repro_torch.core.topology import make_topology
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("smollm-360m").model
+    K, M = 8, full_width_M()
+    argv = ["--arch", "smollm-360m", "--full", "--agents", str(K),
+            "--checkpoint", path, "--batch", "4", "--prompt-len", "128",
+            "--decode", "32", "--temperature", "0"]
+    stack, _ = load_checkpoint(path, tf.param_specs(cfg, num_agents=K),
+                               device="cuda")
+    floors = _sum_floors(stack, K)
+    fedavg = make_topology("fedavg", K)
+
+    def median(x):          # the median of 8: the mean of sorted 4th, 5th
+        srt = x.float().sort(dim=0).values
+        return ((srt[3] + srt[4]) * 0.5).to(x.dtype)
+
+    runs = {
+        "trimmed_mean": (["--mix", "trimmed_mean", "--robust-scope",
+                          "neighborhood"], "gather_robust_mix",
+                         lambda: consensus_from_stacked(stack, K, make_mixer(
+                             "trimmed_mean", fedavg, trim=1,
+                             scope="neighborhood", gather="table",
+                             device="cuda"))),
+        "median": (["--mix", "median"], None,
+                   lambda: tree_map(median, stack)),
+        "gather": (["--mix", "gather"], "gather_mix",
+                   lambda: consensus_from_stacked(stack, K, "dense"))}
+    rows = {}
+    for mix, (flags, kernel, plain) in runs.items():
+        reset_launches()
+        res = serve.main(argv + flags)
+        launches = read_launches()
+        want = {n: 0 for n in launches}
+        if kernel:
+            want[kernel] = num_tiles(K, M)
+        if launches != want:
+            raise AssertionError(f"phase 12 --mix {mix}: launches "
+                                 f"{launches}, expected {want}")
+        gate = _ulp_gate(f"phase 12 --mix {mix}: consensus vs plain",
+                         _sliced(res["params"], plain(), floors))
+        toks = res["tokens"]
+        if (toks.shape != (4, 32) or toks.min() < 0
+                or toks.max() >= cfg.vocab_size
+                or not torch.isfinite(res["prefill_logits"]).all()):
+            raise AssertionError(f"phase 12 --mix {mix}: bad tokens {toks}")
+        rows[mix] = {"launches": launches, "timings": res["timings"],
+                     "tokens_per_s": res["tokens_per_s"], **gate}
+        print(f"phase 12: --mix {mix} {' '.join(flags[2:])}: consensus "
+              f"{res['timings']['consensus_s']:.3f}s, prefill "
+              f"{res['timings']['prefill_s']:.3f}s, decode "
+              f"{res['tokens_per_s']:.1f} tokens/s; launches {launches}; "
+              f"tokens in the vocabulary [{card}]")
+        del res
+        torch.cuda.empty_cache()
+    del stack
+    torch.cuda.empty_cache()
+    print(json.dumps({"phase": "12", "card": card, **rows}))
+    return {mix: r["launches"] for mix, r in rows.items()}
 
 
 def main() -> int:
@@ -1236,36 +1812,61 @@ def main() -> int:
     print(f"built every kernel source, one nvcc each in parallel, in "
           f"{time.perf_counter() - t_start:.1f}s: "
           + ", ".join(f"{n} {s:.1f}s" for n, s in built.items()))
+    seconds = {}
+
+    def timed(phase, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        seconds[phase] = time.perf_counter() - t0
+        print(f"chip_smoke: {phase} took {seconds[phase]:.1f}s")
+        return out
+
     try:
-        mix_row = phase_kernel(card)
-        phase_small(scratch)
-        serve_launches, _ = phase_full(scratch, card)
-        attn_row = phase_attention(card)
-        train_launches, _ = phase_train(card)
-        phase_train_devices()
-        ssd_row = phase_ssd(card)
-        with _expandable_segments():
-            mamba_launches, _ = phase_train_mamba(card)
-        zamba_launches = phase_ssm_devices(scratch, card)
+        mix_row = timed("phase 1", phase_kernel, card)
+        timed("phase 2", phase_small, scratch)
+        serve_launches, _, stack_path = timed("phase 3", phase_full, scratch,
+                                              card)
+        attn_row = timed("phase 4", phase_attention, card)
+        train_launches, _ = timed("phase 5", phase_train, card)
+        timed("phase 6", phase_train_devices)
+        ssd_row = timed("phase 7", phase_ssd, card)
+        mamba_launches, _ = timed("phase 8", phase_train_mamba, card)
+        zamba_launches = timed("phase 9", phase_ssm_devices, scratch, card)
+        robust_row, gather_row = timed("phase 10", phase_gather_kernels,
+                                       card)
+        robust_launches, _ = timed("phase 11a", phase_train_robust, card)
+        gather_launches, _ = timed("phase 11b", phase_train_gather, card)
+        # the Byzantine preset at smoke size, card against CPU
+        timed("phase 11c", phase_train_devices, label="phase 11c",
+              agents=12, mix=tuple(BYZANTINE_FLAGS),
+              optimizers=(("sgd", 0.05),))
+        consensus_launches = timed("phase 12", phase_consensus_robust,
+                                   stack_path, card)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
-    # the mix and attention kernels, mamba2 for the SSD kernel);
+    # the mix, attention and gather kernels, mamba2 for the SSD kernel);
     # "launches_by_path" gives every path's counts
     by_path = {"serve_smollm": serve_launches,
                "train_smollm": train_launches,
                "train_mamba2": mamba_launches,
-               "forward_zamba2": zamba_launches}
-    for row, main_path in ((mix_row, "train_smollm"),
-                           (attn_row, "train_smollm"),
-                           (ssd_row, "train_mamba2")):
+               "forward_zamba2": zamba_launches,
+               "train_smollm_byzantine": robust_launches,
+               "train_smollm_gather": gather_launches,
+               **{f"serve_smollm_{mix}": counts
+                  for mix, counts in consensus_launches.items()}}
+    rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
+            (ssd_row, "train_mamba2"),
+            (gather_row, "train_smollm_gather"),
+            (robust_row, "train_smollm_byzantine"))
+    for row, main_path in rows:
         row["launches"] = by_path[main_path][row["name"]]
         row["launches_by_path"] = {name: counts[row["name"]]
                                    for name, counts in by_path.items()}
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f}s [{card}]")
-    print(json.dumps({"kernels": [mix_row, attn_row, ssd_row],
-                      "card": card}))
+    print(json.dumps({"phase_seconds": seconds, "card": card}))
+    print(json.dumps({"kernels": [row for row, _ in rows], "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -68,7 +68,9 @@ class DiffusionConfig:
     graph_kwargs: tuple = ()             # graph-process kwargs, sorted (k, v)
     participation: Any = 1.0             # scalar or length-K sequence of q_k
     drift_correction: bool = False       # eq. (31): mu/q_k for active agents
-    mix: str = "dense"                   # dense|pallas|auto|none
+    mix: str = "dense"                   # dense|sparse|pallas|gather|auto|
+                                         # none|trimmed_mean|median|
+                                         # adaptive_trim
     compress: str = "none"               # none (the others: item 20)
     error_feedback: bool = False
     comm_mode: str = "auto"              # auto|identity
@@ -228,10 +230,17 @@ class DiffusionEngine:
         agent's tree and minibatch.
       grad_transform: optional per-agent gradient transformation applied
         before the step-size mask (:mod:`repro_torch.optim`); default the
-        identity (plain SGD, as in the paper).
+        identity (plain SGD, as in the paper).  A Byzantine attack
+        (:func:`repro_torch.core.attacks.make_attack`) wraps the optimizer
+        and comes in here: raw gradients, then the attack, then the
+        optimizer, as the reference's ``build`` orders them.
       mixer: a :class:`~repro_torch.core.mixing.Mixer` or a name for
         :func:`~repro_torch.core.mixing.make_mixer`; defaults to
         ``config.mix``.
+      trim, scope, gather: the robust backends' per-side trim, scope
+        ("global" | "neighborhood") and bounded-degree policy ("auto" |
+        "table" | "fused" | "off"), handed to ``make_mixer`` (the
+        reference's ``MixerSpec`` fields).
       participation: a :class:`~repro_torch.core.schedules.
         ParticipationProcess`; defaults to i.i.d. Bernoulli with the
         config's q vector.
@@ -245,7 +254,9 @@ class DiffusionEngine:
 
     def __init__(self, config: DiffusionConfig, loss_fn: LossFn,
                  grad_transform=None, *, mixer=None, participation=None,
-                 compressor=None, graph=None, privacy=None, device=None):
+                 compressor=None, graph=None, privacy=None, device=None,
+                 trim: int = 1, scope: str = "global",
+                 gather: str = "auto"):
         if privacy is not None:
             raise NotImplementedError("the privacy tier is not ported yet: "
                                       "see ROADMAP.md queue 1 item 22")
@@ -268,7 +279,8 @@ class DiffusionEngine:
             graph_lib.resolve_mix_for_graph(
                 mixer if mixer is not None else config.mix, self.graph,
                 self.device),
-            self.topology, num_agents=config.num_agents, device=self.device)
+            self.topology, num_agents=config.num_agents, trim=trim,
+            scope=scope, gather=gather, device=self.device)
         graph_lib.check_mixer_support(self.mixer, self.graph)
         self.pipeline = mixing.CommPipeline(self.mixer, compressor,
                                             mode=config.comm_mode)

@@ -9,8 +9,9 @@ machine mirroring :class:`repro_torch.core.schedules.ParticipationProcess`,
 and the realized ``A_t`` flows into the combination step as data (the
 mixer contract is ``mixer(params, active, A_t)``).
 
-The port runs :class:`StaticGraph`, the paper's fixed topology.  The
-time-varying kinds (``link_dropout``, ``gossip``, ``tv_erdos``) raise
+The port runs :class:`StaticGraph`, the paper's fixed topology, and
+:func:`check_mixer_support` holds the support rules of the sparse, gather
+and robust mixers.  The time-varying kinds (``link_dropout``, ``gossip``, ``tv_erdos``) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
@@ -39,6 +40,7 @@ class GraphProcess:
     name = "base"
     stateful: bool = False
     within_base_support: bool = True
+    topology: topo_lib.Topology | None = None
 
     @property
     def num_agents(self) -> int:
@@ -120,18 +122,74 @@ def resolve_mix_for_graph(mix, graph: GraphProcess | None,
 
 
 def check_mixer_support(mixer, graph: GraphProcess | None) -> None:
-    """Reject a mixer that would silently drop off-support edges.
+    """Reject mixer/graph pairs that would silently drop edges, and tune
+    the support-bound backends for the graph.
 
-    The ported mixers (dense, the fused kernel, none) combine through the
-    whole realized matrix, so they take every graph; the support-bound
-    sparse and gather mixers are not ported (ROADMAP.md item 19).
+    The sparse circulant backend moves bytes only along the base
+    topology's offsets and the gather backend reads only its neighbor rows,
+    so both are rejected for a graph that realizes edges off that support.
+    The sparse backend's auto ``skip_dead`` turns on for every graph but the
+    static one (a dynamic graph can kill a whole offset).  The robust
+    backends' gather machinery follows the same convention: an auto choice
+    is re-derived per build (the table attached for an on-support graph
+    with a known base topology, detached otherwise; the fused kernel on or
+    off the same way), while an explicit ``gather="table"`` or
+    ``use_kernel=True`` off support is a build-time error.
+
+    The port runs only the static graph today (item 18 adds the others),
+    which is always on support; the off-support branches hold the rules
+    for those.
     """
-    from repro_torch.core.mixing import DenseMixer, NullMixer, \
-        PallasFusedMixer
+    from repro_torch.core import mixing
 
-    if graph is not None and not graph.within_base_support and not \
-            isinstance(mixer, (DenseMixer, PallasFusedMixer, NullMixer)):
-        raise ValueError(
-            f"{type(mixer).__name__} may read only the base topology's "
-            f"support, but the {graph.name!r} graph realizes edges outside "
-            "it; use mix='dense' or 'pallas'")
+    on_support = graph is None or graph.within_base_support
+    for cls, verb in ((mixing.SparseCirculantMixer,
+                       "moves bytes only along the base topology's "
+                       "circulant offsets"),
+                      (mixing.NeighborGatherMixer,
+                       "gathers only the base topology's neighbor rows")):
+        if not on_support and isinstance(mixer, cls):
+            raise ValueError(
+                f"{cls.__name__} {verb}, but the {graph.name!r} graph "
+                "process realizes edges outside that support; use "
+                "mix='dense' or 'pallas'")
+    if (isinstance(mixer, mixing.SparseCirculantMixer)
+            and mixer._skip_dead_auto):
+        mixer.skip_dead = (graph is not None
+                           and not isinstance(graph, StaticGraph))
+    if isinstance(mixer, mixing.FusedNeighborhoodMixer):
+        if not on_support and mixer.use_kernel is True:
+            raise ValueError(
+                f"{type(mixer).__name__}(use_kernel=True) gathers only the "
+                f"base topology's neighbor rows, but the {graph.name!r} "
+                "graph process realizes edges outside that support; use "
+                "gather='off' (all-slots sort)")
+        if mixer._use_kernel_auto:
+            mixer.use_kernel = None if on_support else False
+        _sync_robust_table(mixer.inner, graph, on_support)
+        return
+    if isinstance(mixer, mixing._SortedRobustMixer):
+        _sync_robust_table(mixer, graph, on_support)
+
+
+def _sync_robust_table(mixer, graph: GraphProcess | None,
+                       on_support: bool) -> None:
+    """Attach or detach a robust mixer's neighbor table per the graph:
+    explicit choices (``gather="table"``/``"off"``) are never touched,
+    "auto" follows the graph."""
+    if mixer.scope != "neighborhood":
+        return
+    explicit = mixer._gather_mode != "auto"
+    if not on_support:
+        if mixer._table is not None:
+            if explicit:
+                raise ValueError(
+                    f"{type(mixer).__name__}(gather='table') gathers only "
+                    f"the base topology's neighbor rows, but the "
+                    f"{graph.name!r} graph process realizes edges outside "
+                    "that support; use gather='off' (all-slots sort)")
+            mixer.detach_neighbor_table()
+        return
+    if (mixer._table is None and not explicit and graph is not None
+            and graph.topology is not None):
+        mixer.attach_neighbor_table(graph.topology)

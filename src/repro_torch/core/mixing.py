@@ -10,24 +10,49 @@ an activation mask ``(K,)`` and the realized ``(K, K)`` combination matrix
 Ported backends:
 
 * :class:`DenseMixer` — einsum against the realized (K, K) matrix.
-* :class:`PallasFusedMixer` — flatten the tree to one float32 (K, M)
-  buffer and run the fused kernel
-  (:func:`repro_torch.kernels.diffusion_mix.diffusion_mix`, CUDA on Hopper;
-  the plain version for CPU tensors).  The mix-kind string stays
-  ``"pallas"`` so flag values match the reference.
+* :class:`SparseCirculantMixer` — circulant offsets and ``torch.roll``;
+  ``skip_dead`` skips an offset whose coefficient row is all zero (a
+  host-side check, numerically the same).
+* :class:`PallasFusedMixer` — the fused eq.-20 kernel
+  (:func:`repro_torch.kernels.diffusion_mix.diffusion_mix`, CUDA on
+  Hopper; the plain version for CPU tensors) over the column-tiled flatten
+  (:func:`tiled_apply`).  The mix-kind string stays ``"pallas"`` so flag
+  values match the reference.
+* :class:`NeighborGatherMixer` — the bounded-degree path: each target
+  gathers its D = dmax + 1 rows through the base topology's neighbor table;
+  on CUDA the gather kernel
+  (:func:`repro_torch.kernels.gather_mix.gather_mix`) over the tiled
+  flatten.
+* :class:`TrimmedMeanMixer` / :class:`CoordinateMedianMixer` /
+  :class:`AdaptiveTrimMixer` — robust order-statistic aggregation (SLSGD),
+  global or per realized neighborhood, with the all-slots sort or the
+  neighbor-table gather; :class:`FusedNeighborhoodMixer` runs the
+  neighborhood scope through the fused gather-sort kernel
+  (:func:`repro_torch.kernels.gather_robust_mix.gather_robust_mix`).
 * :class:`NullMixer` — identity.
+
+The three kernel mixers share one column-tiled flatten: the stack is
+copied into a float32 (K, m) tile a few columns at a time (at most
+:data:`TILE_ELEMS` elements, so a tile may span parts of several leaves),
+the kernel runs on the tile, and its columns are written straight into new
+leaves of each leaf's dtype.  Every output column depends on its own input
+column only, so the result is bit-identical to one whole-stack buffer,
+while the combination holds two stacks and two tiles instead of two
+(K, M) float32 buffers besides.
 
 :class:`CommPipeline` stages the combination step of the engines; the port
 runs its identity mode (no compression), where the pipeline is the mixer.
 
 ``make_mixer("auto")`` resolves to the fused kernel on CUDA, as the
 reference's TPU branch does, and follows the reference's non-TPU policy
-elsewhere.  The sparse, gather and robust backends are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+elsewhere; the neighborhood-robust backends take the fused gather-sort
+kernel on CUDA the same way.  The reference's agent-axis sharding hooks
+come with ROADMAP.md item 25.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+import warnings
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -38,23 +63,33 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 PyTree = Any
 
-__all__ = ["Mixer", "NullMixer", "DenseMixer", "PallasFusedMixer",
-           "CommPipeline", "make_mixer", "mix_dense"]
+__all__ = ["Mixer", "NullMixer", "DenseMixer", "SparseCirculantMixer",
+           "PallasFusedMixer", "NeighborGatherMixer", "FusedNeighborhoodMixer",
+           "TrimmedMeanMixer", "CoordinateMedianMixer", "AdaptiveTrimMixer",
+           "CommPipeline", "TILE_ELEMS", "count_live_offsets", "make_mixer",
+           "mix_dense", "mix_gather", "mix_sparse", "num_tiles",
+           "tiled_apply"]
 
 # the reference's "auto" thresholds (repro.core.mixing)
 _AUTO_SPARSE_MAX_OFFSETS = 8
 _AUTO_GATHER_HEADROOM = 2
 
-#: mixer kinds of the reference that this port does not run yet
-_PENDING = {
-    "sparse": "ROADMAP.md queue 1 item 19 (sparse and gather mixers)",
-    "gather": "ROADMAP.md queue 1 item 19 (sparse and gather mixers) and "
-              "queue 2 kernel 4 (gather_mix)",
-    "trimmed_mean": "ROADMAP.md queue 1 item 21 (robust aggregation)",
-    "median": "ROADMAP.md queue 1 item 21 (robust aggregation)",
-    "adaptive_trim": "ROADMAP.md queue 1 item 21 (robust aggregation)",
-}
+# the all-slots neighborhood sort above this K is the O(K^2 M log K) path
+# the gather table exists to avoid: warn once per mixer when it runs anyway
+_NEIGHBORHOOD_WARN_K = 512
 
+#: float32 elements of one tile buffer of the column-tiled flatten (1 GiB);
+#: the plain robust paths bound their per-leaf temporaries by it too
+TILE_ELEMS = 1 << 28
+
+_ROBUST = ("trimmed_mean", "median", "adaptive_trim")
+
+_INF = float("inf")
+
+
+# ---------------------------------------------------------------------------
+# functional primitives
+# ---------------------------------------------------------------------------
 
 def mix_dense(A_eff: torch.Tensor, params: PyTree) -> PyTree:
     """Combination step  w_k <- sum_l a_lk psi_l  over stacked agents.
@@ -70,14 +105,158 @@ def mix_dense(A_eff: torch.Tensor, params: PyTree) -> PyTree:
     return tree_map(mix_leaf, params)
 
 
+def _bcast(v: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A (K,) vector in p's dtype, shaped to broadcast against (K, ...)."""
+    return v.to(p.dtype).reshape((v.shape[0],) + (1,) * (p.ndim - 1))
+
+
+def mix_sparse(A_eff: torch.Tensor, params: PyTree, offsets: Sequence[int],
+               *, skip_dead: bool = False) -> PyTree:
+    """Circulant-offset mixing: w'_k = sum_o c_o[k] * w_{(k+o) mod K}.
+
+    Valid whenever every nonzero off-diagonal of the base topology lies on a
+    circulant offset in ``offsets``; entries of A_eff outside the true
+    neighborhood are zero, so wrap-around reads are annihilated.
+
+    ``skip_dead`` skips every offset whose coefficient row is all zero
+    (on a realized dynamic graph an offset whose every edge failed this
+    block contributes exact zeros).  The reference guards each roll with a
+    ``lax.cond``; here the check runs on the host once per call.  The
+    result is the same.
+    """
+    K = A_eff.shape[0]
+    idx = torch.arange(K, device=A_eff.device)
+    # c_o[k] = A_eff[(k + o) % K, k]
+    coeffs = {o: A_eff[(idx + o) % K, idx] for o in (0, *offsets)}
+    live = [o for o in offsets
+            if not skip_dead or bool((coeffs[o] != 0).any())]
+
+    def mix_leaf(p: torch.Tensor) -> torch.Tensor:
+        out = _bcast(coeffs[0], p) * p
+        for o in live:
+            out = out + _bcast(coeffs[o], p) * torch.roll(p, shifts=-o,
+                                                          dims=0)
+        return out
+
+    return tree_map(mix_leaf, params)
+
+
+def mix_gather(A_eff: torch.Tensor, params: PyTree, idx: torch.Tensor,
+               valid: torch.Tensor) -> PyTree:
+    """Bounded-degree combination through a static neighbor table.
+
+    ``idx`` / ``valid`` come from
+    :meth:`repro_torch.core.topology.Topology.neighbor_table`: each target
+    row k reads only its ``D = max_degree + 1`` possible contributor rows
+    and contracts them with the realized weights ``A_eff[idx[k, j], k]``.
+    Padding slots gather the self row with weight exactly zero, so the
+    result matches :func:`mix_dense` whenever every nonzero of ``A_eff``
+    lies on the base support.
+    """
+    idx = idx.to(device=A_eff.device, dtype=torch.long)
+    gw = _gather_weights(A_eff, idx, valid)
+
+    def mix_leaf(p: torch.Tensor) -> torch.Tensor:
+        flat = p.reshape(idx.shape[0], -1)
+        mixed = torch.einsum("kd,kdm->km", gw.to(flat.dtype), flat[idx])
+        return mixed.reshape(p.shape)
+
+    return tree_map(mix_leaf, params)
+
+
+def count_live_offsets(A_eff: torch.Tensor,
+                       offsets: Sequence[int]) -> torch.Tensor:
+    """How many circulant offsets carry any nonzero coefficient in this
+    realized matrix: the rolls the ``skip_dead`` sparse path runs (int32
+    scalar)."""
+    K = A_eff.shape[0]
+    idx = torch.arange(K, device=A_eff.device)
+    live = [(A_eff[(idx + int(o)) % K, idx] != 0).any() for o in offsets]
+    return (torch.stack(live).sum().to(torch.int32) if live else
+            torch.zeros((), dtype=torch.int32, device=A_eff.device))
+
+
+def _gather_weights(A_eff: torch.Tensor, idx: torch.Tensor,
+                    valid: torch.Tensor) -> torch.Tensor:
+    """(K, D) realized weight per table slot; padding slots exactly 0."""
+    K = idx.shape[0]
+    idx = idx.to(device=A_eff.device, dtype=torch.long)
+    cols = torch.arange(K, device=A_eff.device)[:, None]
+    return A_eff[idx, cols] * valid.to(device=A_eff.device,
+                                       dtype=A_eff.dtype)
+
+
+def tile_columns(K: int) -> int:
+    """Columns of one tile of the column-tiled flatten of a K-agent
+    stack: as many as :data:`TILE_ELEMS` float32 elements hold."""
+    return max(1, TILE_ELEMS // max(int(K), 1))
+
+
+def num_tiles(K: int, M: int) -> int:
+    """Tiles (kernel launches) of one tiled combination of a (K, M)
+    stack."""
+    return -(-int(M) // tile_columns(K))
+
+
+def tiled_apply(leaves: list,
+                fn: Callable[[torch.Tensor], torch.Tensor]) -> list:
+    """``unflatten(fn(flatten(leaves)))``, one column tile at a time.
+
+    ``leaves`` are (K, ...) tensors on one device; ``fn`` maps a
+    contiguous float32 (K, m) tile to a (K, m) result.  The tile buffer
+    (at most :data:`TILE_ELEMS` elements) is allocated once and refilled:
+    a tile may span parts of several leaves, and ``copy_`` converts each
+    leaf's dtype on the way in.  The result's columns are written straight
+    into new leaves, allocated once with each leaf's shape and dtype
+    (``copy_`` rounds float32 to the leaf's dtype, as ``.to`` does).  When
+    ``fn`` is column-wise, as the kernels are, the result does not depend
+    on the tile size.
+    """
+    K = leaves[0].shape[0]
+    sizes = [int(np.prod(leaf.shape[1:], dtype=np.int64)) for leaf in leaves]
+    flats = [leaf.reshape(K, n) for leaf, n in zip(leaves, sizes)]
+    outs = [torch.empty((K, n), dtype=leaf.dtype, device=leaf.device)
+            for leaf, n in zip(leaves, sizes)]
+    M = sum(sizes)
+    cols = min(tile_columns(K), max(M, 1))
+    buf = torch.empty(K * cols, dtype=torch.float32,
+                      device=leaves[0].device)
+    i = off = 0                          # the next input column: leaf, offset
+    for a in range(0, M, cols):
+        w = min(cols, M - a)
+        tile = buf[:K * w].view(K, w)
+        segs, t = [], 0
+        while t < w:
+            n = min(sizes[i] - off, w - t)
+            if n:
+                tile[:, t:t + n].copy_(flats[i][:, off:off + n])
+                segs.append((i, off, t, n))
+            t, off = t + n, off + n
+            if off == sizes[i]:
+                i, off = i + 1, 0
+        res = fn(tile)
+        for j, o, t, n in segs:
+            outs[j][:, o:o + n].copy_(res[:, t:t + n])
+        del res
+    return [o.reshape(leaf.shape) for o, leaf in zip(outs, leaves)]
+
+
+# ---------------------------------------------------------------------------
+# Mixer interface
+# ---------------------------------------------------------------------------
+
 class Mixer:
     """Combination-step backend: ``mixer(params, active, A_t) -> params``.
 
-    Linear backends equal ``mix_dense(masked_combination(A_t, active),
-    params)``.
+    Linear backends (``linear = True``) equal ``mix_dense(
+    masked_combination(A_t, active), params)``; the robust backends set
+    ``linear = False``.  ``uses_matrix = False`` marks a backend that
+    accepts ``A_t`` and ignores it (global robust aggregation, none).
     """
 
     name = "base"
+    linear = True
+    uses_matrix = True
 
     def __call__(self, params: PyTree, active: torch.Tensor,
                  A_t: torch.Tensor) -> PyTree:
@@ -91,6 +270,7 @@ class NullMixer(Mixer):
     """Identity combination step (K = 1 or mixing disabled)."""
 
     name = "none"
+    uses_matrix = False
 
     def __call__(self, params: PyTree, active: torch.Tensor,
                  A_t: torch.Tensor | None = None) -> PyTree:
@@ -108,118 +288,663 @@ class DenseMixer(Mixer):
         return mix_dense(A_eff, params)
 
 
-class _Layout(NamedTuple):
-    """Flatten/unflatten spec of one tree."""
+class SparseCirculantMixer(Mixer):
+    """Circulant roll path for bounded-degree topologies.
 
-    sizes: tuple[int, ...]   # per-leaf inner size (leaf.numel() // K)
-    M: int                   # total inner size
+    Only the offsets are constructor state; the realized matrix is a
+    per-call operand.  Valid whenever every nonzero off-diagonal of A_t
+    lies on a base circulant offset
+    (:func:`repro_torch.core.graphs.check_mixer_support` rejects graphs
+    that leave it).  ``skip_dead=None`` is an auto decision that
+    ``check_mixer_support`` re-derives per build (on for dynamic graphs).
+    """
+
+    name = "sparse"
+
+    def __init__(self, offsets: Sequence[int],
+                 skip_dead: bool | None = None):
+        self.offsets = tuple(int(o) for o in offsets)
+        self.skip_dead = skip_dead
+        self._skip_dead_auto = skip_dead is None
+
+    def __call__(self, params: PyTree, active: torch.Tensor,
+                 A_t: torch.Tensor) -> PyTree:
+        A_eff = part.masked_combination(A_t, active)
+        return mix_sparse(A_eff, params, self.offsets,
+                          skip_dead=bool(self.skip_dead))
+
+    def live_offsets(self, active: torch.Tensor,
+                     A_t: torch.Tensor) -> torch.Tensor:
+        """Realized roll count for this (mask, matrix) draw."""
+        return count_live_offsets(part.masked_combination(A_t, active),
+                                  self.offsets)
 
 
 class PallasFusedMixer(Mixer):
-    """Fused mask+mix kernel over the flattened parameter tree.
+    """The fused mask+mix kernel over the column-tiled flatten.
 
-    The agent-stacked tree is flattened to one float32 (K, M) buffer; the
-    kernel rebuilds the eq.-20 masked matrix per block and streams the
-    buffer once.  The CUDA kernel takes any M, so unlike the TPU layout
-    there is no padding.  (The reference caches its layout to spare jit
-    retraces; eager PyTorch has none to spare, so the layout is recomputed
-    from the leaf shapes on each call.)
-
-    Peak memory is the stack, the float32 buffer, the kernel's output and
-    the unflattened copy: the buffer is filled leaf by leaf in place
-    (``copy_`` converts the dtype without a temporary) and dropped as soon
-    as the kernel has consumed it.
+    Each tile of the flattened stack goes through
+    :func:`repro_torch.kernels.diffusion_mix.diffusion_mix`, which rebuilds
+    the eq.-20 masked matrix and streams the tile once: one launch per tile
+    (:func:`num_tiles`).  The CUDA kernel takes any M, so unlike the TPU
+    layout there is no padding, and eager PyTorch has no retrace for a
+    layout cache to spare.
     """
 
     name = "pallas"
-
-    @staticmethod
-    def _layout(leaves) -> _Layout:
-        sizes = tuple(int(np.prod(leaf.shape[1:], dtype=np.int64))
-                      for leaf in leaves)
-        return _Layout(sizes=sizes, M=int(sum(sizes)))
 
     def __call__(self, params: PyTree, active: torch.Tensor,
                  A_t: torch.Tensor) -> PyTree:
         from repro_torch.kernels.diffusion_mix import diffusion_mix
 
+        A = A_t.float()
+        return tree_unflatten(params, tiled_apply(
+            tree_leaves(params), lambda tile: diffusion_mix(A, active, tile)))
+
+
+class _NeighborTable:
+    """The base topology's (K, D) neighbor table ``(idx, valid)``
+    (:meth:`~repro_torch.core.topology.Topology.neighbor_table`), kept on
+    the host and copied once to each device that asks for it."""
+
+    def __init__(self, topology: topo_lib.Topology):
+        idx, valid = topology.neighbor_table()
+        self.idx = torch.as_tensor(idx)              # (K, D) int32
+        self.valid = torch.as_tensor(valid)          # (K, D) bool
+        self._on: dict = {}
+
+    @property
+    def slots(self) -> int:
+        return int(self.idx.shape[1])
+
+    def on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        key = str(torch.device(device))
+        if key not in self._on:
+            self._on[key] = (self.idx.to(device), self.valid.to(device))
+        return self._on[key]
+
+
+class NeighborGatherMixer(Mixer):
+    """Bounded-degree linear combination: the scale path for large K.
+
+    Holds the static neighbor table of the base topology and runs
+    :func:`mix_gather`: each target row reads only its ``D = dmax + 1``
+    possible contributor rows.  Valid whenever the realized graphs stay
+    ``within_base_support``.
+
+    ``fused=None`` resolves per call: on CUDA the gather kernel
+    (:func:`repro_torch.kernels.gather_mix.gather_mix`) over the
+    column-tiled flatten, one launch per tile; on the CPU the per-leaf
+    gather einsum.  ``fused=True`` forces the tiled path (with the kernel's
+    plain version on the CPU, where the reference would run its kernel in
+    interpret mode); ``fused=False`` forces the einsum.
+    """
+
+    name = "gather"
+
+    def __init__(self, topology: topo_lib.Topology, *,
+                 fused: bool | None = None):
+        if topology is None:
+            raise ValueError("NeighborGatherMixer needs the base topology "
+                             "(source of the static neighbor table)")
+        self.table = _NeighborTable(topology)
+        self.num_agents = topology.num_agents
+        self.max_degree = topology.max_degree
+        self.fused = fused
+
+    def __call__(self, params: PyTree, active: torch.Tensor,
+                 A_t: torch.Tensor) -> PyTree:
+        A_eff = part.masked_combination(A_t.float(), active)
+        idx, valid = self.table.on(A_eff.device)
         leaves = tree_leaves(params)
-        lay = self._layout(leaves)
-        buf = self._flatten(leaves, lay)
-        mixed = diffusion_mix(A_t.float(), active, buf)
-        del buf
-        return tree_unflatten(params, self._unflatten(mixed, leaves, lay))
+        fused = (leaves[0].device.type == "cuda" if self.fused is None
+                 else bool(self.fused))
+        if not fused:
+            return mix_gather(A_eff, params, idx, valid)
+        from repro_torch.kernels.gather_mix import gather_mix
 
-    def _flatten(self, leaves, lay) -> torch.Tensor:
-        K = leaves[0].shape[0]
-        buf = torch.empty((K, lay.M), dtype=torch.float32,
-                          device=leaves[0].device)
-        off = 0
-        for leaf, n in zip(leaves, lay.sizes):
-            buf[:, off:off + n].copy_(leaf.reshape(K, n))
-            off += n
-        return buf
+        gw = _gather_weights(A_eff, idx, valid)
+        return tree_unflatten(params, tiled_apply(
+            leaves, lambda tile: gather_mix(idx, gw, tile)))
 
-    def _unflatten(self, buf, leaves, lay) -> list:
-        # copy=True: a float32 leaf must not stay a view of ``buf``, or the
-        # whole (K, M) buffer would live as long as that leaf does
-        outs, off = [], 0
-        for leaf, n in zip(leaves, lay.sizes):
-            outs.append(buf[:, off:off + n].reshape(leaf.shape)
-                        .to(leaf.dtype, copy=True))
-            off += n
-        return outs
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"NeighborGatherMixer(K={self.num_agents}, "
+                f"D={self.max_degree + 1}, fused={self.fused})")
 
+
+# ---------------------------------------------------------------------------
+# robust aggregation (SLSGD, arXiv:1903.06996)
+# ---------------------------------------------------------------------------
+
+def _robust_leaf(p: torch.Tensor, active: torch.Tensor,
+                 agg: Callable[[torch.Tensor], torch.Tensor],
+                 per_column: int) -> torch.Tensor:
+    """One leaf of a plain robust path: ``agg`` maps float32 (K, w)
+    columns to their (K, w) or (1, w) aggregate; active rows take it in
+    the leaf's dtype and inactive rows keep the leaf exactly.  Columns go
+    through ``agg`` in slices whose temporaries (``per_column`` float32
+    elements per column) stay within :data:`TILE_ELEMS`; columns are
+    independent, so the slices do not change the result."""
+    K = p.shape[0]
+    x = p.reshape(K, -1)
+    out = torch.empty_like(x)
+    keep = active.to(device=p.device, dtype=torch.float32).reshape(K, 1) > 0
+    width = max(1, TILE_ELEMS // max(per_column, 1))
+    for a in range(0, x.shape[1], width):
+        cols = x[:, a:a + width]
+        out[:, a:a + width] = torch.where(keep, agg(cols.float()).to(p.dtype),
+                                          cols)
+    return out.reshape(p.shape)
+
+
+def _weighted_slots(srt: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum over the slot axis (-2) of ``where(w > 0, srt, 0) * w``: the
+    where keeps 0 * inf = nan out of the contraction."""
+    zero = torch.zeros((), dtype=srt.dtype, device=srt.device)
+    return (torch.where(w > 0, srt, zero) * w).sum(dim=-2)
+
+
+
+class _SortedRobustMixer(Mixer):
+    """Shared machinery for order-statistic (robust) combination backends.
+
+    * ``scope="global"``: every active agent receives the same
+      coordinate-wise robust aggregate of the realized active set (A_t is
+      ignored, ``uses_matrix = False``).
+    * ``scope="neighborhood"``: each active agent k aggregates over its
+      realized neighborhood, the support of column k of
+      ``masked_combination(A_t, active)`` (self always included).
+
+    Inactive agents keep their parameters exactly.  Per coordinate (and
+    per target in the neighborhood scope) the contributor values are
+    sorted with non-contributors pushed to +inf, so the S contributors
+    occupy the first S slots; subclasses supply the weights over those
+    sorted slots.
+
+    With a neighbor table attached (:meth:`attach_neighbor_table`) the
+    neighborhood scope gathers only the ``D = max_degree + 1`` rows that
+    can contribute to each target and sorts those; without one the
+    all-slots sort runs, with a one-time warning above
+    ``_NEIGHBORHOOD_WARN_K`` agents.  Both sort the same finite multiset
+    per (target, coordinate).
+    """
+
+    linear = False
+    uses_matrix = False       # per instance: True for scope="neighborhood"
+
+    def __init__(self, num_agents: int, scope: str = "global"):
+        if num_agents < 1:
+            raise ValueError(f"num_agents={num_agents} must be >= 1")
+        if scope not in ("global", "neighborhood"):
+            raise ValueError(f"scope={scope!r} must be 'global' or "
+                             "'neighborhood'")
+        self.num_agents = int(num_agents)
+        self.scope = scope
+        self.uses_matrix = scope == "neighborhood"
+        self._table: _NeighborTable | None = None
+        # "auto": graphs.check_mixer_support attaches/detaches the table
+        # per build; "table"/"off" are explicit choices it never touches
+        self._gather_mode = "auto"
+        self._warned_dense = False
+
+    def attach_neighbor_table(self, topology: topo_lib.Topology) -> None:
+        """Enable the bounded-degree gather for the neighborhood scope.
+
+        ``topology`` must be the BASE topology of the graph process, and
+        every realized matrix must stay within its support.
+        """
+        if topology.num_agents != self.num_agents:
+            raise ValueError(
+                f"neighbor table is for K={topology.num_agents} agents; "
+                f"this mixer has num_agents={self.num_agents}")
+        self._table = _NeighborTable(topology)
+
+    def detach_neighbor_table(self) -> None:
+        """Drop the gather table (the graph may leave the base support)."""
+        self._table = None
+
+    def _slot_weights(self, S: torch.Tensor,
+                      slots: int | None = None) -> torch.Tensor:
+        """Weights over ascending sorted slots given S contributors: shape
+        ``S.shape + (slots,)``; ``slots`` defaults to ``num_agents`` (the
+        all-slots sort) and is D on the gather path.  Zero on every slot
+        >= S, and on every slot when S = 0."""
+        raise NotImplementedError
+
+    def _slot_index(self, S: torch.Tensor, slots: int | None):
+        n = self.num_agents if slots is None else int(slots)
+        S = S.to(torch.float32).unsqueeze(-1)
+        return S, torch.arange(n, dtype=torch.float32, device=S.device)
+
+    def __call__(self, params: PyTree, active: torch.Tensor,
+                 A_t: torch.Tensor | None = None) -> PyTree:
+        if self.scope == "neighborhood":
+            if A_t is None:
+                raise ValueError(
+                    f"{type(self).__name__}(scope='neighborhood') "
+                    "aggregates over the realized neighborhood and needs "
+                    "the A_t operand")
+            return self._neighborhood(params, active, A_t)
+        return self._global(params, active)
+
+    def _global(self, params: PyTree, active: torch.Tensor) -> PyTree:
+        K = self.num_agents
+        m = active.to(torch.float32)
+        w = self._slot_weights(m.sum())[:, None]           # (K, 1)
+        mem = m.reshape(K, 1) > 0
+
+        def agg(x):
+            srt = torch.sort(torch.where(mem, x, _INF), dim=0).values
+            return _weighted_slots(srt, w)[None]
+
+        return tree_map(lambda p: _robust_leaf(p, m, agg, 3 * K), params)
+
+    def _neighborhood(self, params: PyTree, active: torch.Tensor,
+                      A_t: torch.Tensor) -> PyTree:
+        if self._table is not None:
+            return self._neighborhood_gather(params, active, A_t)
+        if self.num_agents > _NEIGHBORHOOD_WARN_K and not self._warned_dense:
+            self._warned_dense = True
+            warnings.warn(
+                f"{type(self).__name__}(scope='neighborhood') is running "
+                f"the all-slots sort at K={self.num_agents}: O(K^2 M log K) "
+                "work per block.  If the graph process stays "
+                "within_base_support, attach the bounded-degree gather "
+                "table (mixer.attach_neighbor_table(topology), or build "
+                "through make_mixer(..., topology)/check_mixer_support) "
+                "for O(K dmax M log dmax).", stacklevel=3)
+        return self._neighborhood_dense(params, active, A_t)
+
+    def _dense_members(self, active, A_t):
+        """(target, contributor) membership of the all-slots sort and its
+        per-target count: l contributes to k iff A_eff[l, k] != 0, and
+        self is forced (the renormalized self weight can hit 0)."""
+        K = self.num_agents
+        A_eff = part.masked_combination(A_t.to(torch.float32), active)
+        member = (A_eff != 0) | torch.eye(K, dtype=torch.bool,
+                                          device=A_eff.device)
+        return member.T, member.to(torch.float32).sum(dim=0)
+
+    def _gather_members(self, active, A_t):
+        """The table's rows, (K, D) membership and per-target count: slot
+        0 is self and always a member; padding slots never are."""
+        A_eff = part.masked_combination(A_t.to(torch.float32), active)
+        idx, valid = self._table.on(A_eff.device)
+        member = _gather_weights(A_eff, idx, valid) != 0
+        member[:, 0] = True
+        return idx, member, member.to(torch.float32).sum(dim=1)
+
+    def _neighborhood_dense(self, params: PyTree, active: torch.Tensor,
+                            A_t: torch.Tensor) -> PyTree:
+        K = self.num_agents
+        mem_t, S = self._dense_members(active, A_t)
+        w = self._slot_weights(S)[:, :, None]              # (K, K, 1)
+
+        def agg(x):
+            vals = torch.where(mem_t[:, :, None], x[None], _INF)
+            return _weighted_slots(torch.sort(vals, dim=1).values, w)
+
+        return tree_map(lambda p: _robust_leaf(p, active, agg, 3 * K * K),
+                        params)
+
+    def _neighborhood_gather(self, params: PyTree, active: torch.Tensor,
+                             A_t: torch.Tensor) -> PyTree:
+        from repro_torch.kernels.ref import gather_robust_mix_ref
+
+        K = self.num_agents
+        idx, member, S = self._gather_members(active, A_t)
+        D = idx.shape[1]
+        w = self._slot_weights(S, D)
+
+        def agg(x):
+            return gather_robust_mix_ref(idx, member, w, active, x)
+
+        return tree_map(lambda p: _robust_leaf(p, active, agg, 3 * K * D),
+                        params)
+
+
+class TrimmedMeanMixer(_SortedRobustMixer):
+    """Coordinate-wise trimmed mean (SLSGD eq. 4), global or per
+    neighborhood.
+
+    Per coordinate, drop the ``trim`` smallest and ``trim`` largest values
+    among the S contributions and average the rest; with fewer than
+    ``2 trim + 1`` contributors the trim is clipped to ``floor((S - 1) /
+    2)``.  ``trim = 0`` is the plain mean over the contributors.
+    """
+
+    name = "trimmed_mean"
+
+    def __init__(self, num_agents: int, trim: int = 1,
+                 scope: str = "global"):
+        super().__init__(num_agents, scope=scope)
+        if not 0 <= trim < max(num_agents, 1):
+            raise ValueError(f"trim={trim} must lie in [0, {num_agents})")
+        self.trim = int(trim)
+
+    def _slot_weights(self, S, slots=None):
+        S, idx = self._slot_index(S, slots)
+        b = torch.clamp(torch.clamp(torch.floor((S - 1.0) / 2.0),
+                                    max=float(self.trim)), min=0.0)
+        keep = ((idx >= b) & (idx < S - b)).to(torch.float32)
+        return keep / torch.clamp(keep.sum(dim=-1, keepdim=True), min=1.0)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"TrimmedMeanMixer(K={self.num_agents}, trim={self.trim}, "
+                f"scope={self.scope!r})")
+
+
+class CoordinateMedianMixer(_SortedRobustMixer):
+    """Coordinate-wise median (breakdown point 1/2), global or per
+    neighborhood: SLSGD's b -> (S - 1)/2 limit."""
+
+    name = "median"
+
+    def _slot_weights(self, S, slots=None):
+        S, idx = self._slot_index(S, slots)
+        lo = torch.clamp(torch.floor((S - 1.0) / 2.0), min=0.0)
+        hi = torch.clamp(torch.ceil((S - 1.0) / 2.0), min=0.0)
+        w = 0.5 * ((idx == lo).to(torch.float32)
+                   + (idx == hi).to(torch.float32))
+        # S = 0: nothing to aggregate, the weights die
+        w = w * (S >= 1.0).to(torch.float32)
+        return w / torch.clamp(w.sum(dim=-1, keepdim=True), min=1.0)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"CoordinateMedianMixer(K={self.num_agents}, "
+                f"scope={self.scope!r})")
+
+
+class AdaptiveTrimMixer(TrimmedMeanMixer):
+    """Trimmed mean with a per-coordinate, data-dependent trim count.
+
+    Over the S contributors: the coordinate median and the MAD (median
+    absolute deviation, consistency factor 1.4826); a contribution further
+    than ``mad_thresh`` consistent MADs from the median is flagged, and
+    ``b_lo = min(#low flags, cap)`` / ``b_hi = min(#high flags, cap)``
+    slots are dropped per side, ``cap = min(trim, floor((S - 1) / 2))``.
+    Flagging is strict, so an exactly tied majority (MAD = 0) never flags
+    equal values.  The weights depend on the data per coordinate, so the
+    fused gather-sort kernel (precomputed per-row slot weights) does not
+    apply: this backend runs plain torch only.
+    """
+
+    name = "adaptive_trim"
+
+    def __init__(self, num_agents: int, trim: int = 1,
+                 scope: str = "global", mad_thresh: float = 3.0):
+        super().__init__(num_agents, trim=trim, scope=scope)
+        if mad_thresh <= 0:
+            raise ValueError(f"mad_thresh={mad_thresh} must be > 0")
+        self.mad_thresh = float(mad_thresh)
+
+    def _adaptive_weights(self, srt: torch.Tensor,
+                          S: torch.Tensor) -> torch.Tensor:
+        """Per-coordinate keep weights over ascending sorted slots.
+
+        ``srt``: (..., n, w) sorted along the slot axis -2, +inf beyond the
+        S live slots; ``S``: (...) contributor counts.  Returns weights
+        shaped like ``srt``, zero on dead slots and on the flagged tails,
+        renormalized to sum to 1 per coordinate.
+        """
+        n = srt.shape[-2]
+        S = S.to(torch.float32).reshape(S.shape + (1, 1))
+        ranks = torch.arange(n, dtype=torch.float32,
+                             device=srt.device).reshape(n, 1)
+        live = (ranks < S).to(torch.float32)
+        lo_i = torch.clamp(torch.floor((S - 1.0) / 2.0), min=0.0).long()
+        hi_i = torch.clamp(torch.ceil((S - 1.0) / 2.0), min=0.0).long()
+
+        def take(t, i):
+            return torch.gather(t, -2, i.expand(t.shape[:-2]
+                                                + (1, t.shape[-1])))
+
+        zero = torch.zeros((), device=srt.device)
+        has = S >= 1.0
+        med = torch.where(has, 0.5 * (take(srt, lo_i) + take(srt, hi_i)),
+                          zero)
+        # the MAD needs a second sort: |x - med| is not monotone in x
+        dev = torch.where(live > 0, (srt - med).abs(), _INF)
+        dev_srt = torch.sort(dev, dim=-2).values
+        mad = torch.where(has, 0.5 * (take(dev_srt, lo_i)
+                                      + take(dev_srt, hi_i)), zero)
+        thr = self.mad_thresh * 1.4826 * mad
+        lo_out = (live * (srt < med - thr)).sum(dim=-2, keepdim=True)
+        hi_out = (live * (srt > med + thr)).sum(dim=-2, keepdim=True)
+        cap = torch.clamp(torch.clamp(torch.floor((S - 1.0) / 2.0),
+                                      max=float(self.trim)), min=0.0)
+        b_lo = torch.minimum(lo_out, cap)
+        b_hi = torch.minimum(hi_out, cap)
+        keep = live * (ranks >= b_lo) * (ranks < S - b_hi)
+        return keep / torch.clamp(keep.sum(dim=-2, keepdim=True), min=1.0)
+
+    def _adaptive(self, vals: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+        srt = torch.sort(vals, dim=-2).values
+        return _weighted_slots(srt, self._adaptive_weights(srt, S))
+
+    # the three paths of the base class, with the per-row slot weights
+    # replaced by per-coordinate weights computed from the sorted values
+    def _global(self, params: PyTree, active: torch.Tensor) -> PyTree:
+        K = self.num_agents
+        m = active.to(torch.float32)
+        S = m.sum()
+        mem = m.reshape(K, 1) > 0
+
+        def agg(x):
+            return self._adaptive(torch.where(mem, x, _INF), S)[None]
+
+        return tree_map(lambda p: _robust_leaf(p, m, agg, 8 * K), params)
+
+    def _neighborhood_dense(self, params: PyTree, active: torch.Tensor,
+                            A_t: torch.Tensor) -> PyTree:
+        K = self.num_agents
+        mem_t, S = self._dense_members(active, A_t)
+
+        def agg(x):
+            return self._adaptive(
+                torch.where(mem_t[:, :, None], x[None], _INF), S)
+
+        return tree_map(lambda p: _robust_leaf(p, active, agg, 8 * K * K),
+                        params)
+
+    def _neighborhood_gather(self, params: PyTree, active: torch.Tensor,
+                             A_t: torch.Tensor) -> PyTree:
+        K = self.num_agents
+        idx, member, S = self._gather_members(active, A_t)
+        rows = idx.long()
+
+        def agg(x):
+            return self._adaptive(
+                torch.where(member[:, :, None], x[rows], _INF), S)
+
+        return tree_map(
+            lambda p: _robust_leaf(p, active, agg, 8 * K * idx.shape[1]),
+            params)
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"AdaptiveTrimMixer(K={self.num_agents}, trim={self.trim}, "
+                f"mad_thresh={self.mad_thresh}, scope={self.scope!r})")
+
+
+class FusedNeighborhoodMixer(Mixer):
+    """Neighborhood-robust aggregation through the fused gather-sort
+    kernel (:func:`repro_torch.kernels.gather_robust_mix.
+    gather_robust_mix`) over the column-tiled flatten, one launch per
+    tile.
+
+    Wraps a neighborhood-scope trimmed mean or median with a gather table
+    attached.  The membership mask, contributor count and slot weights are
+    computed outside the kernel on (K, D) tensors, so only the O(K D M)
+    gather/sort/contract runs fused.  ``use_kernel=None`` is an auto
+    decision that :func:`repro_torch.core.graphs.check_mixer_support`
+    turns off (delegating to the inner mixer's all-slots sort) when the
+    graph leaves the base support; an explicit ``True`` makes that a
+    build-time error.  On the CPU the kernel's plain version runs.
+    """
+
+    linear = False
+    uses_matrix = True
+
+    def __init__(self, inner: _SortedRobustMixer,
+                 topology: topo_lib.Topology, *,
+                 use_kernel: bool | None = None):
+        if inner.scope != "neighborhood":
+            raise ValueError(
+                "FusedNeighborhoodMixer fuses the neighborhood scope; got "
+                f"scope={inner.scope!r}")
+        if isinstance(inner, AdaptiveTrimMixer):
+            raise ValueError("adaptive_trim weights depend on the data per "
+                             "coordinate; the fused kernel takes per-row "
+                             "slot weights")
+        if topology is None:
+            raise ValueError("FusedNeighborhoodMixer needs the base "
+                             "topology (source of the neighbor table)")
+        inner.attach_neighbor_table(topology)
+        self.inner = inner
+        self.name = inner.name
+        self.num_agents = inner.num_agents
+        self.use_kernel = use_kernel
+        self._use_kernel_auto = use_kernel is None
+
+    def __call__(self, params: PyTree, active: torch.Tensor,
+                 A_t: torch.Tensor) -> PyTree:
+        use = True if self.use_kernel is None else bool(self.use_kernel)
+        if not use or self.inner._table is None:
+            return self.inner(params, active, A_t)
+        from repro_torch.kernels.gather_robust_mix import gather_robust_mix
+
+        idx, member, S = self.inner._gather_members(active, A_t)
+        wslot = self.inner._slot_weights(S, idx.shape[1])
+        act = active.to(device=idx.device, dtype=torch.float32)
+        # the kernel's inactive branch returns the agent's own float32 row;
+        # the round trip is exact for bf16/f16/f32 leaves
+        return tree_unflatten(params, tiled_apply(
+            tree_leaves(params),
+            lambda tile: gather_robust_mix(idx, member, wslot, act, tile)))
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"FusedNeighborhoodMixer({self.inner!r}, "
+                f"use_kernel={self.use_kernel})")
+
+
+# ---------------------------------------------------------------------------
+# factory
+# ---------------------------------------------------------------------------
 
 def _resolve_auto(topology: topo_lib.Topology | None,
-                  device: torch.device) -> str:
+                  offsets: Sequence[int] | None, device: torch.device):
     """Pick a backend name, as ``repro.core.mixing._resolve_auto`` does;
-    CUDA takes the reference's TPU branch (the fused kernel)."""
+    CUDA takes the reference's TPU branch (the fused kernel).  Returns
+    (name, offsets) so the sparse branch is built with exactly the offsets
+    the decision was based on."""
     if device.type == "cuda":
-        return "pallas"
-    if topology is None:
-        return "dense"
-    offsets = (topology.neighbor_offsets_ring()
-               if topology.max_degree < topology.num_agents - 1 else None)
-    if offsets and len(offsets) <= _AUTO_SPARSE_MAX_OFFSETS:
-        return "sparse"
-    if (_AUTO_GATHER_HEADROOM * (topology.max_degree + 1)
+        return "pallas", offsets
+    if topology is not None and topology.max_degree < topology.num_agents - 1:
+        offsets = topology.neighbor_offsets_ring()
+    if offsets and 0 < len(offsets) <= _AUTO_SPARSE_MAX_OFFSETS:
+        return "sparse", offsets
+    if (topology is not None
+            and _AUTO_GATHER_HEADROOM * (topology.max_degree + 1)
             <= topology.num_agents):
-        return "gather"
-    return "dense"
+        return "gather", offsets
+    return "dense", offsets
 
 
 def make_mixer(name: str | Mixer, topology: topo_lib.Topology | None = None,
-               *, num_agents: int | None = None,
+               *, A=None, offsets: Sequence[int] | None = None,
+               num_agents: int | None = None, trim: int = 1,
+               scope: str = "global", gather: str = "auto",
                device: str | torch.device | None = None) -> Mixer:
     """Build a mixing backend.
 
     Args:
-      name: "dense" | "pallas" | "auto" | "none", or an existing
-        :class:`Mixer` (returned unchanged).  The reference's "sparse",
-        "gather", "trimmed_mean", "median" and "adaptive_trim" raise
-        ``NotImplementedError`` naming their ROADMAP item.
-      topology: informs the "auto" policy and K.
-      num_agents: disables mixing when 1 (returns :class:`NullMixer`);
-        defaults to the topology's K.
-      device: where the stack lives; "auto" picks the fused kernel on CUDA.
-        ``None`` means CUDA when a card is present.
+      name: "dense" | "sparse" | "pallas" | "gather" | "auto" | "none" |
+        "trimmed_mean" | "median" | "adaptive_trim", or an existing
+        :class:`Mixer` (returned unchanged).
+      topology: source of the circulant offsets / neighbor table / auto
+        policy / K.
+      A: (K, K) base matrix, used only to infer ``num_agents``.
+      offsets: circulant offsets override for the sparse path.
+      num_agents: disables mixing when 1 (returns :class:`NullMixer`).
+      trim: per-side trim for "trimmed_mean"; per-side trim cap for
+        "adaptive_trim".
+      scope: robust-aggregation scope, "global" or "neighborhood".
+      gather: bounded-degree policy for the neighborhood-robust scope:
+        "auto" (attach the neighbor table when a topology is given, and on
+        CUDA fuse through :class:`FusedNeighborhoodMixer`), "table"
+        (gathered plain torch, topology required), "fused" (the gather-sort
+        kernel, topology required), or "off" (the all-slots sort, valid
+        even off base support).
+      device: where the stack lives; "auto" picks the fused kernels on
+        CUDA.  ``None`` means CUDA when a card is present.
     """
     if isinstance(name, Mixer):
         return name
-    if num_agents is None and topology is not None:
-        num_agents = topology.num_agents
+    if num_agents is None:
+        if topology is not None:
+            num_agents = topology.num_agents
+        elif A is not None:
+            num_agents = int(np.asarray(A).shape[0])
     if name == "none" or (num_agents is not None and num_agents <= 1):
         return NullMixer()
+    dev = torch.device(device if device is not None else
+                       ("cuda" if torch.cuda.is_available() else "cpu"))
+    if name in _ROBUST:
+        if num_agents is None:
+            raise ValueError(f"{name!r} mixer needs num_agents "
+                             "(or a topology / A to infer it from)")
+        if gather not in ("auto", "table", "fused", "off"):
+            raise ValueError(f"gather={gather!r} must be auto|table|"
+                             "fused|off")
+        if name == "adaptive_trim" and gather == "fused":
+            raise ValueError(
+                "adaptive_trim computes data-dependent per-coordinate "
+                "weights: the fused kernel precomputes slot weights per "
+                "row and cannot apply it; use gather=table|auto|off")
+        mixer = (TrimmedMeanMixer(num_agents, trim=trim, scope=scope)
+                 if name == "trimmed_mean"
+                 else AdaptiveTrimMixer(num_agents, trim=trim, scope=scope)
+                 if name == "adaptive_trim"
+                 else CoordinateMedianMixer(num_agents, scope=scope))
+        if scope != "neighborhood":
+            return mixer
+        if gather == "off":
+            mixer._gather_mode = "off"
+            return mixer
+        if gather in ("table", "fused") and topology is None:
+            raise ValueError(
+                f"gather={gather!r} needs the base topology (source of "
+                "the neighbor table): pass topology=")
+        if topology is None:
+            # auto without structure: the all-slots sort for now;
+            # check_mixer_support attaches a table from graph.topology
+            return mixer
+        if name != "adaptive_trim" and (
+                gather == "fused" or (gather == "auto"
+                                      and dev.type == "cuda")):
+            # the inner mixer stays "auto", so an off-support graph
+            # degrades to the all-slots sort instead of erroring
+            return FusedNeighborhoodMixer(mixer, topology)
+        mixer.attach_neighbor_table(topology)
+        if gather == "table":
+            mixer._gather_mode = "table"
+        return mixer
     if name == "auto":
-        dev = torch.device(device if device is not None else
-                           ("cuda" if torch.cuda.is_available() else "cpu"))
-        name = _resolve_auto(topology, dev)
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"mixer {name!r} is not ported yet: see {_PENDING[name]}")
+        name, offsets = _resolve_auto(topology, offsets, dev)
     if name == "dense":
         return DenseMixer()
+    if name == "sparse":
+        if offsets is None:
+            if topology is None:
+                raise ValueError("sparse mixer needs circulant offsets "
+                                 "(pass offsets= or a topology)")
+            offsets = topology.neighbor_offsets_ring()
+        return SparseCirculantMixer(offsets)
+    if name == "gather":
+        if topology is None:
+            raise ValueError("gather mixer needs the base topology "
+                             "(source of the neighbor table)")
+        return NeighborGatherMixer(topology)
     if name == "pallas":
         return PallasFusedMixer()
     raise ValueError(f"unknown mixer {name!r} (expected dense|sparse|"

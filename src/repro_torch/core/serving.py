@@ -4,13 +4,16 @@ parameter store.
 Counterpart of ``repro.core.serving``.  :func:`consensus_from_stacked`
 collapses a ``(K, ...)``-stacked agent checkpoint to the consensus model
 through the mixing layer; with ``mix="pallas"`` (or ``"auto"`` on CUDA)
-that is one launch of the fused eq.-20 kernel.
+that runs the fused eq.-20 kernel, with ``mix="gather"`` the gather kernel
+and with a neighborhood-robust mixer the fused gather-sort kernel on CUDA.
 """
 from __future__ import annotations
 
 import threading
+import warnings
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core.mixing import NullMixer, make_mixer
@@ -26,8 +29,57 @@ CONSENSUS_QUANTIZE = ("none", "int8")
 
 _ROBUST = ("trimmed_mean", "median", "adaptive_trim")
 
+#: most combination rounds a support-bound consensus runs (the reference's
+#: cap)
+_CONSENSUS_MAX_ROUNDS = 512
 
-def consensus_from_stacked(stacked, K: int, mix: str = "dense", *,
+
+def consensus_rounds(mixer, gap: float) -> int:
+    """Combination rounds of a consensus through ``mixer`` on a base
+    graph of spectral gap ``gap``, as the reference counts them, or 0 for
+    a mixer that applies the exact averaging matrix once.
+
+    One round for a complete graph, for matrix-oblivious mixers (global
+    robust aggregation, none); 0 for the mixers that apply any matrix
+    (dense, the fused kernel); otherwise, for the support-bound mixers
+    (sparse, gather) and the neighborhood-robust ones, enough rounds of
+    the base matrix for ``(1 - gap)^rounds`` to fall below float32
+    resolution, capped at ``_CONSENSUS_MAX_ROUNDS`` with a warning.
+
+    The gather mixer counts as support-bound.  The reference sends it down
+    the "any matrix" branch, but it reads only the base topology's
+    neighbor rows, so the averaging matrix is off its support there and the
+    result is not the mean (ROADMAP.md queue 3); the port iterates the base
+    matrix, as the reference's docstring promises.
+    """
+    from repro_torch.core.mixing import (NeighborGatherMixer,
+                                         SparseCirculantMixer)
+
+    needs_support = (isinstance(mixer, (SparseCirculantMixer,
+                                        NeighborGatherMixer))
+                     or not mixer.linear)
+    if (gap >= 1.0 - 1e-9 or isinstance(mixer, NullMixer)
+            or not mixer.uses_matrix):
+        return 1
+    if not needs_support:
+        return 0
+    # the disagreement contracts by (1 - gap) per linear step: stop once
+    # it is below float32 resolution
+    needed = int(max(1, np.ceil(np.log(1e-7)
+                                / np.log(max(1.0 - gap, 1e-12)))))
+    rounds = min(_CONSENSUS_MAX_ROUNDS, needed)
+    if rounds < needed:
+        warnings.warn(
+            f"consensus extraction capped at {rounds} combination rounds "
+            f"but the topology's spectral gap ({gap:.2e}) needs ~{needed} "
+            f"to converge: ~{(1.0 - gap) ** rounds:.0%} of the "
+            "disagreement remains; re-extract with --mix dense for the "
+            "exact mean", stacklevel=3)
+    return rounds
+
+
+def consensus_from_stacked(stacked, K: int, mix="dense", *,
+                           trim: int = 1, scope: str = "global",
                            topology=None, quantize: str | None = None,
                            weights=None):
     """Collapse (K, ...)-stacked agent params to the consensus model via
@@ -35,19 +87,23 @@ def consensus_from_stacked(stacked, K: int, mix: str = "dense", *,
 
     With the default ``topology=None`` (spec-less checkpoints) the base
     graph is FedAvg and one all-active combination step makes every agent
-    hold the exact network mean.  With an explicit topology, the linear
-    backends ported here (dense / pallas) take the exact (1/K) 11^T
-    averaging matrix as their ``A_t`` operand — one step, exact mean.
+    hold the exact network mean.  With an explicit topology, the mixers
+    that apply any matrix (dense, pallas) take the exact (1/K) 11^T
+    averaging matrix, one step; the support-bound mixers (sparse, gather)
+    and the neighborhood-robust ones iterate the base matrix
+    (:func:`consensus_rounds`); the global robust ones apply once.
+    ``mix`` is a mixer name for ``make_mixer`` (with ``trim``/``scope``)
+    or a built :class:`~repro_torch.core.mixing.Mixer`.
 
     ``weights`` (a (K,) nonnegative vector) switches to the freshness-
     weighted consensus ``sum_k w_k x_k / sum_k w_k``; all-zero weights fall
-    back to the uniform mean.
+    back to the uniform mean.  A robust backend refuses it: a weighted
+    mean of its inputs is not its robust aggregate.
 
     Takes agent 0 at the end, as a copy, so the mixed stack is freed.
 
-    Not ported yet: ``quantize="int8"`` (ROADMAP.md queue 1 item 20) and the
-    robust backends with their ``trim``/``scope`` arguments (item 21) raise
-    ``NotImplementedError``.
+    Not ported yet: ``quantize="int8"`` (ROADMAP.md queue 1 item 20)
+    raises ``NotImplementedError``.
     """
     if (isinstance(stacked, dict) and "params" in stacked
             and ("async_state" in stacked or "opt_state" in stacked)):
@@ -59,12 +115,13 @@ def consensus_from_stacked(stacked, K: int, mix: str = "dense", *,
         raise NotImplementedError(
             "int8 consensus extraction is not ported yet: see ROADMAP.md "
             "queue 1 item 20 (compression)")
-    if mix in _ROBUST:
-        raise NotImplementedError(
-            f"robust consensus ({mix!r}) is not ported yet: see ROADMAP.md "
-            "queue 1 item 21 (robust aggregation)")
     device = tree_leaves(stacked)[0].device
     if weights is not None:
+        if mix in _ROBUST or getattr(mix, "linear", True) is False:
+            raise ValueError(
+                f"freshness weights need a linear collapse; the {mix!r} "
+                "backend is an order statistic: a weighted mean of its "
+                "inputs is not its robust aggregate")
         w = torch.as_tensor(weights, dtype=torch.float32,
                             device=device).reshape(-1)
         if tuple(w.shape) != (K,):
@@ -76,17 +133,19 @@ def consensus_from_stacked(stacked, K: int, mix: str = "dense", *,
             lambda x: torch.tensordot(w, x.float(), dims=1).to(x.dtype),
             stacked)
     topo = topology if topology is not None else make_topology("fedavg", K)
-    mixer = make_mixer(mix, topo, num_agents=K, device=device)
+    mixer = make_mixer(mix, topo, num_agents=K, trim=trim, scope=scope,
+                       device=device)
     A = torch.as_tensor(topo.A, dtype=torch.float32, device=device)
     ones = torch.ones((K,), dtype=torch.float32, device=device)
-    gap = spectral_gap(topo.A)
-    if not (gap >= 1.0 - 1e-9 or isinstance(mixer, NullMixer)):
-        # dense / pallas apply ANY matrix: one exact averaging step (the
-        # reference iterates only for the sparse and robust backends, which
-        # raise above)
+    rounds = consensus_rounds(mixer, spectral_gap(topo.A))
+    if rounds == 0:
+        # dense / pallas apply ANY matrix: one exact averaging step
         A = torch.as_tensor(averaging_matrix(K), dtype=torch.float32,
                             device=device)
-    mixed = mixer(stacked, ones, A)
+        rounds = 1
+    mixed = stacked
+    for _ in range(rounds):
+        mixed = mixer(mixed, ones, A)
     return tree_map(lambda x: x[0].clone(), mixed)
 
 

@@ -51,10 +51,11 @@ def find_nvcc() -> str:
 
 def _compile(src: Path, out: Path) -> str:
     """nvcc ``src`` into ``out`` atomically; returns the compiler's log."""
+    nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)

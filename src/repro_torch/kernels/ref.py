@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.core.participation import masked_combination
 
-__all__ = ["attention_ref", "mix_ref", "ssd_ref", "ssd_intra_chunk_ref"]
+__all__ = ["attention_ref", "gather_mix_ref", "gather_robust_mix_ref",
+           "mix_ref", "ssd_ref", "ssd_intra_chunk_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,6 +51,47 @@ def mix_ref(A: torch.Tensor, active: torch.Tensor,
     A_eff = masked_combination(A.to(device=W.device, dtype=torch.float32),
                                active)
     return torch.einsum("lk,lm->km", A_eff, W.float()).to(W.dtype)
+
+
+def gather_mix_ref(idx: torch.Tensor, gw: torch.Tensor,
+                   W: torch.Tensor) -> torch.Tensor:
+    """Bounded-degree combination: out[k] = sum_j gw[k, j] W[idx[k, j]].
+
+    idx: (K, D) neighbor table (slot 0 = self, padding = self); gw: (K, D)
+    realized weights (padding exactly 0); W: (K, M).  Gathers, then one
+    float32 einsum; returns float32.
+    """
+    idx = idx.to(device=W.device, dtype=torch.long)
+    gw = gw.to(device=W.device, dtype=torch.float32)
+    return torch.einsum("kd,kdm->km", gw, W.float()[idx])
+
+
+def gather_robust_mix_ref(idx: torch.Tensor, member: torch.Tensor,
+                          wslot: torch.Tensor, active: torch.Tensor,
+                          W: torch.Tensor) -> torch.Tensor:
+    """Neighborhood gather + order-statistic slot weights, in float32.
+
+    idx: (K, D) neighbor table; member: (K, D) {0, 1} realized membership
+    (self slot 1, padding 0); wslot: (K, D) weights over the ascending
+    sorted member values, zero on every slot >= S_k; active: (K,) or
+    (K, 1) mask; W: (K, M).  Non-members go to +inf, the D slots are
+    sorted, and ``where(w > 0, srt, 0) * w`` is summed over the slots (the
+    where keeps 0 * inf = nan out); an inactive row keeps W's own row
+    exactly.  Returns float32.
+    """
+    dev = W.device
+    idx = idx.to(device=dev, dtype=torch.long)
+    member = member.to(device=dev, dtype=torch.float32)
+    wslot = wslot.to(device=dev, dtype=torch.float32)
+    active = active.to(device=dev, dtype=torch.float32).reshape(-1, 1)
+    x = W.float()
+    vals = torch.where(member[:, :, None] > 0, x[idx],
+                       torch.tensor(float("inf"), device=dev))
+    srt = torch.sort(vals, dim=1).values
+    wb = wslot[:, :, None]
+    agg = (torch.where(wb > 0, srt, torch.zeros((), device=dev)) * wb
+           ).sum(dim=1)
+    return torch.where(active > 0, agg, x)
 
 
 def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -3,13 +3,19 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
       --full --agents 8 --checkpoint stack.npz --mix pallas \
       --batch 4 --prompt-len 128 --decode 32 --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --agents 4 --checkpoint stack.npz --mix trimmed_mean --trim 1 \
+      --robust-scope neighborhood
 
 Counterpart of ``repro.launch.serve`` on its spec-less flag path.  Serving
 a diffusion-trained model: ``--agents K`` marks an agent-stacked checkpoint
-whose consensus (the network mean, one application of the FedAvg matrix)
-is extracted through ``--mix``; ``pallas`` (and ``auto`` on CUDA) runs the
-fused eq.-20 kernel.  ``--device`` defaults to CUDA and never falls back to
-the CPU by itself; ``--device cpu`` runs the plain versions.
+whose consensus (over the FedAvg base graph) is extracted through
+``--mix``; ``pallas`` (and ``auto`` on CUDA) runs the fused eq.-20 kernel,
+``gather`` the gather kernel, and ``trimmed_mean``/``median`` with
+``--robust-scope neighborhood`` the fused gather-sort kernel on CUDA
+(``--trim`` sets the trimmed mean's per-side trim).  ``--device`` defaults
+to CUDA and never falls back to the CPU by itself; ``--device cpu`` runs
+the plain versions.
 
 Checkpoints with an embedded ExperimentSpec need the API slice, and
 ``--watch`` needs ``ServeLoop``: both are still to be ported (ROADMAP.md
@@ -28,11 +34,45 @@ from repro_torch.core.serving import consensus_from_stacked
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 
-__all__ = ["consensus_from_stacked", "load_params", "main"]
+__all__ = ["FLAG_DEFAULTS", "check_robust_flags", "consensus_from_stacked",
+           "load_params", "main"]
 
-#: the reference's --mix choices; the port raises for the ones it lacks
+#: the reference's --mix choices
 MIX_CHOICES = ["dense", "sparse", "pallas", "gather", "auto", "none",
                "trimmed_mean", "median", "adaptive_trim"]
+ROBUST_MIX = ("trimmed_mean", "median", "adaptive_trim")
+
+
+#: the robust and attack flags' defaults (the reference's); the parsers
+#: leave them None, so that a flag given explicitly can be told apart
+FLAG_DEFAULTS = {"trim": 1, "robust_scope": "global",
+                 "robust_gather": "auto", "attack_num": 1,
+                 "attack_scale": 1.0}
+
+
+def check_robust_flags(args: argparse.Namespace) -> None:
+    """The reference's flag guards (``repro.api.cli``): a robust flag
+    given with a mixer that is not robust, or an attack sub-flag with
+    ``--attack none``, would be silently ignored, so both raise
+    ``ValueError``.  Then fills in the defaults of the flags not given."""
+    def given(*dests):
+        return ["--" + d.replace("_", "-") for d in dests
+                if getattr(args, d, None) is not None]
+
+    robust = given("trim", "robust_scope", "robust_gather")
+    if robust and args.mix not in ROBUST_MIX:
+        raise ValueError(
+            f"{'/'.join(robust)} only applies to the robust mixer backends "
+            f"(--mix {'|'.join(ROBUST_MIX)}); the {args.mix!r} mixer "
+            "ignores it: drop the flag or pick a robust kind")
+    atk = given("attack_num", "attack_scale")
+    if atk and getattr(args, "attack", "none") == "none":
+        raise ValueError(
+            f"{'/'.join(atk)} configures a Byzantine adversary but the "
+            'attack kind is "none": pass --attack sign_flip|noise|shift')
+    for dest, value in FLAG_DEFAULTS.items():
+        if hasattr(args, dest) and getattr(args, dest) is None:
+            setattr(args, dest, value)
 
 
 def _sync(device: torch.device) -> None:
@@ -64,7 +104,8 @@ def load_params(args, key: torch.Generator, device: torch.device):
     print(f"loaded stacked checkpoint (K={K}, step={meta.get('step')}); "
           f"extracting consensus via --mix {args.mix}")
     t0 = time.perf_counter()
-    params = consensus_from_stacked(tree, K, args.mix)
+    params = consensus_from_stacked(tree, K, args.mix, trim=args.trim,
+                                    scope=args.robust_scope)
     _sync(device)
     timings["consensus_s"] = time.perf_counter() - t0
     return params, cfg, timings
@@ -83,6 +124,14 @@ def main(argv=None) -> dict:
                     help="K > 1 marks an agent-stacked checkpoint")
     ap.add_argument("--mix", default="dense", choices=MIX_CHOICES,
                     help="consensus-extraction backend")
+    ap.add_argument("--trim", type=int, default=None,
+                    help="per-side trim for --mix trimmed_mean; per-side cap "
+                         "for --mix adaptive_trim (default 1)")
+    ap.add_argument("--robust-scope", default=None,
+                    choices=["global", "neighborhood"],
+                    help="robust-aggregation scope: global (one aggregate "
+                         "over the active set; the default) or neighborhood "
+                         "(per agent over its realized neighborhood)")
     ap.add_argument("--checkpoint", default=None,
                     help="npz checkpoint (agent-stacked or plain)")
     ap.add_argument("--batch", type=int, default=2)
@@ -97,6 +146,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; never falls back)")
     args = ap.parse_args(argv)
+    check_robust_flags(args)
     device = resolve_device(args.device)
 
     # separate streams for init, prompts and sampling, as the reference

@@ -5,13 +5,19 @@ on one device.
   PYTHONPATH=src python -m repro_torch.launch.train --full --agents 4 \
       --local-steps 2 --batch 2 --seq 1024 --blocks 3 --mix pallas \
       --optimizer adam --step-size 1e-4
-  PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True \
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \
       --full --agents 2 --local-steps 2 --batch 1 --seq 1024 --blocks 3 \
       --mix pallas --optimizer sgd --step-size 0.05
+  PYTHONPATH=src python -m repro_torch.launch.train --full --agents 12 \
+      --local-steps 2 --batch 1 --seq 1024 --blocks 3 --optimizer sgd \
+      --step-size 0.05 --mix trimmed_mean --trim 1 \
+      --robust-scope neighborhood --robust-gather fused \
+      --attack sign_flip --attack-num 3 --attack-scale 3.0
 
-(Full-width mamba2 at K = 2 fills an 80 GB card: the combination's float32
-buffers need the expandable segments of PyTorch's caching allocator.)
+The last is the reference's ``byzantine_robust_diffusion`` preset (K = 12
+ring, 3 evenly spaced sign-flip adversaries, per-neighborhood trimmed
+mean): ``--attack`` corrupts the Byzantine agents' raw gradients before
+the optimizer sees them (:func:`repro_torch.core.attacks.make_attack`).
 
 Counterpart of ``repro.launch.train`` on the stacked engine (on one device
 the reference's ``engine="auto"`` sharded engine equals it).  The flags are
@@ -37,10 +43,11 @@ import time
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.attacks import ATTACK_KINDS, make_attack
 from repro_torch.core.diffusion import DiffusionConfig, DiffusionEngine
 from repro_torch.data.synthetic import lm_token_batch
 from repro_torch.device import resolve_device
-from repro_torch.launch.serve import MIX_CHOICES
+from repro_torch.launch.serve import MIX_CHOICES, check_robust_flags
 from repro_torch.models import transformer as tf
 from repro_torch.optim import adam, momentum, sgd
 from repro_torch.tree import tree_map
@@ -57,7 +64,6 @@ _PENDING_FLAGS = {
     "--graph": 18, "--link-drop": 18, "--participation-process": 18,
     "--markov-corr": 18, "--num-groups": 18,
     "--compress": 20, "--error-feedback": 20, "--comm-gamma": 20,
-    "--trim": 21, "--robust-": 21, "--attack": 21,
     "--privacy": 22, "--data": 23, "--async-": 24, "--ef-host-offload": 25,
 }
 
@@ -94,6 +100,23 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--optimizer", default="adam", choices=list(_OPTIMIZERS))
     ap.add_argument("--mix", default="dense", choices=MIX_CHOICES,
                     help="combination-step backend")
+    ap.add_argument("--trim", type=int, default=None,
+                    help="per-side trim for --mix trimmed_mean; per-side cap "
+                         "for --mix adaptive_trim (default 1)")
+    ap.add_argument("--robust-scope", default=None,
+                    choices=["global", "neighborhood"],
+                    help="robust-aggregation scope (default global)")
+    ap.add_argument("--robust-gather", default=None,
+                    choices=["auto", "table", "fused", "off"],
+                    help="bounded-degree policy of the neighborhood scope: "
+                         "auto (the default: fused kernel on CUDA, table "
+                         "elsewhere), table, fused, off (all-slots sort)")
+    ap.add_argument("--attack", default="none", choices=list(ATTACK_KINDS),
+                    help="Byzantine gradient adversary")
+    ap.add_argument("--attack-num", type=int, default=None,
+                    help="Byzantine agent count, evenly spaced (default 1)")
+    ap.add_argument("--attack-scale", type=float, default=None,
+                    help="attack magnitude (default 1.0)")
     ap.add_argument("--blocks", type=int, default=20)
     ap.add_argument("--batch", type=int, default=2, help="per-agent batch")
     ap.add_argument("--seq", type=int, default=64)
@@ -123,6 +146,7 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
     ap = _parser()
     args, extra = ap.parse_known_args(argv)
     _reject_unported(ap, extra)
+    check_robust_flags(args)
     device = resolve_device(args.device)
     bundle = get_config(args.arch)
     cfg = bundle.smoke if args.smoke else bundle.model
@@ -135,13 +159,20 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
         drift_correction=args.drift_correction, mix=args.mix,
         local_steps_mode=args.local_steps_mode)
     optimizer = _OPTIMIZERS[args.optimizer]()
+    if args.attack != "none":
+        # raw gradients -> attack -> optimizer, as the reference composes
+        optimizer = make_attack(args.attack, K,
+                                num_byzantine=args.attack_num,
+                                scale=args.attack_scale, seed=args.seed,
+                                inner=optimizer)
+    plain_sgd = args.optimizer == "sgd" and args.attack == "none"
 
     def loss(p, b):
         return tf.train_loss(p, cfg, b, remat=False)
 
     eng = DiffusionEngine(
-        dcfg, loss, None if args.optimizer == "sgd" else optimizer.update,
-        device=device)
+        dcfg, loss, None if plain_sgd else optimizer.update, device=device,
+        trim=args.trim, scope=args.robust_scope, gather=args.robust_gather)
     key = torch.Generator().manual_seed(args.seed)
     params = init_stacked(key, cfg, K, device)
     state = eng.init_state(params, optimizer.init(params), key=key)

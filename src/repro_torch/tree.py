@@ -34,16 +34,18 @@ def tree_leaves(tree: PyTree) -> list:
 
 def tree_unflatten(like: PyTree, leaves) -> PyTree:
     """Rebuild ``like``'s structure from leaves in flatten order."""
-    it = iter(leaves)
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        if isinstance(node, (list, tuple)):
-            return type(node)(build(v) for v in node)
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    # a module-level function, not a recursive closure: a closure that
+    # refers to itself is a reference cycle, and its cell would keep the
+    # leaves alive until the cyclic garbage collector ran
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_build(v, it) for v in node)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:

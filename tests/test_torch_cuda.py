@@ -155,3 +155,140 @@ def test_cuda_ssd_intra_chunk_rejects_what_it_does_not_take():
         ssd_scan.ssd_intra_chunk(xd, dA, B, C, chunk=32)
     with pytest.raises(ValueError, match="chunk"):
         ssd_scan.ssd_intra_chunk(xd[..., :16], dA, B, C, chunk=16)
+
+
+def _gather_cases():
+    """(label, topology, mask) cases of the two gather kernels: ring,
+    ring hops = 2, grid and FedAvg (D = 3, 5, 5, K), all-active,
+    all-inactive and random masks."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    for kind, K, kw in (("ring", 12, {}), ("ring", 16, {"hops": 2}),
+                        ("grid", 12, {}), ("fedavg", 8, {}),
+                        ("fedavg", 12, {})):
+        topo = make_topology(kind, K, **kw)
+        for mname, mask in (("ones", np.ones(K)), ("zeros", np.zeros(K)),
+                            ("random", (rng.random(K) < 0.6) * 1.0)):
+            yield f"{kind}{kw} K={K} {mname}", topo, torch.as_tensor(
+                mask, dtype=torch.float32, device="cuda")
+
+
+def _rel(out, ref):
+    return ((out - ref).abs() / ref.abs().clamp(min=1)).max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_gather_mix_matches_plain():
+    _need_card()
+    from repro_torch.core.mixing import _gather_weights
+    from repro_torch.core.participation import masked_combination
+    from repro_torch.kernels import gather_mix as gm
+    from repro_torch.kernels.ref import gather_mix_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for label, topo, m in _gather_cases():
+        idx, valid = (torch.as_tensor(t, device="cuda")
+                      for t in topo.neighbor_table())
+        A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+        gw = _gather_weights(masked_combination(A, m), idx, valid)
+        for M in (1, 1001, 65_537):
+            W = torch.randn((topo.num_agents, M), generator=gen,
+                            device="cuda")
+            before = gm.gather_mix.launches
+            out = gm.gather_mix(idx, gw, W)
+            torch.cuda.synchronize()
+            assert gm.gather_mix.launches == before + 1
+            assert _rel(out, gather_mix_ref(idx, gw, W)) <= 1e-5, (label, M)
+            dead = m == 0
+            assert torch.equal(out[dead], W[dead]), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robust", ["trimmed_mean", "median"])
+def test_cuda_gather_robust_mix_matches_plain(robust):
+    _need_card()
+    from repro_torch.core.mixing import make_mixer
+    from repro_torch.kernels import gather_robust_mix as grm
+    from repro_torch.kernels.ref import gather_robust_mix_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for label, topo, m in _gather_cases():
+        mixer = make_mixer(robust, topo, trim=1, scope="neighborhood",
+                           gather="table", device="cuda")
+        A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+        idx, member, S = mixer._gather_members(m, A)
+        wslot = mixer._slot_weights(S, idx.shape[1])
+        for M in (1, 1001, 65_537):
+            W = torch.randn((topo.num_agents, M), generator=gen,
+                            device="cuda")
+            before = grm.gather_robust_mix.launches
+            out = grm.gather_robust_mix(idx, member, wslot, m, W)
+            torch.cuda.synchronize()
+            assert grm.gather_robust_mix.launches == before + 1
+            ref = gather_robust_mix_ref(idx, member, wslot, m, W)
+            assert _rel(out, ref) <= 1e-5, (label, M)
+            dead = m == 0
+            assert torch.equal(out[dead], W[dead]), label
+
+
+@pytest.mark.cuda
+def test_cuda_gather_kernels_reject_what_they_do_not_take():
+    _need_card()
+    from repro_torch.kernels import gather_mix as gm
+    from repro_torch.kernels import gather_robust_mix as grm
+
+    K, D = 40, 33                        # one slot past the sort network
+    idx = torch.zeros((K, D), dtype=torch.int32, device="cuda")
+    rows = torch.zeros((K, D), device="cuda")
+    W = torch.zeros((K, 7), device="cuda")
+    with pytest.raises(ValueError, match="sort network"):
+        grm.gather_robust_mix(idx, rows, rows, torch.ones(K), W)
+    with pytest.raises(ValueError, match="float32"):
+        gm.gather_mix(idx, rows, W.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.gather_mix(idx, rows, torch.zeros((7, K), device="cuda").T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pallas", "gather", "trimmed_mean"])
+def test_cuda_tiled_mixers_match_their_plain_paths(monkeypatch, name):
+    """The three kernel mixers over a tiled flatten whose tiles split
+    leaves: one launch per tile, and the result of the plain path on the
+    card (inactive agents bit-equal)."""
+    _need_card()
+    from repro_torch.core import mixing
+    from repro_torch.kernels import diffusion_mix as dm
+    from repro_torch.kernels import gather_mix as gm
+    from repro_torch.kernels import gather_robust_mix as grm
+
+    monkeypatch.setattr(mixing, "TILE_ELEMS", 12 * 1000)
+    K = 12
+    topo = make_topology("ring", K)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    tree = {"a": torch.randn((K, 37, 61), generator=gen, device="cuda"),
+            "b": torch.randn((K, 2500), generator=gen,
+                             device="cuda").to(torch.bfloat16)}
+    m = torch.tensor([1.0, 0.0] * 6, device="cuda")
+    A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+    kw = dict(trim=1, scope="neighborhood") if name == "trimmed_mean" else {}
+    fused = mixing.make_mixer(name, topo, device="cuda", **kw)
+    plain = (mixing.DenseMixer() if name != "trimmed_mean" else
+             mixing.make_mixer(name, topo, gather="table", device="cuda",
+                               **kw))
+    counter = {"pallas": dm.diffusion_mix, "gather": gm.gather_mix,
+               "trimmed_mean": grm.gather_robust_mix}[name]
+    before = counter.launches
+    got = fused(tree, m, A)
+    want = plain({k: v.float() for k, v in tree.items()}, m, A)
+    assert counter.launches - before == mixing.num_tiles(K, 37 * 61 + 2500)
+    # the kernels are column-wise: another tile width, the same bits
+    monkeypatch.setattr(mixing, "TILE_ELEMS", 12 * 777)
+    again = fused(tree, m, A)
+    for k in tree:
+        assert torch.equal(again[k], got[k])
+    for k in tree:
+        assert got[k].dtype == tree[k].dtype
+        torch.testing.assert_close(got[k].float(), want[k].to(
+            tree[k].dtype).float(), atol=1e-5, rtol=2 ** -7)
+        assert torch.equal(got[k][m == 0], tree[k][m == 0])

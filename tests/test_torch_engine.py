@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_config as ref_get_config  # noqa: E402
+from repro.core import attacks as ref_attacks  # noqa: E402
 from repro.core import diffusion as ref_diff  # noqa: E402
 from repro.core import participation as ref_part  # noqa: E402
 from repro.core.state import EngineState as RefEngineState  # noqa: E402
@@ -26,6 +27,7 @@ from repro.models import transformer as ref_tf  # noqa: E402
 from repro.optim import optimizers as ref_opt  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import diffusion as diff  # noqa: E402
+from repro_torch.core.attacks import make_attack  # noqa: E402
 from repro_torch.core import graphs, mixing, schedules  # noqa: E402
 from repro_torch.core import participation as part  # noqa: E402
 from repro_torch.core.state import EngineState  # noqa: E402
@@ -299,15 +301,21 @@ def _blocks(n, num_agents, local_steps, vocab, seed=1):
     return out
 
 
-def _reference_run(dcfg, optimizer, blocks, num_agents):
-    """The reference's stacked engine (dense mix, use_kernels=False):
-    returns the realized masks per block and the final params."""
+def _reference_run(dcfg, optimizer, blocks, num_agents, mixer=None,
+                   attack=None):
+    """The reference's stacked engine (use_kernels=False; the config's
+    mixer unless ``mixer`` is given; ``attack`` a dict of make_attack
+    arguments wrapping the optimizer): returns the realized masks per
+    block and the final params."""
     cfg = ref_get_config("smollm-360m").smoke
     t = getattr(ref_opt, optimizer)()
+    if attack is not None:
+        t = ref_attacks.make_attack(num_agents=num_agents, inner=t, **attack)
+    plain_sgd = optimizer == "sgd" and attack is None
     eng = ref_diff.DiffusionEngine(
         ref_diff.DiffusionConfig(**dataclasses.asdict(dcfg)),
         lambda p, b: ref_tf.train_loss(p, cfg, b, remat=False),
-        None if optimizer == "sgd" else t.update)
+        None if plain_sgd else t.update, mixer=mixer)
     params = _stacked_weights(cfg, num_agents)
     state = eng.init_state(params, t.init(params))
     masks = []
@@ -318,13 +326,17 @@ def _reference_run(dcfg, optimizer, blocks, num_agents):
     return params, masks, jax.device_get(state.params)
 
 
-def _port_run(dcfg, optimizer, blocks, masks, params, use_kernels):
+def _port_run(dcfg, optimizer, blocks, masks, params, use_kernels,
+              attack=None, **engine_kwargs):
     cfg = get_config("smollm-360m").smoke
     cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
     t = getattr(opt, optimizer)()
+    if attack is not None:
+        t = make_attack(num_agents=dcfg.num_agents, inner=t, **attack)
+    plain_sgd = optimizer == "sgd" and attack is None
     eng = diff.DiffusionEngine(
         dcfg, lambda p, b: tf.train_loss(p, cfg, b, remat=False),
-        None if optimizer == "sgd" else t.update, device="cpu")
+        None if plain_sgd else t.update, device="cpu", **engine_kwargs)
     p = _to_torch(params)
     state = eng.init_state(p, t.init(p))
     gen = torch.Generator().manual_seed(0)
@@ -355,6 +367,22 @@ def reference_runs():
     return runs
 
 
+def _assert_replay(optimizer, state, want, n_blocks):
+    """The gates above: sgd within 1e-5; Adam within 2 mu T blocks, 99.9 %
+    of weights within 1e-5."""
+    if optimizer == "sgd":
+        _assert_tree_close(state.params, want, atol=1e-5)
+        return
+    bound = 2 * _MU["adam"] * T * n_blocks
+    n_far = n = 0
+    for g, w in zip(tree_leaves(state.params), jax.tree.leaves(want)):
+        d = np.abs(g.numpy() - np.asarray(w))
+        assert d.max() <= bound
+        n_far += int((d > 1e-5 * (1 + np.abs(np.asarray(w)))).sum())
+        n += d.size
+    assert n_far <= 1e-3 * n, (n_far, n)
+
+
 @pytest.mark.parametrize("use_kernels", [False, True])
 @pytest.mark.parametrize("mix", ["dense", "pallas"])
 @pytest.mark.parametrize("optimizer", ["sgd", "adam"])
@@ -365,17 +393,60 @@ def test_engine_step_replay_parity(reference_runs, optimizer, mix,
                            blocks, masks, params, use_kernels)
     assert type(eng.mixer).__name__ == {"dense": "DenseMixer",
                                         "pallas": "PallasFusedMixer"}[mix]
-    if optimizer == "sgd":
-        _assert_tree_close(state.params, want, atol=1e-5)
-        return
-    bound = 2 * _MU["adam"] * T * len(blocks)
-    n_far = n = 0
-    for g, w in zip(tree_leaves(state.params), jax.tree.leaves(want)):
-        d = np.abs(g.numpy() - np.asarray(w))
-        assert d.max() <= bound
-        n_far += int((d > 1e-5 * (1 + np.abs(np.asarray(w)))).sum())
-        n += d.size
-    assert n_far <= 1e-3 * n, (n_far, n)
+    _assert_replay(optimizer, state, want, len(blocks))
+
+
+# the reference's byzantine_robust_diffusion preset at K = 12: 3 evenly
+# spaced sign-flip adversaries of scale 3, per-neighborhood trimmed mean
+_KB = 12
+_ATTACK = {"kind": "sign_flip", "num_byzantine": 3, "scale": 3.0}
+
+
+@pytest.fixture(scope="module")
+def byzantine_runs():
+    """The reference's engine on its gather-table paths: the robust preset
+    (trimmed mean, neighborhood scope, gather table, sign-flip attack) and
+    the honest gather mixer, with SGD and with Adam, 2 blocks."""
+    from repro.core import make_topology as ref_make_topology
+    from repro.core import mixing as ref_mixing
+
+    topo = ref_make_topology("ring", _KB)
+    runs = {}
+    for mix, attack in (("trimmed_mean", _ATTACK), ("gather", None)):
+        for name in ("sgd", "adam"):
+            dcfg = diff.DiffusionConfig(num_agents=_KB, local_steps=T,
+                                        step_size=_MU[name], topology="ring",
+                                        participation=0.9, mix=mix)
+            mixer = (ref_mixing.make_mixer(mix, topo, trim=1,
+                                           scope="neighborhood",
+                                           gather="table")
+                     if mix == "trimmed_mean" else
+                     ref_mixing.make_mixer(mix, topo))
+            blocks = _blocks(2, _KB, T, 512, seed=4)
+            runs[mix, name] = (dcfg, blocks) + _reference_run(
+                dcfg, name, blocks, _KB, mixer=mixer, attack=attack)
+    return runs
+
+
+@pytest.mark.parametrize("mix,gather,optimizer", [
+    ("trimmed_mean", "table", "sgd"), ("trimmed_mean", "fused", "sgd"),
+    ("trimmed_mean", "fused", "adam"), ("gather", None, "sgd"),
+    ("gather", None, "adam")])
+def test_engine_byzantine_and_gather_replay_parity(byzantine_runs, mix,
+                                                   gather, optimizer):
+    """The port's engine against the reference's on smollm-smoke at K = 12:
+    the Byzantine preset (the port's gather table and the fused kernel's
+    plain version against the reference's gather table) and the gather
+    mixer, replaying the reference's masks and batches."""
+    dcfg, blocks, params, masks, want = byzantine_runs[mix, optimizer]
+    kwargs = ({"trim": 1, "scope": "neighborhood", "gather": gather,
+               "attack": _ATTACK} if mix == "trimmed_mean" else {})
+    eng, state = _port_run(dcfg, optimizer, blocks, masks, params, False,
+                           **kwargs)
+    assert type(eng.mixer).__name__ == {
+        "table": "TrimmedMeanMixer", "fused": "FusedNeighborhoodMixer",
+        None: "NeighborGatherMixer"}[gather]
+    _assert_replay(optimizer, state, want, len(blocks))
 
 
 def test_engine_degree_step_mask_replay_parity():

@@ -141,14 +141,17 @@ def test_make_mixer_policy():
     # the reference picks the same non-TPU backend for fedavg
     assert type(ref_make_mixer("auto", ref_make_topology("fedavg", 8))
                 ).__name__ == "DenseMixer"
+    # every mixer kind of the reference builds, as the reference's does
+    ring, ref_ring = make_topology("ring", 8), ref_make_topology("ring", 8)
     for name in ("sparse", "gather", "trimmed_mean", "median",
                  "adaptive_trim"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mixing.make_mixer(name, make_topology("ring", 8))
+        got = mixing.make_mixer(name, ring, device="cpu")
+        assert type(got).__name__ == type(ref_make_mixer(name,
+                                                         ref_ring)).__name__
     # auto on a sparse ring off CUDA resolves to sparse, as the reference's
-    # non-TPU policy does, and that backend is not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mixing.make_mixer("auto", make_topology("ring", 8), device="cpu")
+    # non-TPU policy does
+    assert isinstance(mixing.make_mixer("auto", ring, device="cpu"),
+                      mixing.SparseCirculantMixer)
     with pytest.raises(ValueError, match="unknown mixer"):
         mixing.make_mixer("bogus", topo)
 
@@ -185,12 +188,86 @@ def test_consensus_over_explicit_topology_and_state_dict():
                                port["a"].mean(0).numpy(), atol=1e-6)
 
 
+def _ring_stack(K, seed):
+    rng = np.random.default_rng(seed)
+    return {"a": jnp.asarray(rng.standard_normal((K, 6, 5)), jnp.float32),
+            "b": jnp.asarray(rng.standard_normal((K, 11)), jnp.float32)}
+
+
+@pytest.mark.parametrize("mix,scope", [("sparse", "global"),
+                                       ("trimmed_mean", "neighborhood"),
+                                       ("median", "neighborhood"),
+                                       ("median", "global"),
+                                       ("adaptive_trim", "neighborhood")])
+def test_consensus_support_bound_and_robust_match_reference(mix, scope):
+    """Over an explicit ring the sparse and neighborhood-robust mixers
+    iterate the base matrix for the reference's number of rounds; the
+    global robust ones apply once."""
+    K = 6
+    tree = _ring_stack(K, 11)
+    want = ref_consensus(tree, K, mix, trim=1, scope=scope,
+                         topology=ref_make_topology("ring", K))
+    got = consensus_from_stacked(_to_torch(tree), K, mix, trim=1,
+                                 scope=scope,
+                                 topology=make_topology("ring", K))
+    for g, w in zip(tree_leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+
+
+def test_consensus_rounds_follow_the_reference():
+    from repro_torch.core.serving import consensus_rounds
+    from repro_torch.core.topology import spectral_gap
+
+    ring = make_topology("ring", 8)
+    gap = spectral_gap(ring.A)
+    needed = int(np.ceil(np.log(1e-7) / np.log(1.0 - gap)))
+    nb = dict(trim=1, scope="neighborhood", device="cpu")
+    for name, kw, want in (("dense", {}, 0), ("pallas", {}, 0),
+                           ("sparse", {}, needed), ("gather", {}, needed),
+                           ("trimmed_mean", nb, needed),
+                           ("trimmed_mean", {"scope": "global"}, 1),
+                           ("none", {}, 1)):
+        assert consensus_rounds(mixing.make_mixer(name, ring, **kw),
+                                gap) == want, name
+    assert consensus_rounds(mixing.make_mixer("gather", ring), 1.0) == 1
+    big = make_topology("ring", 1024)
+    with pytest.warns(UserWarning, match="capped at 512"):
+        assert consensus_rounds(mixing.make_mixer("sparse", big),
+                                spectral_gap(big.A)) == 512
+
+
+def test_gather_consensus_on_a_ring_is_the_mean():
+    """The port's gather consensus iterates the base matrix and reaches the
+    exact mean (what the reference's docstring promises).  The reference
+    sends the gather mixer down its one-step averaging branch, which lies
+    off the gather table's support: the value it returns is recorded here
+    (ROADMAP.md queue 3)."""
+    K = 8
+    w = np.arange(24, dtype=np.float32).reshape(K, 3)
+    tree = {"w": jnp.asarray(w)}
+    ring, ref_ring = make_topology("ring", K), ref_make_topology("ring", K)
+    mean = np.asarray(ref_consensus(tree, K, "dense",
+                                    topology=ref_ring)["w"])
+    np.testing.assert_allclose(mean, [10.5, 11.5, 12.5], atol=1e-6)
+    got = consensus_from_stacked(_to_torch(tree), K, "gather",
+                                 topology=ring)["w"]
+    np.testing.assert_allclose(got.numpy(), mean, atol=1e-5, rtol=0)
+    ref_gather = np.asarray(ref_consensus(tree, K, "gather",
+                                          topology=ref_ring)["w"])
+    np.testing.assert_allclose(ref_gather, [3.0, 3.375, 3.75], atol=1e-6)
+
+
 def test_consensus_pending_paths_raise():
     port = {"a": torch.zeros(4, 3)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 20"):
         consensus_from_stacked(port, 4, "dense", quantize="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        consensus_from_stacked(port, 4, "trimmed_mean")
+    # a robust aggregate is not a weighted mean (the reference's guard)
+    with pytest.raises(ValueError, match="order statistic"):
+        consensus_from_stacked(port, 4, "trimmed_mean", weights=np.ones(4))
+    with pytest.raises(ValueError, match="order statistic"):
+        ref_consensus({"a": jnp.zeros((4, 3))}, 4, "trimmed_mean",
+                      weights=np.ones(4))
     with pytest.raises(ValueError):
         consensus_from_stacked(port, 4, "dense", quantize="int4")
     with pytest.raises(ValueError, match="weights shape"):

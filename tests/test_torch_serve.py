@@ -65,6 +65,38 @@ def test_serve_main_on_reference_checkpoint(ref_stack_ckpt, mix):
                                    "decode_s"}
 
 
+@pytest.mark.parametrize("flags", [
+    ("--mix", "trimmed_mean", "--robust-scope", "neighborhood"),
+    ("--mix", "median"), ("--mix", "gather"),
+    ("--mix", "adaptive_trim", "--trim", "1", "--robust-scope", "global")])
+def test_serve_main_robust_and_gather_match_reference(ref_stack_ckpt,
+                                                      flags):
+    """serve.main's robust and gather consensus on the CPU against the
+    reference's spec-less serve path (FedAvg base: one round)."""
+    path, stacked = ref_stack_ckpt
+    out = serve.main(_argv(path, *flags))
+    opts = dict(zip(flags[::2], flags[1::2]))
+    want = ref_consensus(stacked, K, opts["--mix"],
+                         trim=int(opts.get("--trim", 1)),
+                         scope=opts.get("--robust-scope", "global"))
+    for g, w in zip(tree_leaves(out["params"]), jax.tree.leaves(want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0)
+    assert int(out["tokens"].min()) >= 0 and int(out["tokens"].max()) < 512
+
+
+@pytest.mark.parametrize("flags", [("--mix", "dense", "--trim", "1"),
+                                   ("--mix", "pallas", "--robust-scope",
+                                    "neighborhood"),
+                                   ("--mix", "gather", "--trim=2")])
+def test_serve_robust_flags_need_a_robust_mixer(ref_stack_ckpt, flags):
+    """The reference's guard: a robust flag with a mixer that is not robust
+    would be silently ignored, so it raises."""
+    path, _ = ref_stack_ckpt
+    with pytest.raises(ValueError, match="robust mixer"):
+        serve.main(_argv(path, *flags))
+
+
 def test_serve_loops_agree_at_temperature_zero(ref_stack_ckpt):
     path, _ = ref_stack_ckpt
     fused = serve.main(_argv(path, "--mix", "pallas", "--decode-loop",

@@ -132,6 +132,45 @@ def test_train_main_is_reproducible_and_kernel_path_agrees():
         torch.testing.assert_close(x, y, atol=1e-5, rtol=0)
 
 
+def test_train_main_byzantine_preset_on_the_cpu():
+    """The reference's byzantine_robust_diffusion preset through
+    train.main (smoke size, K = 12): the Byzantine agents ascend, the
+    neighborhood trimmed mean keeps the honest ones finite, and the fused
+    path (the kernel's plain version on the CPU) equals the gather table."""
+    argv = ["--device", "cpu", "--agents", "12", "--blocks", "2",
+            "--optimizer", "sgd", "--step-size", "0.05", "--seq", "16",
+            "--batch", "1", "--mix", "trimmed_mean", "--trim", "1",
+            "--robust-scope", "neighborhood", "--attack", "sign_flip",
+            "--attack-num", "3", "--attack-scale", "3.0"]
+    table = train.main(argv + ["--robust-gather", "table"])
+    fused = train.main(argv + ["--robust-gather", "fused"])
+    assert table["active"] == fused["active"]
+    assert np.isfinite(table["losses"]).all()
+    for x, y in zip(tree_leaves(table["state"].params),
+                    tree_leaves(fused["state"].params)):
+        assert torch.equal(x, y)
+    # the noise adversary keeps its counter in the optimizer state
+    noise = train.main(["--device", "cpu", "--agents", "4", "--blocks", "1",
+                        "--optimizer", "sgd", "--seq", "16", "--batch", "1",
+                        "--attack", "noise", "--attack-scale", "0.1",
+                        "--mix", "gather"])
+    assert int(noise["state"].opt_state["t"]) == 2          # T = 2 steps
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--trim", "1"], "robust mixer"),
+    (["--mix", "pallas", "--robust-scope", "neighborhood"], "robust mixer"),
+    (["--mix", "gather", "--robust-gather=table"], "robust mixer"),
+    (["--attack-num", "2"], "attack kind"),
+    (["--attack", "none", "--attack-scale", "2.0"], "attack kind"),
+])
+def test_train_flag_guards_raise(flags, match):
+    """The reference's guards (repro/api/cli.py): flags that the chosen
+    mixer or attack would ignore raise ValueError."""
+    with pytest.raises(ValueError, match=match):
+        train.main(["--device", "cpu", "--blocks", "1"] + flags)
+
+
 @pytest.mark.parametrize("flag,item", [
     (["--spec", "x.json"], "item 16"), (["--preset", "fedavg_full"],
                                         "item 16"),
