@@ -13,7 +13,9 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
    K=4 ring under a partial mask and serving's K=8 FedAvg collapse, where
    the kernel, the plain version and ``A_eff.T @ W`` are timed; and
    mamba2-2.7b's training shape, K=2 with M past 2^31, full and partial
-   mask, held against the plain version in column slices and timed.
+   mask, held against the plain version in column slices; the kernel is
+   timed on the whole buffer, the plain version and ``A_eff.T @ W`` over
+   contiguous slices of 2^28 elements.
    Tolerance: max |kernel - plain| <= 1e-5 * max(1, |plain|).
 2. Serve, small: a K=4 stacked smoke checkpoint through
    ``repro_torch.launch.serve.main`` with ``--mix pallas``, on the card and
@@ -86,12 +88,45 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     ``serve.main`` with the neighborhood trimmed mean (kernel), the global
     median (plain) and the gather mixer (kernel), each within one bf16 ulp
     of a plain consensus, then prefill and 32 greedy decode steps.
+13. ``diffusion_mix_int8`` against its plain version ``mix_int8_ref``:
+    K in {4, 8, 12, 64, 240}, tile_m in {128, 512}, ``subtract_identity``
+    on and off, all-zero, all-one and random masks.  Operands from the
+    path's own quantizer (an all-zero tile, +-127, zero padding) take
+    phase 1's tolerance; uniform int8 values times uniform scales up to 1,
+    whose terms reach 127, are held against the float64 value within the
+    float32 summation bound (``mix_int8_exact``), with cuBLAS's error
+    beside the kernel's.  One K*M > 2^31 case; and the training path's
+    shape (K=8 FedAvg, smollm's M padded to the 512-column tile, one
+    column tile at a time with its scales), where the kernel, the plain
+    version and the composition (dequantize, then ``(A_eff - I).T @ C``)
+    are timed.
+14. Train smollm-360m at full width through ``train.main`` at K=8 (q=0.9,
+    B=1, S=1024, SGD mu=0.05, ``--mix pallas``, ``use_kernels=True``):
+    (a) the reference's compressed_fedavg preset (FedAvg, int8, error
+    feedback, T=2), 3 blocks through ``diffusion_mix_int8``, a profiled
+    block, then one more combination of the trained stack: the kernel's
+    delta against the plain version's from the same uniforms within one
+    bf16 ulp plus the summation bound and the messages bit-equal,
+    inactive agents' parameters and residual bit-equal, every active
+    residual within 2 quantization steps of its (agent, tile); (b) the
+    compressed_diffusion preset (ring, top-k 0.1, CHOCO's diff mode,
+    gamma 0.5, T=1), 2 blocks through ``diffusion_mix``, then one more
+    combination: the reference copy moves for active agents only; (c)
+    both presets at smoke size, card against CPU block by block from the
+    same state with the same injected draws: phase 6's gates, with every
+    int8 rounding or top-k selection that lands differently at its
+    threshold recorded, and the entries beyond them only where a flip
+    reaches.
+15. Int8 consensus: phase 3's K=8 stack through ``serve.main`` with
+    ``--consensus-quantize int8 --mix pallas``: relative squared error
+    against the stored stack's consensus below the reference's 1e-3, two
+    runs bit-equal, prefill and 32 greedy steps.
 
 The kernel mixers run over a column-tiled flatten, one launch per tile
-(``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11 and 12 count
-tiles.  Each path's launch counts (all five kernels) are set to 0 just
-before its first run and read just after it (phases 3, 5, 8, 9, 11 and
-12).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
+(``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14 and 15
+count tiles.  Each path's launch counts (all six kernels) are set to 0
+just before its first run and read just after it (phases 3, 5, 8, 9, 11,
+12, 14 and 15).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
@@ -198,11 +233,12 @@ def ptxas_lines(name: str) -> list[str]:
             if any(k in line for k in keep)]
 
 
-def num_tiles(K: int, M: int) -> int:
-    """Launches of one tiled combination of a (K, M) stack."""
+def num_tiles(K: int, M: int, int8: bool = False) -> int:
+    """Launches of one tiled combination of a (K, M) stack (with ``int8``,
+    of the fused int8 path)."""
     from repro_torch.core.mixing import num_tiles as tiles
 
-    return tiles(K, M)
+    return tiles(K, M, int8)
 
 
 def reset_launches() -> None:
@@ -218,6 +254,7 @@ def read_launches() -> dict:
 
 def kernel_wrappers() -> dict:
     from repro_torch.kernels import diffusion_mix as dm
+    from repro_torch.kernels import diffusion_mix_int8 as dmi
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import gather_mix as gm
     from repro_torch.kernels import gather_robust_mix as grm
@@ -227,7 +264,8 @@ def kernel_wrappers() -> dict:
             "flash_attention": fa.flash_attention,
             "ssd_intra_chunk": ssd_scan.ssd_intra_chunk,
             "gather_mix": gm.gather_mix,
-            "gather_robust_mix": grm.gather_robust_mix}
+            "gather_robust_mix": grm.gather_robust_mix,
+            "diffusion_mix_int8": dmi.diffusion_mix_int8}
 
 
 def full_width_M(arch: str = "smollm-360m") -> int:
@@ -369,15 +407,35 @@ def phase_kernel(card: str) -> dict:
     mamba.update(bound_ms=max(bound_bytes, bound_ops),
                  bound_by="bytes" if bound_bytes >= bound_ops else "operations",
                  bytes=nbytes)
+    # the plain version and A_eff.T @ W cannot take the whole buffer (cuBLAS
+    # refuses a row stride past 2^31), so both are timed over contiguous
+    # column slices of 2^28 elements, the mixers' tile size, summed
+    width = (1 << 28) // K
+    slices = [W[:, a:a + width].contiguous() for a in range(0, M, width)]
     del W
+    A_eff = masked_combination(A, m)
+
+    def over_slices(f):
+        def run():
+            for w in slices:
+                f(w)
+        return run
+
+    mamba.update(
+        plain_ms=time_ms(over_slices(lambda w: mix_ref(A, m, w)), iters=1),
+        library_ms=time_ms(over_slices(lambda w: A_eff.T @ w), iters=1),
+        column_slices=width)
+    del slices
     torch.cuda.empty_cache()
     print(f"phase 1: mamba2 training shape K={K} M={M} (> 2^31 columns), "
           f"ring: every column within {TOL} of the plain version in slices of "
           f"{tile} columns: "
           + "; ".join(f"{k} rel err {v['rel_err']:.3e}"
                       for k, v in mamba.items() if k.startswith("mask"))
-          + f"; kernel {mamba['ms']:.3f} ms, bound {mamba['bound_ms']:.3f} ms "
-          f"({mamba['bound_by']}); the plain version is not timed at this M "
+          + f"; kernel {mamba['ms']:.3f} ms on the whole buffer, plain "
+          f"{mamba['plain_ms']:.3f} ms and A_eff.T @ W "
+          f"{mamba['library_ms']:.3f} ms over contiguous slices of {width} "
+          f"columns, bound {mamba['bound_ms']:.3f} ms ({mamba['bound_by']}) "
           f"[{card}]")
     by_path["train_mamba2"] = mamba
     train = by_path["train"]
@@ -526,7 +584,8 @@ def _grads_one_step(params, cfg, batch, *, remat: bool = False):
 def _profile_block(state, cfg, K, T, B, S, steady_s: float, card: str, *,
                    optimizer: str = "adam", mu: float = 1e-4,
                    label: str = "phase 5", mix: str = "pallas",
-                   grad_transform=None, engine_kwargs=None) -> dict:
+                   grad_transform=None, engine_kwargs=None,
+                   config_kwargs=None) -> dict:
     """One more block from ``state`` under ``torch.profiler``: the device
     time of its kernels (device events only: an operator's row repeats the
     time of the kernels it launched), their share of the steady unprofiled
@@ -548,7 +607,7 @@ def _profile_block(state, cfg, K, T, B, S, steady_s: float, card: str, *,
         grad_transform = adam().update
     eng = DiffusionEngine(
         DiffusionConfig(num_agents=K, local_steps=T, step_size=mu,
-                        participation=0.9, mix=mix),
+                        participation=0.9, mix=mix, **(config_kwargs or {})),
         lambda p, b: tf.train_loss(p, cfg, b, remat=False),
         grad_transform, device="cuda", **(engine_kwargs or {}))
     gen = torch.Generator().manual_seed(11)
@@ -1042,7 +1101,7 @@ def phase_train_mamba(card: str) -> tuple[dict, dict]:
                                                      + len(out["losses"])),
             "diffusion_mix": num_tiles(K, full_width_M("mamba2-2.7b"))
             * blocks, "flash_attention": 0, "gather_mix": 0,
-            "gather_robust_mix": 0}
+            "gather_robust_mix": 0, "diffusion_mix_int8": 0}
     if launches != want:
         raise AssertionError(f"launches on the mamba2 training path "
                              f"{launches}, expected {want}")
@@ -1228,7 +1287,7 @@ def phase_ssm_devices(scratch: Path, card: str) -> dict:
     n_attn = sum(n for kind, n in cfg.segments() if kind == "attn")
     want = {"flash_attention": n_attn,
             "ssd_intra_chunk": cfg.num_layers - n_attn, "diffusion_mix": 0,
-            "gather_mix": 0, "gather_robust_mix": 0}
+            "gather_mix": 0, "gather_robust_mix": 0, "diffusion_mix_int8": 0}
     if launches != want:
         raise AssertionError(f"zamba2 forward launches {launches}, expected "
                              f"{want}")
@@ -1531,19 +1590,20 @@ def _frozen_equal(got, params, active) -> bool:
 
 
 def _train_full(card: str, label: str, flags: list, blocks: int,
-                want_fn) -> tuple[dict, dict]:
-    """Algorithm 1 on full-width smollm-360m at K = 12 through train.main
-    (ring, T = 2, q = 0.9, B = 1, S = 1024, SGD mu = 0.05,
-    ``use_kernels=True``) with ``flags``; the launch counts against
-    ``want_fn(cfg, n_logged)``, finite honest losses and parameters, the
-    block split, tokens/s and peak memory."""
+                want_fn, K: int = 12, T: int = 2) -> tuple[dict, dict]:
+    """Algorithm 1 on full-width smollm-360m at K agents (12 unless given)
+    through train.main (ring unless ``flags`` say otherwise, T local steps,
+    q = 0.9, B = 1, S = 1024, SGD mu = 0.05, ``use_kernels=True``) with
+    ``flags``; the launch counts against ``want_fn(cfg, n_logged)``, finite
+    honest losses and parameters, the block split, tokens/s and peak
+    memory."""
     import torch
 
     from repro_torch.core.attacks import byzantine_mask
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
-    K, T, B, S, mu = 12, 2, 1, 1024, 0.05
+    B, S, mu = 1, 1024, 0.05
     argv = ["--full", "--agents", str(K), "--local-steps", str(T),
             "--batch", str(B), "--seq", str(S), "--blocks", str(blocks),
             "--optimizer", "sgd", "--step-size", str(mu), "--participation",
@@ -1604,7 +1664,8 @@ def phase_train_robust(card: str) -> tuple[dict, dict]:
         return {"gather_robust_mix": num_tiles(K, M) * blocks,
                 "flash_attention": cfg.num_layers * K * (2 * blocks
                                                          + n_logged),
-                "diffusion_mix": 0, "gather_mix": 0, "ssd_intra_chunk": 0}
+                "diffusion_mix": 0, "gather_mix": 0, "ssd_intra_chunk": 0,
+                "diffusion_mix_int8": 0}
 
     out, row = _train_full(card, "phase 11a",
                            BYZANTINE_FLAGS + ["--robust-gather", "fused"],
@@ -1675,7 +1736,7 @@ def phase_train_gather(card: str) -> tuple[dict, dict]:
                 "flash_attention": cfg.num_layers * K * (2 * blocks
                                                          + n_logged),
                 "diffusion_mix": 0, "gather_robust_mix": 0,
-                "ssd_intra_chunk": 0}
+                "ssd_intra_chunk": 0, "diffusion_mix_int8": 0}
 
     out, row = _train_full(card, "phase 11b",
                            ["--mix", "gather", "--attack", "none"], blocks,
@@ -1790,6 +1851,780 @@ def phase_consensus_robust(path: str, card: str) -> dict:
     print(json.dumps({"phase": "12", "card": card, **rows}))
     return {mix: r["launches"] for mix, r in rows.items()}
 
+def _int8_operands(gen, K: int, M: int, tile_m: int):
+    """The operands the fused path hands the kernel: a (K, M) standard
+    normal stack quantized per (agent, tile) by the path's quantizer, with
+    agent 0's first tile all zero (scale 1.0) and the last 77 columns zero,
+    as padding leaves them; every other tile's largest value lands on
+    +-127.  Returns (int8 Wq, float32 scales (K, M / tile_m))."""
+    import torch
+
+    from repro_torch.core.compression import quantize_int8
+
+    x = torch.randn((K, M // tile_m, tile_m), generator=gen, device="cuda")
+    x[0, 0] = 0.0
+    x.view(K, M)[:, M - 77:] = 0.0
+    u = torch.rand(x.shape, generator=gen, device="cuda")
+    q, scale = quantize_int8(x, axis=2, u=u)
+    del x, u
+    return q.to(torch.int8).view(K, M), scale[:, :, 0].contiguous()
+
+
+def _uniform_int8_operands(gen, K: int, M: int, tile_m: int):
+    """Int8 values uniform in [-127, 127] times scales uniform in (0, 1]:
+    terms up to 127, some 30x larger than the quantizer's on normal data,
+    with agent 0's first tile all zero (scale 1.0).  Returns (int8 Wq,
+    float32 scales (K, M / tile_m))."""
+    import torch
+
+    Wq = torch.randint(-127, 128, (K, M), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scales = 1.0 - torch.rand((K, M // tile_m), generator=gen, device="cuda")
+    Wq[0, :tile_m] = 0
+    scales[0, 0] = 1.0
+    return Wq, scales
+
+
+def phase_int8_kernel(card: str) -> dict:
+    """Phase 13: ``diffusion_mix_int8`` against its plain version
+    ``mix_int8_ref`` on the card, then the training path's shape timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.mixing import int8_layout
+    from repro_torch.core.participation import masked_combination
+    from repro_torch.core.topology import averaging_matrix, make_topology
+    from repro_torch.kernels import diffusion_mix_int8 as dmi
+    from repro_torch.kernels.ref import mix_int8_exact, mix_int8_ref
+
+    dmi.build()
+    ptxas = ptxas_lines("diffusion_mix_int8")
+    for line in ptxas:
+        print("  ptxas:", line)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rng = np.random.default_rng(13)
+
+    def hold(A, m, Wq, scales, tile_m, sub, label):
+        out = dmi.diffusion_mix_int8(A, m, Wq, scales, tile_m=tile_m,
+                                     subtract_identity=sub)
+        ref = mix_int8_ref(A, m, Wq, scales, tile_m=tile_m,
+                           subtract_identity=sub)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        max_abs = (out - ref).abs().max().item()
+        if not err <= TOL:
+            raise AssertionError(f"diffusion_mix_int8 {label}: rel err "
+                                 f"{err:.3e} > {TOL}")
+        if sub and out[m == 0].any():
+            raise AssertionError(f"diffusion_mix_int8 {label}: an inactive "
+                                 "agent's delta is not 0")
+        return err, max_abs
+
+    def witness(A, m, Wq, scales, tile_m, sub, label):
+        """Kernel and plain (cuBLAS) against the float64 value: the kernel
+        must lie within the float32 summation bound of mix_int8_exact,
+        elementwise.  Returns the kernel's reading against the plain
+        version (the 1e-5 relative gate's), both errors against float64
+        and their largest share of the bound."""
+        out = dmi.diffusion_mix_int8(A, m, Wq, scales, tile_m=tile_m,
+                                     subtract_identity=sub)
+        ref = mix_int8_ref(A, m, Wq, scales, tile_m=tile_m,
+                           subtract_identity=sub)
+        exact, bound = mix_int8_exact(A, m, Wq, scales, tile_m=tile_m,
+                                      subtract_identity=sub)
+        err_k = (out.double() - exact).abs()
+        err_p = (ref.double() - exact).abs()
+        floor = bound.clamp(min=1e-300)
+        r = {"rel_vs_plain": rel_err(out, ref),
+             "kernel_f64": err_k.max().item(),
+             "plain_f64": err_p.max().item(),
+             "kernel_share": (err_k / floor).max().item(),
+             "plain_share": (err_p / floor).max().item()}
+        if not bool((err_k <= bound).all()):
+            raise AssertionError(f"diffusion_mix_int8 {label}: off the "
+                                 f"float64 value by more than the float32 "
+                                 f"summation bound ({r})")
+        if sub and out[m == 0].any():
+            raise AssertionError(f"diffusion_mix_int8 {label}: an inactive "
+                                 "agent's delta is not 0")
+        return r
+
+    n_cases, worst = 0, 0.0
+    uni = {"cases": 0, "rel_vs_plain": 0.0, "kernel_f64": 0.0,
+           "plain_f64": 0.0, "kernel_share": 0.0, "plain_share": 0.0,
+           "kernel_not_worse": 0}
+    for K in (4, 8, 12, 64, 240):
+        A = torch.as_tensor(make_topology("erdos", K, seed=K).A,
+                            dtype=torch.float32, device="cuda")
+        for tile_m in (128, 512):
+            M = tile_m * 201                       # an odd count of tiles
+            for kind in ("normal", "uniform"):
+                if kind == "normal":
+                    Wq, scales = _int8_operands(gen, K, M, tile_m)
+                else:
+                    Wq, scales = _uniform_int8_operands(gen, K, M, tile_m)
+                for mname, mask in (("zeros", np.zeros(K)),
+                                    ("ones", np.ones(K)),
+                                    ("random", (rng.random(K) < 0.6) * 1.0)):
+                    m = torch.as_tensor(mask, dtype=torch.float32,
+                                        device="cuda")
+                    for sub in (False, True):
+                        label = (f"K={K} tile_m={tile_m} {kind} "
+                                 f"mask={mname} subtract_identity={sub}")
+                        if kind == "normal":
+                            err, _ = hold(A, m, Wq, scales, tile_m, sub,
+                                          label)
+                            worst = max(worst, err)
+                            n_cases += 1
+                            continue
+                        r = witness(A, m, Wq, scales, tile_m, sub, label)
+                        for k in ("rel_vs_plain", "kernel_f64", "plain_f64",
+                                  "kernel_share", "plain_share"):
+                            uni[k] = max(uni[k], r[k])
+                        uni["kernel_not_worse"] += int(
+                            r["kernel_f64"] <= r["plain_f64"])
+                        uni["cases"] += 1
+                del Wq, scales
+    print(f"phase 13: {n_cases} cases on the quantizer's operands (K in 4, "
+          f"8, 12, 64, 240; tile_m 128 and 512; all-zero, all-one and "
+          f"random masks; subtract_identity on and off; an all-zero tile, "
+          f"+-127, zero padding) within {TOL} (worst {worst:.3e}); inactive "
+          f"deltas exactly 0")
+    print(f"phase 13: {uni['cases']} cases on uniform int8 times uniform "
+          f"scales, against float64: kernel max |err| "
+          f"{uni['kernel_f64']:.3e} ({uni['kernel_share']:.3f} of the float32 "
+          f"summation bound at most), plain (cuBLAS) {uni['plain_f64']:.3e} "
+          f"({uni['plain_share']:.3f}); the kernel no worse than cuBLAS in "
+          f"{uni['kernel_not_worse']} of {uni['cases']}; kernel vs plain "
+          f"{uni['rel_vs_plain']:.3e} relative to max(1, |plain|) [{card}]")
+    # 64-bit offsets: l * M + j passes 2^31
+    K, M = 8, (1 << 28) + 512
+    A = torch.as_tensor(make_topology("ring", K).A, dtype=torch.float32,
+                        device="cuda")
+    m = torch.tensor([1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 0.0, 1.0], device="cuda")
+    Wq, scales = _int8_operands(gen, K, M, 512)
+    big, _ = hold(A, m, Wq, scales, 512, True, f"K={K} M={M}")
+    del Wq, scales
+    torch.cuda.empty_cache()
+    print(f"phase 13: K={K} M={M} (K*M = {K * M:,} > 2^31): rel err "
+          f"{big:.3e}")
+
+    # the training path's shape: K = 8 FedAvg, smollm-360m's M padded to
+    # the 512-column tile, one column tile of the fused path at a time
+    # with its own scales, as PallasFusedMixer.mix_int8 launches it
+    K, M_real = 8, full_width_M()
+    tile, M, cols = int8_layout(K, M_real)
+    A = torch.as_tensor(averaging_matrix(K), dtype=torch.float32,
+                        device="cuda")
+    m = torch.tensor([1.0] * 6 + [0.0, 1.0], device="cuda")
+    tiles = [_int8_operands(gen, K, min(cols, M - a), tile)
+             for a in range(0, M, cols)]
+    err = max_abs = 0.0
+    for Wq, sc in tiles:
+        e, a = hold(A, m, Wq, sc, tile, True, f"training shape tile "
+                    f"{tuple(Wq.shape)}")
+        err, max_abs = max(err, e), max(max_abs, a)
+    torch.cuda.empty_cache()
+    A_sub = masked_combination(A, m) - torch.eye(K, device="cuda")
+
+    def combination(f):
+        def run():
+            for Wq, sc in tiles:
+                f(Wq, sc)
+        return run
+
+    def composition(Wq, sc):
+        C = (Wq.float().view(K, -1, tile) * sc[:, :, None]).view(K, -1)
+        return A_sub.T @ C
+
+    ms = time_ms(combination(lambda w, sc: dmi.diffusion_mix_int8(
+        A, m, w, sc, tile_m=tile, subtract_identity=True)), iters=3)
+    tile_ms = time_ms(lambda: dmi.diffusion_mix_int8(
+        A, m, tiles[0][0], tiles[0][1], tile_m=tile, subtract_identity=True))
+    plain_ms = time_ms(combination(lambda w, sc: mix_int8_ref(
+        A, m, w, sc, tile_m=tile, subtract_identity=True)), iters=1)
+    library_ms = time_ms(combination(composition), iters=1)
+    nbytes = K * M + 4 * K * (M // tile) + 4 * K * M + 4 * (K * K + K)
+    flops = 2 * K * K * M + K * M
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / FP32_FLOPS_PER_S * 1e3
+    w0 = tiles[0][0].shape[1]
+    tile_bound = ((5 * K * w0 + 4 * K * (w0 // tile)) / HBM_BYTES_PER_S
+                  * 1e3)
+    row = {"name": "diffusion_mix_int8", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/diffusion_mix_int8.cu",
+           "replaces": "src/repro/kernels/diffusion_mix.py:132",
+           "launches": None, "max_abs_err": max_abs, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "library_ms": None, "composition_ms": library_ms,
+           "bytes": nbytes, "flops": flops, "shape": [K, M],
+           "real_columns": M_real, "tile_m": tile,
+           "column_tiles": len(tiles), "one_tile_ms": tile_ms,
+           "one_tile_bound_ms": tile_bound, "rel_err": err,
+           "cases": n_cases, "worst_rel_err": worst, "big_rel_err": big,
+           "uniform_witness": uni,
+           "ptxas": ptxas}
+    print(f"phase 13: training shape K={K} FedAvg, M={M_real} padded to {M} "
+          f"(tile {tile}), {len(tiles)} column tiles of {cols} columns: rel "
+          f"err {err:.3e}; one combination: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, dequantize then (A_eff - I).T @ C "
+          f"{library_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}: {nbytes:,} bytes, {flops:.3e} float32 "
+          f"operations); one full tile {tile_ms:.3f} ms against "
+          f"{tile_bound:.3f} ms [{card}]")
+    del tiles
+    torch.cuda.empty_cache()
+    return row
+
+
+def _tile_maxima(tree) -> "torch.Tensor":
+    """max |x| per (agent, tile) of the fused int8 layout of ``tree``: the
+    leaves concatenated and zero-padded to a multiple of the int8 tile."""
+    import torch
+
+    from repro_torch.core import mixing
+    from repro_torch.tree import tree_leaves
+
+    leaves = tree_leaves(tree)
+    K = leaves[0].shape[0]
+    M = sum(x[0].numel() for x in leaves)
+    tile, width, cols = mixing.int8_layout(K, M)
+    out = []
+
+    def fn(x, start):
+        out.append(x.view(K, -1, tile).abs().amax(dim=2))
+        return ()
+
+    mixing._tiled(leaves, fn, cols=cols, width=width, outputs=0)
+    return torch.cat(out, dim=1)
+
+
+#: the reference's compressed_fedavg preset (variants.compressed_fedavg):
+#: FedAvg, int8 with error feedback, gamma 1 (the direct mode's default)
+COMPRESSED_FEDAVG_FLAGS = ["--topology", "fedavg", "--compress", "int8",
+                           "--error-feedback"]
+#: its compressed_diffusion preset (variants.compressed_diffusion): ring,
+#: top-k 0.1 with error feedback asked for, which diff mode drops (the
+#: reference copy is the feedback), gamma 0.5 (top-k's default), T = 1
+COMPRESSED_DIFFUSION_FLAGS = ["--topology", "ring", "--compress", "topk",
+                              "--compress-ratio", "0.1", "--error-feedback"]
+
+
+def phase_train_int8(card: str) -> tuple[dict, dict]:
+    """Phase 14a: the compressed_fedavg preset at full smollm-360m width
+    through train.main with --mix pallas (every combination through
+    diffusion_mix_int8), then one more combination of the trained stack:
+    kernel against its plain version on the same uniforms, the eq.-20
+    invariants and the EF residual's bound."""
+    import torch
+
+    from repro_torch.core import mixing
+    from repro_torch.core.topology import make_topology
+    from repro_torch.kernels import diffusion_mix_int8 as dmi
+    from repro_torch.kernels.ref import mix_int8_ref
+    from repro_torch.tree import tree_leaves, tree_map
+
+    K, blocks = 8, 3
+    M = full_width_M()
+    tiles = num_tiles(K, M, int8=True)
+
+    def want(cfg, n_logged):
+        return {"diffusion_mix_int8": tiles * blocks,
+                "flash_attention": cfg.num_layers * K * (2 * blocks
+                                                         + n_logged),
+                "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
+                "ssd_intra_chunk": 0}
+
+    out, row = _train_full(card, "phase 14a", ["--mix", "pallas",
+                                               *COMPRESSED_FEDAVG_FLAGS],
+                           blocks, want, K=K)
+    state, cfg = out["state"], out["cfg"]
+    row["comm"] = out["comm"]
+    steady_s = min(t["block_s"] for t in out["timings"][1:])
+    row["profile"] = _profile_block(
+        state, cfg, K, 2, 1, 1024, steady_s, card, optimizer="sgd", mu=0.05,
+        label="phase 14a", mix="pallas",
+        config_kwargs={"topology": "fedavg", "compress": "int8",
+                       "error_feedback": True})
+    params, resid = state.params, state.comm_state
+    del out, state
+    torch.cuda.empty_cache()
+
+    topo = make_topology("fedavg", K)
+    A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+    active = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 0.0, 1.0],
+                          device="cuda")
+    pipe = mixing.make_pipeline("pallas", topo, compress="int8",
+                                error_feedback=True, device="cuda")
+    target = tree_map(lambda p, e: p + e, params, resid)
+
+    def seeded():
+        return torch.Generator(device="cuda").manual_seed(1414)
+
+    # the combination's delta and messages, kernel and plain version, from
+    # the same uniforms (one seeded generator each, the same tile cut)
+    reset_launches()
+    t0 = time.perf_counter()
+    d_k, c_k = pipe.mixer.mix_int8(target, active, A, seeded(),
+                                   want_messages=True)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    n = read_launches()["diffusion_mix_int8"]
+    if n != tiles:
+        raise AssertionError(f"phase 14a: one combination launched "
+                             f"diffusion_mix_int8 {n}x, expected {tiles}")
+
+    def plain(A_, act, Wq, scales, *, tile_m, subtract_identity):
+        return mix_int8_ref(A_, act, Wq, scales, tile_m=tile_m,
+                            subtract_identity=subtract_identity)
+
+    real = dmi.diffusion_mix_int8
+    dmi.diffusion_mix_int8 = plain
+    try:
+        t0 = time.perf_counter()
+        d_p, c_p = pipe.mixer.mix_int8(target, active, A, seeded(),
+                                       want_messages=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        dmi.diffusion_mix_int8 = real
+    if not all(torch.equal(a, b) for a, b in zip(tree_leaves(c_k),
+                                                 tree_leaves(c_p))):
+        raise AssertionError("phase 14a: the messages differ between the "
+                             "kernel and the plain path")
+    del c_k, c_p
+    row["combine_delta_kernel_vs_plain"] = _ulp_gate(
+        "phase 14a: one more combination's delta, kernel vs plain version "
+        "(the same uniforms)", _sliced(d_k, d_p, _sum_floors(target, K)))
+    del d_k, d_p
+    torch.cuda.empty_cache()
+
+    # the whole pipeline once: inactive agents keep parameters and residual
+    # bit-equal; every active residual within 2 steps of its (agent, tile)
+    t0 = time.perf_counter()
+    new_params, new_resid = pipe(params, active, A, resid, seeded())
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    if not (_frozen_equal(new_params, params, active)
+            and _frozen_equal(new_resid, resid, active)):
+        raise AssertionError("phase 14a: inactive agents' parameters or "
+                             "residual moved")
+    del new_params
+    # (inactive agents keep the residual of an earlier target)
+    live = active > 0
+    steps = _tile_maxima(target)[live]
+    steps = torch.where(steps > 0, steps / 127.0, torch.ones_like(steps))
+    ratio = (_tile_maxima(new_resid)[live] / steps).max().item()
+    if not ratio <= 2.0:
+        raise AssertionError(f"phase 14a: EF residual {ratio:.3f} "
+                             "quantization steps of its tile > 2")
+    row.update(combine_kernel_s=kernel_s, combine_plain_s=plain_s,
+               pipeline_s=pipe_s, residual_max_steps=ratio)
+    print(f"phase 14a: messages bit-equal kernel vs plain; inactive agents' "
+          f"parameters and EF residual bit-equal; active agents' EF residual "
+          f"at most {ratio:.3f} quantization steps of its (agent, tile) "
+          f"(gate 2); "
+          f"mix_int8 {kernel_s:.3f}s with the kernel ({n} launches), "
+          f"{plain_s:.3f}s plain; the whole pipeline {pipe_s:.3f}s [{card}]")
+    print(json.dumps({"phase": "14a", **row}))
+    del params, resid, new_resid, target
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+def phase_train_diff(card: str) -> tuple[dict, dict]:
+    """Phase 14b: the compressed_diffusion preset at full width (ring,
+    top-k 0.1, CHOCO's diff mode, gamma 0.5) through train.main with --mix
+    pallas, 2 blocks; then one more combination: the reference copy moves
+    for active agents only."""
+    import torch
+
+    from repro_torch.core import mixing
+    from repro_torch.core.topology import make_topology
+    from repro_torch.tree import tree_leaves
+
+    K, blocks = 8, 2
+    M = full_width_M()
+
+    def want(cfg, n_logged):
+        return {"diffusion_mix": num_tiles(K, M) * blocks,
+                "flash_attention": cfg.num_layers * K * (blocks + n_logged),
+                "diffusion_mix_int8": 0, "gather_mix": 0,
+                "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+
+    out, row = _train_full(card, "phase 14b", ["--mix", "pallas",
+                                               *COMPRESSED_DIFFUSION_FLAGS],
+                           blocks, want, K=K, T=1)
+    row["comm"] = out["comm"]
+    if (out["comm"]["mode"], out["comm"]["gamma"]) != ("diff", 0.5):
+        raise AssertionError(f"phase 14b: pipeline {out['comm']}")
+    params, ref = out["state"].params, out["state"].comm_state
+    del out
+    torch.cuda.empty_cache()
+    topo = make_topology("ring", K)
+    pipe = mixing.make_pipeline("pallas", topo, compress="topk",
+                                compress_ratio=0.1, error_feedback=True,
+                                device="cuda")
+    A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+    active = torch.tensor([1.0, 0.0, 1.0, 1.0, 1.0, 1.0, 0.0, 1.0],
+                          device="cuda")
+    t0 = time.perf_counter()
+    new_params, new_ref = pipe(params, active, A, ref)
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    if not (_frozen_equal(new_params, params, active)
+            and _frozen_equal(new_ref["ref"], ref["ref"], active)):
+        raise AssertionError("phase 14b: inactive agents' parameters or "
+                             "reference copy moved")
+    live = active > 0
+    moved = [int((a[live] != b[live]).sum()) for a, b in
+             zip(tree_leaves(new_ref["ref"]), tree_leaves(ref["ref"]))]
+    if not all(moved):
+        raise AssertionError(f"phase 14b: an active reference copy did not "
+                             f"move: {moved}")
+    row.update(pipeline_s=pipe_s, ref_moved_elements=sum(moved))
+    print(f"phase 14b: one more combination in {pipe_s:.3f}s: the reference "
+          f"copy moved at {sum(moved):,} active elements and not at all for "
+          f"the inactive agents, whose parameters are bit-equal [{card}]")
+    print(json.dumps({"phase": "14b", **row}))
+    del params, ref, new_params, new_ref
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+class _CompressorRecord:
+    """While entered, appends each call of the port's compressor to
+    ``self.calls`` (swap in a fresh list per run): (input, q, scale,
+    uniforms) of every int8 quantization, (input, message) of every top-k
+    leaf."""
+
+    def __init__(self, kind: str):
+        from repro_torch.core import compression
+
+        self.kind, self.mod, self.calls = kind, compression, []
+
+    def __enter__(self):
+        mod, rec = self.mod, self
+        if self.kind == "int8":
+            self.real = mod.quantize_int8
+
+            def quantize(x, axis=-1, u=None):
+                q, scale = rec.real(x, axis=axis, u=u)
+                rec.calls.append(tuple(t.detach().to("cpu", copy=True)
+                                       for t in (x, q, scale, u)))
+                return q, scale
+
+            mod.quantize_int8 = quantize
+        else:
+            self.real = mod.TopK._leaf
+
+            def leaf(comp, x):
+                out = rec.real(comp, x)
+                rec.calls.append((x.detach().to("cpu", copy=True),
+                                  out.detach().to("cpu", copy=True)))
+                return out
+
+            mod.TopK._leaf = leaf
+        return self
+
+    def __exit__(self, *exc):
+        if self.kind == "int8":
+            self.mod.quantize_int8 = self.real
+        else:
+            self.mod.TopK._leaf = self.real
+
+
+def _threshold_flips(kind, card_calls, cpu_calls, sizes, ratio, tol):
+    """The coordinates where the card's message and the CPU's differ
+    because a rounding (int8) or a selection (top-k) sits at its threshold.
+
+    Holds the compressor inputs within ``tol``; for int8, the rounded
+    values x / scale + u within a hundredth of a step of each other
+    everywhere (so a flip is one step, at an integer, with the same
+    uniforms); for top-k, as many coordinates leaving each row's selection
+    as entering it, each at a magnitude within twice the row's input
+    difference of the row's k-th largest; the messages off the flips
+    within ``tol``.  Returns the (K, n) flip masks per leaf (the fused
+    layout's column tiles joined and split at ``sizes``), the largest
+    message difference at a flip, and the largest input difference."""
+    import torch
+
+    from repro_torch.core.compression import _num_kept
+
+    if len(card_calls) != len(cpu_calls):
+        raise AssertionError("the card and the CPU compressed a different "
+                             "number of times")
+    masks, dc, dx = [], 0.0, 0.0
+    for got, want in zip(card_calls, cpu_calls):
+        K = got[0].shape[0]
+        xg, xc = (t[0].reshape(K, -1).double() for t in (got, want))
+        dx = max(dx, (xg - xc).abs().max().item())
+        if kind == "int8":
+            vg, vc = ((t[0].double() / t[2].double() + t[3].double())
+                      .reshape(K, -1) for t in (got, want))
+            if not (vg - vc).abs().max().item() <= 1e-2:
+                raise AssertionError("the rounded int8 values differ by "
+                                     "more than 1e-2 step")
+            flip = got[1].reshape(K, -1) != want[1].reshape(K, -1)
+            cg, cc = ((t[1] * t[2]).reshape(K, -1).double()
+                      for t in (got, want))
+        else:
+            cg, cc = (t[1].reshape(K, -1).double() for t in (got, want))
+            flip = (cg != 0) != (cc != 0)
+            k = _num_kept(xc.shape[1], ratio)
+            thr = xc.abs().topk(k, dim=1).values[:, -1:]
+            room = 2 * (xg - xc).abs().amax(dim=1, keepdim=True)
+            if not bool(((xc.abs() - thr).abs() <= room + 1e-12)[flip]
+                        .all()):
+                raise AssertionError("a top-k flip away from the threshold")
+            if not torch.equal((flip & (cg != 0)).sum(1),
+                               (flip & (cc != 0)).sum(1)):
+                raise AssertionError("top-k kept different counts")
+        d = (cg - cc).abs()
+        if not d[~flip].max().item() <= tol:
+            raise AssertionError(f"messages off the flips differ by "
+                                 f"{d[~flip].max().item():.3e}")
+        if flip.any():
+            dc = max(dc, d[flip].max().item())
+        masks.append(flip)
+    if kind == "int8" and len(masks) != len(sizes):  # the fused layout
+        joined = torch.cat(masks, dim=1)[:, :sum(sizes)]
+        masks = list(torch.split(joined, sizes, dim=1))
+    if not dx <= tol:
+        raise AssertionError(f"compressor inputs differ by {dx:.3e} > {tol}")
+    return masks, dc, dx
+
+
+def _lockstep_compressed(name: str, preset: dict, K: int = 8,
+                         blocks: int = 3, T: int = 2, mu: float = 0.05,
+                         tol: float = 1e-4) -> dict:
+    """One compressed preset at smoke size, card against CPU, block by
+    block from the CPU's state: the engine as train.main builds it (SGD,
+    q = 0.9, ``use_kernels=True``, --mix pallas), every block's batch and
+    mask from one host generator, the fused path's rounding uniforms drawn
+    on the host from a second one and injected into both.
+
+    Both devices' compressor calls are recorded and every threshold flip
+    accounted for (:func:`_threshold_flips`).  Gate, phase 6's: every
+    parameter and state entry within ``tol`` of the CPU's, except at a
+    flipped coordinate of its own or a neighbor's message, where it is
+    within 2 gamma times the largest message difference at a flip plus
+    ``tol``; the per-agent losses within 1e-4 relative in a block without
+    a flip, and in a block with one, once the flip-reached coordinates take
+    the CPU's values."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.compression import Draws
+    from repro_torch.core.diffusion import DiffusionConfig, DiffusionEngine
+    from repro_torch.core.mixing import int8_layout
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.launch.train import init_stacked
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    cfg = dataclasses.replace(get_config("smollm-360m").smoke,
+                              use_kernels=True)
+    kind = preset["compress"]
+
+    def loss(p, b):
+        return tf.train_loss(p, cfg, b, remat=False)
+
+    def agent_losses(p, batch):
+        with torch.no_grad():
+            return [loss(tree_map(lambda x, k=k: x[k], p),
+                         tree_map(lambda x, k=k: x[0, k], batch)).item()
+                    for k in range(K)]
+
+    dcfg = DiffusionConfig(num_agents=K, local_steps=T, step_size=mu,
+                           participation=0.9, mix="pallas", **preset)
+    eng = {dev: DiffusionEngine(dcfg, loss, device=dev)
+           for dev in ("cpu", "cuda")}
+    gamma = eng["cpu"].pipeline.gamma
+    sup = ((torch.as_tensor(eng["cpu"].topology.A) != 0)
+           | torch.eye(K, dtype=torch.bool)).double()
+    key = torch.Generator().manual_seed(0)
+    draw = torch.Generator().manual_seed(1)
+    params = init_stacked(key, cfg, K, torch.device("cpu"))
+    sizes = [x[0].numel() for x in tree_leaves(params)]
+    width = int8_layout(K, sum(sizes))[1]
+    state = eng["cpu"].init_state(params, None, key=key)
+    out = {"flips": 0, "reached": 0, "far": 0, "max_abs": 0.0,
+           "max_input_diff": 0.0, "loss_rel_no_flip": 0.0,
+           "loss_rel_flip_raw": 0.0, "loss_rel_flip_patched": 0.0,
+           "blocks_with_flips": 0, "blocks": blocks,
+           "flips_by_leaf": [0] * len(sizes)}
+    for _ in range(blocks):
+        batch = lm_token_batch(key, (T, K, 2, 64), cfg.vocab_size)
+        draws = (Draws(u=torch.rand((K, width), generator=draw))
+                 if kind == "int8" else None)
+        start = state.replace(params=tree_map(
+            lambda x: x.to("cuda"), state.params), comm_state=tree_map(
+            lambda x: x.to("cuda"), state.comm_state))
+        with _CompressorRecord(kind) as rec:
+            state, met = eng["cpu"].step(state, batch, key, comm_key=draws)
+            cpu_calls, rec.calls = rec.calls, []
+            card, _ = eng["cuda"].step(
+                start, tree_map(lambda x: x.to("cuda"), batch),
+                torch.Generator(), active=met["active"], comm_key=draws)
+            card_calls = rec.calls
+        masks, dc, dx = _threshold_flips(
+            kind, card_calls, cpu_calls, sizes,
+            preset.get("compress_ratio", 1.0), tol)
+        reach = [(sup.T @ f.double()) > 0 for f in masks]
+        n_flips = sum(int(f.sum()) for f in masks)
+        for i, f in enumerate(masks):
+            out["flips_by_leaf"][i] += int(f.sum())
+        got = tree_leaves(card.params) + tree_leaves(card.comm_state)
+        want = tree_leaves(state.params) + tree_leaves(state.comm_state)
+        if len(got) != len(want) or len(want) % len(masks):
+            raise AssertionError(f"phase 14c {name}: the states differ in "
+                                 "structure")
+        patched = []
+        for j, (g, w) in enumerate(zip(got, want)):
+            g = g.cpu()
+            near = reach[j % len(masks)].reshape(g.shape)
+            d = (g.double() - w.double()).abs()
+            far = d > tol
+            stray = int((far & ~near).sum())
+            if stray:
+                raise AssertionError(f"phase 14c {name}: {stray} entries "
+                                     f"beyond {tol} away from every flip")
+            if not d.max().item() <= 2 * gamma * dc + tol:
+                raise AssertionError(f"phase 14c {name}: an entry moved "
+                                     f"{d.max().item():.3e} > 2 gamma "
+                                     f"{dc:.3e} + {tol}")
+            out["far"] += int(far.sum())
+            out["max_abs"] = max(out["max_abs"], d.max().item())
+            if j < len(masks):
+                patched.append(torch.where(near, w, g))
+            out["reached"] += int(near.sum()) if j < len(masks) else 0
+        losses_cpu = agent_losses(state.params, batch)
+        raw = float(np.max(np.abs(np.subtract(
+            agent_losses(card.params, tree_map(lambda x: x.to("cuda"),
+                                               batch)), losses_cpu))
+            / np.abs(losses_cpu)))
+        out["flips"] += n_flips
+        out["max_input_diff"] = max(out["max_input_diff"], dx)
+        if n_flips:
+            fixed = tree_map(lambda x: x.to("cuda"),
+                             tree_unflatten(state.params, patched))
+            rel = float(np.max(np.abs(np.subtract(agent_losses(
+                fixed, tree_map(lambda x: x.to("cuda"), batch)),
+                losses_cpu)) / np.abs(losses_cpu)))
+            out["blocks_with_flips"] += 1
+            out["loss_rel_flip_raw"] = max(out["loss_rel_flip_raw"], raw)
+            out["loss_rel_flip_patched"] = max(
+                out["loss_rel_flip_patched"], rel)
+        else:
+            rel = raw
+            out["loss_rel_no_flip"] = max(out["loss_rel_no_flip"], raw)
+        if not rel <= 1e-4:
+            raise AssertionError(f"phase 14c {name}: losses {rel:.3e} "
+                                 "relative > 1e-4")
+        del card, start
+    return out
+
+
+def phase_compressed_devices() -> dict:
+    """Phase 14c: both presets at smoke size (K = 8), card against CPU
+    block by block with the same injected draws, every threshold flip
+    accounted for (:func:`_lockstep_compressed`)."""
+    presets = {"compressed_fedavg": {"topology": "fedavg",
+                                     "compress": "int8",
+                                     "error_feedback": True},
+               "compressed_diffusion": {"topology": "ring",
+                                        "compress": "topk",
+                                        "compress_ratio": 0.1,
+                                        "error_feedback": True}}
+    rows = {}
+    for name, preset in presets.items():
+        T = 2 if preset["compress"] == "int8" else 1
+        r = _lockstep_compressed(name, preset, T=T)
+        print(f"phase 14c: {name} smoke K=8, {r['blocks']} blocks, card vs "
+              f"CPU from the same state: {r['flips']} threshold flips in "
+              f"{r['blocks_with_flips']} blocks reaching {r['reached']} "
+              f"weights; {r['far']} entries beyond 1e-4, all at those; max "
+              f"|diff| {r['max_abs']:.2e}; compressor inputs within "
+              f"{r['max_input_diff']:.2e}; losses rel "
+              f"{r['loss_rel_no_flip']:.2e} in blocks without a flip, "
+              f"{r['loss_rel_flip_raw']:.2e} "
+              f"with one ({r['loss_rel_flip_patched']:.2e} once the reached "
+              f"weights take the CPU's values; gate 1e-4)")
+        print(f"phase 14c: {name} flips by leaf (leaf: count): "
+              + ", ".join(f"{i}: {n}" for i, n in
+                          enumerate(r["flips_by_leaf"]) if n))
+        rows[name] = r
+    return rows
+
+
+def phase_consensus_int8(path: str, card: str) -> dict:
+    """Phase 15: phase 3's K = 8 bf16 stack collapsed through serve.main
+    with --consensus-quantize int8 and --mix pallas: the reference's gate
+    against the float32-path consensus, two runs bit-equal, then prefill
+    and 32 greedy decode steps."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("smollm-360m").model
+    K, M = 8, full_width_M()
+    argv = ["--arch", "smollm-360m", "--full", "--agents", str(K),
+            "--checkpoint", path, "--batch", "4", "--prompt-len", "128",
+            "--decode", "32", "--temperature", "0", "--mix", "pallas"]
+    plain = serve.main(argv)
+    reset_launches()
+    first = serve.main(argv + ["--consensus-quantize", "int8"])
+    launches = read_launches()
+    want = {n: 0 for n in launches}
+    want["diffusion_mix"] = num_tiles(K, M)
+    if launches != want:
+        raise AssertionError(f"phase 15: launches {launches}, expected "
+                             f"{want}")
+    second = serve.main(argv + ["--consensus-quantize", "int8"])
+    if not all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(first["params"]),
+                   tree_leaves(second["params"]))):
+        raise AssertionError("phase 15: two int8 runs with one seed differ")
+    sq_err = sq_ref = 0.0
+    for a, b in zip(tree_leaves(plain["params"]),
+                    tree_leaves(first["params"])):
+        a, b = a.double(), b.double()
+        sq_err += float(((a - b) ** 2).sum())
+        sq_ref += float((a ** 2).sum())
+    rel = sq_err / sq_ref
+    if not rel < 1e-3:
+        raise AssertionError(f"phase 15: int8 consensus relative squared "
+                             f"error {rel:.3e} >= 1e-3")
+    toks = first["tokens"]
+    if (toks.shape != (4, 32) or toks.min() < 0
+            or toks.max() >= cfg.vocab_size
+            or not torch.isfinite(first["prefill_logits"]).all()
+            or not torch.equal(toks, second["tokens"])):
+        raise AssertionError(f"phase 15: bad tokens {toks}")
+    row = {"launches": launches, "rel_sq_err": rel,
+           "timings": first["timings"], "timings_again": second["timings"],
+           "timings_float": plain["timings"],
+           "tokens_per_s": first["tokens_per_s"], "card": card}
+    print(f"phase 15: --consensus-quantize int8 --mix pallas: relative "
+          f"squared error against the stored-stack consensus {rel:.3e} "
+          f"(gate 1e-3); two runs bit-equal; consensus "
+          f"{first['timings']['consensus_s']:.3f}s (stored stack "
+          f"{plain['timings']['consensus_s']:.3f}s), prefill "
+          f"{first['timings']['prefill_s']:.3f}s, decode "
+          f"{first['tokens_per_s']:.1f} tokens/s; launches {launches}; "
+          f"tokens in the vocabulary [{card}]")
+    print(json.dumps({"phase": "15", **row}))
+    del plain, first, second
+    torch.cuda.empty_cache()
+    return launches
+
 
 def main() -> int:
     import torch
@@ -1842,6 +2677,12 @@ def main() -> int:
               optimizers=(("sgd", 0.05),))
         consensus_launches = timed("phase 12", phase_consensus_robust,
                                    stack_path, card)
+        int8_row = timed("phase 13", phase_int8_kernel, card)
+        int8_launches, _ = timed("phase 14a", phase_train_int8, card)
+        diff_launches, _ = timed("phase 14b", phase_train_diff, card)
+        timed("phase 14c", phase_compressed_devices)
+        quantized_launches = timed("phase 15", phase_consensus_int8,
+                                   stack_path, card)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
@@ -1854,11 +2695,15 @@ def main() -> int:
                "train_smollm_byzantine": robust_launches,
                "train_smollm_gather": gather_launches,
                **{f"serve_smollm_{mix}": counts
-                  for mix, counts in consensus_launches.items()}}
+                  for mix, counts in consensus_launches.items()},
+               "train_smollm_compressed_fedavg": int8_launches,
+               "train_smollm_compressed_diffusion": diff_launches,
+               "serve_smollm_int8": quantized_launches}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
             (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),
-            (robust_row, "train_smollm_byzantine"))
+            (robust_row, "train_smollm_byzantine"),
+            (int8_row, "train_smollm_compressed_fedavg"))
     for row, main_path in rows:
         row["launches"] = by_path[main_path][row["name"]]
         row["launches_by_path"] = {name: counts[row["name"]]

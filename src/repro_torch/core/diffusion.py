@@ -37,6 +37,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.core import compression
 from repro_torch.core import graphs as graph_lib
 from repro_torch.core import mixing
 from repro_torch.core import participation as part
@@ -71,9 +72,12 @@ class DiffusionConfig:
     mix: str = "dense"                   # dense|sparse|pallas|gather|auto|
                                          # none|trimmed_mean|median|
                                          # adaptive_trim
-    compress: str = "none"               # none (the others: item 20)
+    compress: str = "none"               # none|topk|randk|int8|gauss
+    compress_ratio: float = 1.0          # kept fraction (topk/randk/gauss)
+    compress_sigma: float = 0.0          # Gaussian-mask noise scale (gauss)
     error_feedback: bool = False
-    comm_mode: str = "auto"              # auto|identity
+    comm_mode: str = "auto"              # auto|identity|direct|diff
+    comm_gamma: Any = None               # consensus step (None: auto)
     local_steps_mode: str = "uniform"    # uniform|degree (per-agent T_k)
 
     def q_vector(self) -> np.ndarray:
@@ -244,8 +248,14 @@ class DiffusionEngine:
       participation: a :class:`~repro_torch.core.schedules.
         ParticipationProcess`; defaults to i.i.d. Bernoulli with the
         config's q vector.
-      compressor, privacy: not ported (ROADMAP.md items 20 and 22); only
-        ``None`` is taken.
+      compressor: the compression stage, a
+        :class:`~repro_torch.core.compression.Compressor`; defaults to the
+        config's ``compress`` / ``compress_ratio`` / ``compress_sigma`` /
+        ``error_feedback``.  The pipeline takes ``comm_mode`` and
+        ``comm_gamma`` and the base matrix; stateful pipelines (error
+        feedback, diff mode) carry their memory in
+        ``EngineState.comm_state``.
+      privacy: not ported (ROADMAP.md item 22); only ``None`` is taken.
       graph: a :class:`~repro_torch.core.graphs.GraphProcess` or a kind
         name; defaults to ``config.graph``.
       device: where the engine's matrices, masks and step sizes live
@@ -260,10 +270,6 @@ class DiffusionEngine:
         if privacy is not None:
             raise NotImplementedError("the privacy tier is not ported yet: "
                                       "see ROADMAP.md queue 1 item 22")
-        if compressor is None and (config.compress != "none"
-                                   or config.error_feedback):
-            raise NotImplementedError("compression is not ported yet: see "
-                                      "ROADMAP.md queue 1 item 20")
         self.config = config
         self.loss_fn = loss_fn
         self.grad_transform = grad_transform
@@ -282,8 +288,15 @@ class DiffusionEngine:
             self.topology, num_agents=config.num_agents, trim=trim,
             scope=scope, gather=gather, device=self.device)
         graph_lib.check_mixer_support(self.mixer, self.graph)
-        self.pipeline = mixing.CommPipeline(self.mixer, compressor,
-                                            mode=config.comm_mode)
+        if compressor is None:
+            compressor = compression.make_compressor(
+                config.compress, ratio=config.compress_ratio,
+                error_feedback=config.error_feedback,
+                sigma=config.compress_sigma)
+        self.pipeline = mixing.CommPipeline(
+            self.mixer, compressor, mode=config.comm_mode,
+            gamma=config.comm_gamma, base_A=self.topology.A)
+        self.compressor = self.pipeline.compressor
         self.step_mask = resolve_step_mask(config, self.topology,
                                            self.device)
         self._grad_fn = stacked_grad(loss_fn)
@@ -295,7 +308,7 @@ class DiffusionEngine:
                                  opt_state, key=key, graph=self.graph)
 
     def step(self, state: EngineState, block_batch: PyTree,
-             key: torch.Generator, *, active=None):
+             key: torch.Generator, *, active=None, comm_key=None):
         """One block iteration of Algorithm 1.
 
         Args:
@@ -305,6 +318,11 @@ class DiffusionEngine:
           key: generator of the activation draw (any device; the mask is
             moved to the engine's).
           active: a realized (K,) mask to use instead of drawing one.
+          comm_key: the compression stage's draws: a generator or injected
+            :class:`~repro_torch.core.compression.Draws` (replay).  Without
+            it, a pipeline that draws takes a generator on the engine's
+            device seeded by one draw from ``key``, after the activation
+            and graph draws.
         Returns:
           ``(new_state, metrics)``: ``metrics["active"]`` is the realized
           (K,) mask, ``metrics["local_s"]`` and ``metrics["combine_s"]`` the
@@ -319,6 +337,8 @@ class DiffusionEngine:
             active, part_state = self.process.sample(part_state, key)
         active = torch.as_tensor(active, dtype=torch.float32).to(self.device)
         A_t, graph_state = self.graph.sample(state.graph_state, key)
+        if comm_key is None and self.pipeline.needs_key:
+            comm_key = compression.device_stream(key, self.device)
         mus = part.step_size_matrix(cfg.step_size, active, self._q,
                                     cfg.drift_correction)
         t0 = time.perf_counter()
@@ -329,7 +349,7 @@ class DiffusionEngine:
         _sync(self.device)
         t1 = time.perf_counter()
         params, comm_state = self.pipeline(params, active, A_t,
-                                           state.comm_state)
+                                           state.comm_state, comm_key)
         _sync(self.device)
         metrics = {"active": active, "local_s": t1 - t0,
                    "combine_s": time.perf_counter() - t1}

@@ -40,8 +40,15 @@ column only, so the result is bit-identical to one whole-stack buffer,
 while the combination holds two stacks and two tiles instead of two
 (K, M) float32 buffers besides.
 
-:class:`CommPipeline` stages the combination step of the engines; the port
-runs its identity mode (no compression), where the pipeline is the mixer.
+:class:`CommPipeline` stages the combination step of the engines,
+
+    encode (Compressor) --> exchange/combine (Mixer) --> correct
+
+with the compressors of :mod:`repro_torch.core.compression`.  Without
+compression the pipeline IS the mixer; with int8 and the fused mixer the
+encode and combine stages fuse into the dequantize+mix kernel
+(:meth:`PallasFusedMixer.mix_int8`), whose column tiles are cut at
+multiples of the int8 tile over the zero-padded width.
 
 ``make_mixer("auto")`` resolves to the fused kernel on CUDA, as the
 reference's TPU branch does, and follows the reference's non-TPU policy
@@ -57,6 +64,8 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import compression as comp_lib
+from repro_torch.core.compression import _weak
 from repro_torch.core import participation as part
 from repro_torch.core import topology as topo_lib
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -66,9 +75,10 @@ PyTree = Any
 __all__ = ["Mixer", "NullMixer", "DenseMixer", "SparseCirculantMixer",
            "PallasFusedMixer", "NeighborGatherMixer", "FusedNeighborhoodMixer",
            "TrimmedMeanMixer", "CoordinateMedianMixer", "AdaptiveTrimMixer",
-           "CommPipeline", "TILE_ELEMS", "count_live_offsets", "make_mixer",
-           "mix_dense", "mix_gather", "mix_sparse", "num_tiles",
-           "tiled_apply"]
+           "CommPipeline", "INT8_TILE", "TILE_ELEMS", "choco_gamma",
+           "count_live_offsets", "int8_layout", "make_mixer",
+           "make_pipeline", "mix_dense", "mix_gather", "mix_sparse",
+           "num_tiles", "tiled_apply"]
 
 # the reference's "auto" thresholds (repro.core.mixing)
 _AUTO_SPARSE_MAX_OFFSETS = 8
@@ -81,6 +91,10 @@ _NEIGHBORHOOD_WARN_K = 512
 #: float32 elements of one tile buffer of the column-tiled flatten (1 GiB);
 #: the plain robust paths bound their per-leaf temporaries by it too
 TILE_ELEMS = 1 << 28
+
+#: columns to one int8 scale of the fused int8 path (the reference's
+#: default ``tile_m``; a stack narrower than it takes M rounded up to 128)
+INT8_TILE = 512
 
 _ROBUST = ("trimmed_mean", "median", "adaptive_trim")
 
@@ -192,10 +206,26 @@ def tile_columns(K: int) -> int:
     return max(1, TILE_ELEMS // max(int(K), 1))
 
 
-def num_tiles(K: int, M: int) -> int:
+def num_tiles(K: int, M: int, int8: bool = False) -> int:
     """Tiles (kernel launches) of one tiled combination of a (K, M)
-    stack."""
-    return -(-int(M) // tile_columns(K))
+    stack; with ``int8``, of the fused int8 path, whose column tiles are
+    cut at multiples of the int8 tile over the padded width
+    (:func:`int8_layout`)."""
+    if not int8:
+        return -(-int(M) // tile_columns(K))
+    _, width, cols = int8_layout(K, int(M))
+    return -(-width // cols)
+
+
+def int8_layout(K: int, M: int) -> tuple[int, int, int]:
+    """(effective tile, padded width, column-tile width) of the fused int8
+    layout of a (K, M) stack.  As the reference's ``_layout``: the tile is
+    :data:`INT8_TILE`, or M rounded up to 128 if smaller, and the width M
+    rounded up to the tile; the column tiles hold as many whole int8 tiles
+    as :data:`TILE_ELEMS` allows (at least one)."""
+    tile = min(INT8_TILE, _round_up(max(M, 1), 128))
+    width = _round_up(max(M, 1), tile)
+    return tile, width, min(max(tile, tile_columns(K) // tile * tile), width)
 
 
 def tiled_apply(leaves: list,
@@ -213,20 +243,33 @@ def tiled_apply(leaves: list,
     on the tile size.
     """
     K = leaves[0].shape[0]
+    M = sum(int(np.prod(leaf.shape[1:], dtype=np.int64)) for leaf in leaves)
+    return _tiled(leaves, lambda tile, start: (fn(tile),),
+                  cols=min(tile_columns(K), max(M, 1)), width=M,
+                  outputs=1)[0]
+
+
+def _tiled(leaves: list, fn, *, cols: int, width: int,
+           outputs: int) -> list:
+    """The column-tiled flatten under :func:`tiled_apply` and the fused
+    int8 path: the flattened stack, padded with zero columns up to
+    ``width``, in tiles of ``cols`` columns (the last may be narrower);
+    ``fn(tile, start)`` returns ``outputs`` (K, m) results, each written
+    into its own new leaves (padding columns dropped).  Returns one list
+    of leaves per output."""
+    K = leaves[0].shape[0]
     sizes = [int(np.prod(leaf.shape[1:], dtype=np.int64)) for leaf in leaves]
     flats = [leaf.reshape(K, n) for leaf, n in zip(leaves, sizes)]
-    outs = [torch.empty((K, n), dtype=leaf.dtype, device=leaf.device)
-            for leaf, n in zip(leaves, sizes)]
-    M = sum(sizes)
-    cols = min(tile_columns(K), max(M, 1))
+    outs = [[torch.empty((K, n), dtype=leaf.dtype, device=leaf.device)
+             for leaf, n in zip(leaves, sizes)] for _ in range(outputs)]
     buf = torch.empty(K * cols, dtype=torch.float32,
                       device=leaves[0].device)
     i = off = 0                          # the next input column: leaf, offset
-    for a in range(0, M, cols):
-        w = min(cols, M - a)
+    for a in range(0, width, cols):
+        w = min(cols, width - a)
         tile = buf[:K * w].view(K, w)
         segs, t = [], 0
-        while t < w:
+        while t < w and i < len(sizes):
             n = min(sizes[i] - off, w - t)
             if n:
                 tile[:, t:t + n].copy_(flats[i][:, off:off + n])
@@ -234,11 +277,15 @@ def tiled_apply(leaves: list,
             t, off = t + n, off + n
             if off == sizes[i]:
                 i, off = i + 1, 0
-        res = fn(tile)
-        for j, o, t, n in segs:
-            outs[j][:, o:o + n].copy_(res[:, t:t + n])
+        if t < w:
+            tile[:, t:].zero_()          # the padding, in the last tile only
+        res = fn(tile, a)
+        for r, out in zip(res, outs):
+            for j, o, t0, n in segs:
+                out[j][:, o:o + n].copy_(r[:, t0:t0 + n])
         del res
-    return [o.reshape(leaf.shape) for o, leaf in zip(outs, leaves)]
+    return [[o.reshape(leaf.shape) for o, leaf in zip(out, leaves)]
+            for out in outs]
 
 
 # ---------------------------------------------------------------------------
@@ -320,15 +367,22 @@ class SparseCirculantMixer(Mixer):
                                   self.offsets)
 
 
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
 class PallasFusedMixer(Mixer):
     """The fused mask+mix kernel over the column-tiled flatten.
 
     Each tile of the flattened stack goes through
     :func:`repro_torch.kernels.diffusion_mix.diffusion_mix`, which rebuilds
     the eq.-20 masked matrix and streams the tile once: one launch per tile
-    (:func:`num_tiles`).  The CUDA kernel takes any M, so unlike the TPU
-    layout there is no padding, and eager PyTorch has no retrace for a
-    layout cache to spare.
+    (:func:`num_tiles`).  The CUDA kernel takes any M, so the float32 path
+    needs no padding.
+
+    :meth:`mix_int8` is the compressed combination: the reference's
+    per-tile int8 layout (:func:`int8_layout`, :data:`INT8_TILE` columns to
+    a scale), through the fused dequantize+mix kernel.
     """
 
     name = "pallas"
@@ -340,6 +394,67 @@ class PallasFusedMixer(Mixer):
         A = A_t.float()
         return tree_unflatten(params, tiled_apply(
             tree_leaves(params), lambda tile: diffusion_mix(A, active, tile)))
+
+    def mix_int8(self, params: PyTree, active: torch.Tensor,
+                 A_t: torch.Tensor, key=None, *, want_messages: bool = False,
+                 u: torch.Tensor | None = None):
+        """Compressed combination: per-tile int8 stochastic quantization of
+        the flattened stack (one scale per agent and tile of the padded
+        layout; a tile may span leaves), then the fused dequantize+mask+mix
+        kernel (:func:`repro_torch.kernels.diffusion_mix_int8.
+        diffusion_mix_int8`) with ``subtract_identity``.
+
+        Returns ``(delta, messages)``: ``delta`` the tree of combination
+        deltas ``[(A_eff - I)^T c]_k`` and ``messages`` the dequantized
+        transmitted tree c (what the kernel dequantizes; the error-feedback
+        residual needs it) or None unless ``want_messages``, both in the
+        leaves' dtypes.
+
+        The rounding uniforms are ``u``, (K, M_padded) over the padded
+        layout (the reference's (K, tiles, tile_m) draw reshaped), or are
+        drawn from the generator ``key`` column tile by column tile.  The
+        column tiles are cut at multiples of the int8 tile, so with ``u``
+        the result does not depend on the cut.
+        """
+        from repro_torch.kernels.diffusion_mix_int8 import diffusion_mix_int8
+
+        leaves = tree_leaves(params)
+        K = leaves[0].shape[0]
+        M = sum(leaf[0].numel() for leaf in leaves)
+        tile, width, cols = int8_layout(K, M)
+        if u is not None:
+            u = u.reshape(K, width)
+        elif key is None:
+            raise ValueError("mix_int8 draws its rounding uniforms: pass a "
+                             "generator or u=")
+        A = A_t.float()
+
+        def fn(x, start):
+            w = x.shape[1]
+            x3 = x.view(K, w // tile, tile)
+            if u is None:
+                uu = torch.rand(x3.shape, generator=key,
+                                device=key.device).to(x.device)
+            else:
+                uu = u[:, start:start + w].to(
+                    device=x.device, dtype=torch.float32).reshape(x3.shape)
+            q, scale = comp_lib.quantize_int8(x3, axis=2, u=uu)
+            del uu
+            delta = diffusion_mix_int8(
+                A, active, q.to(torch.int8).view(K, w),
+                scale[:, :, 0].contiguous(), tile_m=tile,
+                subtract_identity=True)
+            if not want_messages:
+                return (delta,)
+            # the integer-valued float32 q times its scale: exactly the
+            # values the kernel dequantizes
+            return delta, q.mul_(scale).view(K, w)
+
+        outs = _tiled(leaves, fn, cols=cols, width=width,
+                      outputs=2 if want_messages else 1)
+        delta = tree_unflatten(params, outs[0])
+        return delta, (tree_unflatten(params, outs[1]) if want_messages
+                       else None)
 
 
 class _NeighborTable:
@@ -852,8 +967,7 @@ def _resolve_auto(topology: topo_lib.Topology | None,
 
 def make_mixer(name: str | Mixer, topology: topo_lib.Topology | None = None,
                *, A=None, offsets: Sequence[int] | None = None,
-               num_agents: int | None = None, trim: int = 1,
-               scope: str = "global", gather: str = "auto",
+               num_agents: int | None = None, trim: int = 1, scope: str = "global", gather: str = "auto",
                device: str | torch.device | None = None) -> Mixer:
     """Build a mixing backend.
 
@@ -952,51 +1066,296 @@ def make_mixer(name: str | Mixer, topology: topo_lib.Topology | None = None,
                      "adaptive_trim)")
 
 
-_COMPRESSION_ITEM = "ROADMAP.md queue 1 item 20 (compression)"
+def _tree_sq_norm(tree: PyTree) -> torch.Tensor:
+    """Sum of squares over every leaf (float32 scalar)."""
+    return sum(torch.sum(torch.square(leaf.float()))
+               for leaf in tree_leaves(tree))
+
+
+def choco_gamma(spectral_gap: float, delta: float, beta: float) -> float:
+    """The CHOCO-Gossip consensus step size (Koloskova et al. 2019, Thm. 2):
+
+        gamma* = rho^2 delta / (16 rho + rho^2 + 4 beta^2
+                                + 2 rho beta^2 - 8 rho delta)
+
+    with ``rho`` the spectral gap 1 - |lambda_2(A)|, ``delta`` the
+    compressor contraction and ``beta = ||I - A||_2``, clipped to
+    [1e-4, 1].  The adaptive pipeline uses it as the floor.
+    """
+    rho = float(spectral_gap)
+    delta = float(delta)
+    beta = float(beta)
+    denom = (16.0 * rho + rho ** 2 + 4.0 * beta ** 2
+             + 2.0 * rho * beta ** 2 - 8.0 * rho * delta)
+    return float(np.clip(rho ** 2 * delta / max(denom, 1e-12), 1e-4, 1.0))
 
 
 class CommPipeline:
-    """The staged combination step of the engines, in identity mode.
+    """Staged combination step with pluggable compression.
 
-    Counterpart of ``repro.core.mixing.CommPipeline``.  Without compression
-    the pipeline IS the mixer (the reference's identity mode, bit-identical
-    to the plain mixer): ``pipeline(params, active, A_t, comm_state)``
-    returns ``(mixer(params, active, A_t), comm_state)``.  The combination
-    runs under ``torch.no_grad()``.
+    Counterpart of ``repro.core.mixing.CommPipeline``, with its three
+    exchange modes (``mode="auto"`` picks per compressor: identity for
+    none, diff for the sparsifiers, direct otherwise):
 
-    A compressor, error feedback and the ``direct``/``diff`` exchange modes
-    are not ported yet and raise ``NotImplementedError`` naming ROADMAP.md
-    item 20; secure-aggregation masks name item 22.  The reference's
-    ``gamma`` and ``base_A`` belong to the compressed modes and come with
-    them.
+    * ``"identity"`` — no compression: the pipeline IS the mixer.
+    * ``"direct"`` — transmit the compressed iterate and correct locally:
+      ``c = C(psi [+ e])``, ``w_k = psi_k + gamma ([A_eff^T c]_k - c_k)``.
+      With int8 and the fused mixer, quantization and combination go
+      through :meth:`PallasFusedMixer.mix_int8` (the fused dequantize+mix
+      kernel); every other mixer or compressor takes the generic branch
+      (``comp.encode``: int8 with per-leaf scales, then the mixer).  Error
+      feedback threads the residual e through ``comm_state``.
+    * ``"diff"`` — CHOCO's reference difference: ``c =
+      C_contractive(psi - ref)``, ``ref' = ref + c``, ``w_k = psi_k +
+      gamma ([A_eff^T ref']_k - ref'_k)``; an error-feedback wrapper is
+      dropped (the reference copy is the feedback).
+
+    ``gamma``: a float, ``None`` (1.0 for direct mode and lossless ratios,
+    0.5 for top-k, ``ratio`` for rand-k and the Gaussian mask) or
+    ``"auto"`` (diff mode only; elsewhere it warns and takes the default):
+    the CHOCO floor (:func:`choco_gamma` from ``base_A``'s spectral gap
+    and ``||I - A||_2``) annealed toward 1 by an EMA of the observed
+    contraction over active agents, kept in ``comm_state["delta"]``.
+
+    Inactive agents transmit nothing: their EF residual and reference copy
+    are kept exactly (the ``masked`` select).  ``key`` is a
+    ``torch.Generator`` or :class:`~repro_torch.core.compression.Draws`
+    (for the fused int8 branch, ``Draws(u=...)`` with one (K, M_padded)
+    tensor).  The combination runs under ``torch.no_grad()``.  Robust
+    mixers take the identity mode only; secure-aggregation masks name
+    ROADMAP.md item 22, and the reference's ``mesh`` (sharded int8 wire)
+    comes with item 25.
     """
 
     def __init__(self, mixer: Mixer, compressor=None, *, mode: str = "auto",
-                 secure_agg=None):
-        if compressor not in (None, "none"):
-            raise NotImplementedError(f"compressor {compressor!r} is not "
-                                      f"ported yet: see {_COMPRESSION_ITEM}")
-        if mode in ("direct", "diff"):
-            raise NotImplementedError(f"the {mode!r} exchange mode is not "
-                                      f"ported yet: see {_COMPRESSION_ITEM}")
-        if mode not in ("auto", "identity"):
-            raise ValueError(f"unknown pipeline mode {mode!r} "
-                             "(expected identity|direct|diff|auto)")
+                 gamma=None, base_A=None, secure_agg=None):
         if secure_agg is not None:
             raise NotImplementedError("secure-aggregation wire masks are not "
                                       "ported yet: see ROADMAP.md queue 1 "
                                       "item 22 (privacy)")
         self.mixer = mixer
-        self.mode = "identity"
+        self.compressor = (compressor if compressor is not None
+                           else comp_lib.Identity())
+        base = self._base()
+        if mode == "auto":
+            if isinstance(base, comp_lib.Identity) and not self._ef():
+                mode = "identity"
+            elif isinstance(base, (comp_lib.TopK, comp_lib.RandK,
+                                   comp_lib.GaussianMask)):
+                mode = "diff"
+            else:
+                mode = "direct"
+        if mode not in ("identity", "direct", "diff"):
+            raise ValueError(f"unknown pipeline mode {mode!r} "
+                             "(expected identity|direct|diff|auto)")
+        if mode != "identity" and not mixer.linear:
+            raise ValueError(
+                f"{type(mixer).__name__} is a robust (non-linear) backend; "
+                "the compressed exchange modes correct through mix(c) - c, "
+                "which presumes linear mixing: use compress='none'")
+        if mode == "identity" and (self._ef() or not isinstance(
+                base, comp_lib.Identity)):
+            raise ValueError("identity mode requires the Identity "
+                             "compressor without error feedback")
+        if mode == "diff" and self._ef():
+            # the reference copy is the feedback in diff mode
+            self.compressor = base
+        self.mode = mode
+        self.adaptive = (gamma == "auto" and mode == "diff"
+                         and not isinstance(mixer, NullMixer))
+        if gamma == "auto" and not self.adaptive:
+            warnings.warn(
+                f'comm_gamma="auto" anneals the diff-mode consensus step; '
+                f"this pipeline runs {mode!r} mode, so the fixed default "
+                "gamma is used instead", stacklevel=2)
+            gamma = None
+        if self.adaptive:
+            if base_A is None:
+                raise ValueError(
+                    'comm_gamma="auto" derives its floor from the base '
+                    "topology's spectral gap: pass base_A (or build the "
+                    "pipeline through an engine / make_pipeline with a "
+                    "topology)")
+            A0 = np.asarray(base_A, np.float64)
+            rho = topo_lib.spectral_gap(A0)
+            beta = float(1.0 - np.linalg.eigvalsh(A0).min())  # ||I - A||_2
+            self._delta0 = float(min(max(getattr(base, "ratio", 1.0),
+                                         1e-3), 1.0))
+            self.gamma_floor = choco_gamma(rho, self._delta0, beta)
+            self.spectral_gap = float(rho)
+            self.gamma = "auto"
+        elif gamma is None:
+            ratio = getattr(base, "ratio", 1.0)
+            if mode != "diff" or ratio >= 1.0:
+                gamma = 1.0
+            elif isinstance(base, comp_lib.TopK):
+                gamma = 0.5
+            else:
+                gamma = float(ratio)
+            self.gamma = float(gamma)
+        else:
+            self.gamma = float(gamma)
 
-    #: the identity pipeline carries no memory between blocks
-    stateful = False
+    def _ef(self) -> bool:
+        return isinstance(self.compressor, comp_lib.ErrorFeedback)
+
+    def _base(self) -> comp_lib.Compressor:
+        c = self.compressor
+        return c.inner if isinstance(c, comp_lib.ErrorFeedback) else c
+
+    @property
+    def stateful(self) -> bool:
+        if isinstance(self.mixer, NullMixer):
+            return False
+        if self.mode == "diff":
+            return True
+        return self.mode == "direct" and self.compressor.stateful
+
+    @property
+    def needs_key(self) -> bool:
+        return self.compressor.needs_key
 
     def init_state(self, params: PyTree) -> PyTree:
-        return ()
+        if not self.stateful:
+            return ()
+        if self.mode == "diff":
+            state = {"ref": tree_map(torch.zeros_like, params)}
+            if self.adaptive:
+                device = tree_leaves(params)[0].device
+                state["delta"] = torch.tensor(self._delta0,
+                                              dtype=torch.float32,
+                                              device=device)
+            return state
+        return self.compressor.init_state(params)
+
+    def annealed_gamma(self, comm_state: PyTree) -> torch.Tensor:
+        """The adaptive pipeline's consensus step for ``comm_state``: the
+        CHOCO floor annealed toward 1 by sqrt of the contraction EMA."""
+        if not self.adaptive:
+            raise ValueError("annealed_gamma is defined for the adaptive "
+                             '(gamma="auto") diff-mode pipeline only')
+        d = torch.sqrt(torch.clamp(comm_state["delta"], 0.0, 1.0))
+        return self.gamma_floor + (1.0 - self.gamma_floor) * d
+
+    def wire_bytes(self, params: PyTree) -> int:
+        """Value-payload bytes per combination step."""
+        if isinstance(self.mixer, NullMixer) or self.mode == "identity":
+            return (0 if isinstance(self.mixer, NullMixer)
+                    else comp_lib.dense_wire_bytes(params))
+        return self.compressor.wire_bytes(params)
 
     def __call__(self, params: PyTree, active: torch.Tensor,
                  A_t: torch.Tensor, comm_state: PyTree = (), key=None):
-        """Apply the combination step; returns ``(params, comm_state)``."""
+        """Apply the pipeline; returns ``(params, comm_state)``."""
         with torch.no_grad():
+            return self._apply(params, active, A_t, comm_state, key)
+
+    def _apply(self, params, active, A_t, comm_state, key):
+        if self.mode == "identity":
             return self.mixer(params, active, A_t), comm_state
+        if isinstance(self.mixer, NullMixer):
+            return params, comm_state
+        comp = self.compressor
+        base = self._base()
+        if comp.needs_key and key is None:
+            raise ValueError(f"{comp!r} needs a generator or Draws; pass "
+                             "key=")
+        keep = active > 0
+
+        def masked(new, old):
+            """Active agents take ``new``; inactive ones keep ``old``
+            exactly (they transmit nothing)."""
+            return tree_map(
+                lambda n, o: torch.where(
+                    keep.reshape((n.shape[0],) + (1,) * (n.ndim - 1)), n, o),
+                new, old)
+
+        if self.mode == "diff":
+            ref_prev = comm_state["ref"]
+            diff = tree_map(lambda p, r: p - r.to(p.dtype), params, ref_prev)
+            c = base.encode_contractive(diff, key)
+            ref = masked(tree_map(lambda r, ci: r + ci.to(r.dtype),
+                                  ref_prev, c), ref_prev)
+            del c
+            mixed = self.mixer(ref, active, A_t)
+            if self.adaptive:
+                def act(tree):
+                    return tree_map(lambda l: l * _bcast(active, l), tree)
+                pre = _tree_sq_norm(act(diff))
+                post = _tree_sq_norm(act(tree_map(
+                    lambda p, r: p - r.to(p.dtype), params, ref)))
+                delta_obs = torch.clamp(
+                    1.0 - torch.sqrt(post / torch.clamp(pre, min=1e-30)),
+                    0.0, 1.0)
+                delta_obs = torch.where(pre > 1e-30, delta_obs,
+                                        comm_state["delta"])
+                delta = 0.9 * comm_state["delta"] + 0.1 * delta_obs
+                g = self.annealed_gamma({"delta": delta})
+                # g is a float32 tensor: the product is taken in float32
+                out = tree_map(
+                    lambda p, mx, r: p + (g * (mx - r).float()).to(p.dtype),
+                    params, mixed, ref)
+                return out, {"ref": ref, "delta": delta}
+            del diff
+            g = self.gamma
+            out = tree_map(
+                lambda p, mx, r: p + _weak(g, p) * (mx - r).to(p.dtype),
+                params, mixed, ref)
+            return out, {"ref": ref}
+        g = self.gamma
+        ef = self._ef()
+        if (isinstance(base, comp_lib.Int8Stochastic)
+                and isinstance(self.mixer, PallasFusedMixer)):
+            target = (tree_map(lambda p, e: p + e.to(p.dtype), params,
+                               comm_state) if ef else params)
+            u = key.u if isinstance(key, comp_lib.Draws) else None
+            delta, msgs = self.mixer.mix_int8(
+                target, active, A_t, None if u is not None else key,
+                want_messages=ef, u=u)
+            # the results are fresh stacks in the leaves' dtypes: the new
+            # residual and iterate overwrite them, so the combination holds
+            # no stack beyond target, delta and messages
+            if ef:
+                dead = ~keep
+                for t, m, e in zip(tree_leaves(target), tree_leaves(msgs),
+                                   tree_leaves(comm_state)):
+                    m.sub_(t).neg_()            # t - m: negation is exact
+                    m[dead] = e[dead]           # inactive agents keep theirs
+                comm_state = msgs
+            del target, msgs
+            for p, d in zip(tree_leaves(params), tree_leaves(delta)):
+                d.mul_(_weak(g, d)).add_(p)     # p + g d, rounded as p's dtype
+            return delta, comm_state
+        msgs, new_state = comp.encode(params, comm_state, key)
+        if ef:
+            new_state = masked(new_state, comm_state)
+        mixed = self.mixer(msgs, active, A_t)
+        out = tree_map(lambda p, mx, m: p + _weak(g, p) * (mx - m),
+                       params, mixed, msgs)
+        return out, new_state
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"CommPipeline({self.mixer!r}, {self.compressor!r}, "
+                f"mode={self.mode!r}, gamma={self.gamma})")
+
+
+def make_pipeline(mix: str | Mixer, topology: topo_lib.Topology | None = None,
+                  *, compress=None, compress_ratio: float = 1.0,
+                  error_feedback: bool = False, sigma: float = 0.0,
+                  mode: str = "auto", gamma=None, A=None,
+                  offsets: Sequence[int] | None = None,
+                  num_agents: int | None = None, trim: int = 1, scope: str = "global", gather: str = "auto",
+                  device: str | torch.device | None = None) -> CommPipeline:
+    """The full combination pipeline: ``make_mixer`` with the mixer
+    arguments, ``make_compressor`` with the compression ones, and
+    :class:`CommPipeline` with ``mode``/``gamma`` and the base matrix
+    (``A``, else the topology's)."""
+    mixer = make_mixer(mix, topology, A=A, offsets=offsets,
+                       num_agents=num_agents, trim=trim,
+                       scope=scope, gather=gather, device=device)
+    compressor = comp_lib.make_compressor(compress, ratio=compress_ratio,
+                                          error_feedback=error_feedback,
+                                          sigma=sigma)
+    if A is None and topology is not None:
+        A = topology.A
+    return CommPipeline(mixer, compressor, mode=mode, gamma=gamma, base_A=A)

@@ -5,7 +5,8 @@ Counterpart of ``repro.core.serving``.  :func:`consensus_from_stacked`
 collapses a ``(K, ...)``-stacked agent checkpoint to the consensus model
 through the mixing layer; with ``mix="pallas"`` (or ``"auto"`` on CUDA)
 that runs the fused eq.-20 kernel, with ``mix="gather"`` the gather kernel
-and with a neighborhood-robust mixer the fused gather-sort kernel on CUDA.
+and with a neighborhood-robust mixer the fused gather-sort kernel on CUDA;
+``quantize="int8"`` collapses from int8-quantized leaves.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.core.compression import Int8Stochastic
 from repro_torch.core.mixing import NullMixer, make_mixer
 from repro_torch.core.topology import averaging_matrix, make_topology, spectral_gap
 from repro_torch.tree import tree_leaves, tree_map
@@ -81,7 +83,7 @@ def consensus_rounds(mixer, gap: float) -> int:
 def consensus_from_stacked(stacked, K: int, mix="dense", *,
                            trim: int = 1, scope: str = "global",
                            topology=None, quantize: str | None = None,
-                           weights=None):
+                           quantize_seed: int = 0, weights=None):
     """Collapse (K, ...)-stacked agent params to the consensus model via
     the mixing layer, over the topology the checkpoint was trained on.
 
@@ -100,10 +102,15 @@ def consensus_from_stacked(stacked, K: int, mix="dense", *,
     back to the uniform mean.  A robust backend refuses it: a weighted
     mean of its inputs is not its robust aggregate.
 
-    Takes agent 0 at the end, as a copy, so the mixed stack is freed.
+    ``quantize="int8"`` first re-encodes every stacked leaf with the
+    training-side int8 stochastic quantizer
+    (:class:`~repro_torch.core.compression.Int8Stochastic`: per-agent
+    scales, unbiased; the uniforms drawn leaf after leaf from a generator
+    on the stack's device seeded with ``quantize_seed``) and collapses from
+    the dequantized leaves, as the reference does; the fused int8 kernel is
+    not on this path.  Deterministic given ``quantize_seed`` on one device.
 
-    Not ported yet: ``quantize="int8"`` (ROADMAP.md queue 1 item 20)
-    raises ``NotImplementedError``.
+    Takes agent 0 at the end, as a copy, so the mixed stack is freed.
     """
     if (isinstance(stacked, dict) and "params" in stacked
             and ("async_state" in stacked or "opt_state" in stacked)):
@@ -111,11 +118,14 @@ def consensus_from_stacked(stacked, K: int, mix="dense", *,
         stacked = stacked["params"]
     if quantize not in (None,) + CONSENSUS_QUANTIZE:
         raise ValueError(f"quantize={quantize!r} not in {CONSENSUS_QUANTIZE}")
-    if quantize == "int8":
-        raise NotImplementedError(
-            "int8 consensus extraction is not ported yet: see ROADMAP.md "
-            "queue 1 item 20 (compression)")
     device = tree_leaves(stacked)[0].device
+    if quantize == "int8":
+        comp = Int8Stochastic()
+        q, scales = comp.encode_quantized(
+            stacked, torch.Generator(device=device).manual_seed(
+                int(quantize_seed)))
+        stacked = comp.dequantize(q, scales, stacked)
+        del q, scales
     if weights is not None:
         if mix in _ROBUST or getattr(mix, "linear", True) is False:
             raise ValueError(

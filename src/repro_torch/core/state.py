@@ -12,7 +12,8 @@ with the reference's seven fields in the reference's order:
 * ``opt_state``     — per-agent gradient-transform state (``None`` for SGD);
 * ``part_state``    — participation-process state (``None`` for i.i.d.);
 * ``comm_state``    — communication-pipeline memory (``None`` for the
-  identity pipeline);
+  stateless pipelines; the error-feedback residual shaped like
+  ``params``, or ``{"ref"[, "delta"]}`` in diff mode);
 * ``graph_state``   — combination-graph state (``None`` for static graphs);
 * ``async_state``   — event-driven engine state (``None`` for the
   bulk-synchronous engines);

@@ -11,7 +11,8 @@ import torch
 from repro_torch.core.participation import masked_combination
 
 __all__ = ["attention_ref", "gather_mix_ref", "gather_robust_mix_ref",
-           "mix_ref", "ssd_ref", "ssd_intra_chunk_ref"]
+           "mix_int8_exact", "mix_int8_ref", "mix_ref", "ssd_ref",
+           "ssd_intra_chunk_ref"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -51,6 +52,56 @@ def mix_ref(A: torch.Tensor, active: torch.Tensor,
     A_eff = masked_combination(A.to(device=W.device, dtype=torch.float32),
                                active)
     return torch.einsum("lk,lm->km", A_eff, W.float()).to(W.dtype)
+
+
+def mix_int8_ref(A: torch.Tensor, active: torch.Tensor, Wq: torch.Tensor,
+                 scales: torch.Tensor, *, tile_m: int,
+                 subtract_identity: bool = False) -> torch.Tensor:
+    """Dequantize, then the masked combination, in float32.
+
+    Wq: (K, M) int8; scales: (K, M // tile_m), one per (agent, tile of
+    tile_m columns).  C = Wq * scale of each column's tile; returns
+    ``masked_combination(A, active).T @ C``, or ``(A_eff - I).T @ C`` with
+    ``subtract_identity``.
+    """
+    K, M = Wq.shape
+    C = (Wq.float().reshape(K, M // tile_m, tile_m)
+         * scales.to(device=Wq.device, dtype=torch.float32)[:, :, None]
+         ).reshape(K, M)
+    A_eff = masked_combination(A.to(device=Wq.device, dtype=torch.float32),
+                               active)
+    if subtract_identity:
+        A_eff = A_eff - torch.eye(K, device=Wq.device)
+    return A_eff.T @ C
+
+
+def mix_int8_exact(A: torch.Tensor, active: torch.Tensor, Wq: torch.Tensor,
+                   scales: torch.Tensor, *, tile_m: int,
+                   subtract_identity: bool = False):
+    """:func:`mix_int8_ref`'s function in float64, and the error bound of
+    any float32 evaluation of it.
+
+    Returns ``(exact, bound)``, both (K, M) float64: ``exact`` is the
+    float32 ``A_eff`` (as :func:`mix_int8_ref` builds it) times the
+    exactly dequantized C; ``bound`` is ``(K + 2) u (|A_eff|^T |C| + 2
+    |C|)`` with u = 2^-24.  Its first term covers K float32 products summed
+    in any order and the float32 rounding of each dequantized value; its
+    second, the self weight, which an evaluation may rebuild from its
+    column's off-diagonal sum in another order than ``masked_combination``
+    (each within (K + 2) u of the true weight).
+    """
+    K, M = Wq.shape
+    C = (Wq.double().reshape(K, M // tile_m, tile_m)
+         * scales.to(device=Wq.device, dtype=torch.float64)[:, :, None]
+         ).reshape(K, M)
+    A_eff = masked_combination(A.to(device=Wq.device, dtype=torch.float32),
+                               active)
+    if subtract_identity:
+        A_eff = A_eff - torch.eye(K, device=Wq.device)
+    A64 = A_eff.double()
+    absC = C.abs()
+    bound = (K + 2) * 2.0 ** -24 * (A64.abs().T @ absC + 2 * absC)
+    return A64.T @ C, bound
 
 
 def gather_mix_ref(idx: torch.Tensor, gw: torch.Tensor,

@@ -6,6 +6,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --agents 4 --checkpoint stack.npz --mix trimmed_mean --trim 1 \
       --robust-scope neighborhood
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+      --full --agents 8 --checkpoint stack.npz --mix pallas \
+      --consensus-quantize int8 --temperature 0
 
 Counterpart of ``repro.launch.serve`` on its spec-less flag path.  Serving
 a diffusion-trained model: ``--agents K`` marks an agent-stacked checkpoint
@@ -13,7 +16,9 @@ whose consensus (over the FedAvg base graph) is extracted through
 ``--mix``; ``pallas`` (and ``auto`` on CUDA) runs the fused eq.-20 kernel,
 ``gather`` the gather kernel, and ``trimmed_mean``/``median`` with
 ``--robust-scope neighborhood`` the fused gather-sort kernel on CUDA
-(``--trim`` sets the trimmed mean's per-side trim).  ``--device`` defaults
+(``--trim`` sets the trimmed mean's per-side trim).
+``--consensus-quantize int8`` collapses from the int8-quantized stack
+(the training-side wire quantizer).  ``--device`` defaults
 to CUDA and never falls back to the CPU by itself; ``--device cpu`` runs
 the plain versions.
 
@@ -30,7 +35,7 @@ import torch
 
 from repro_torch.checkpoint.store import load_checkpoint, load_meta
 from repro_torch.configs import get_config
-from repro_torch.core.serving import consensus_from_stacked
+from repro_torch.core.serving import CONSENSUS_QUANTIZE, consensus_from_stacked
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 
@@ -105,7 +110,8 @@ def load_params(args, key: torch.Generator, device: torch.device):
           f"extracting consensus via --mix {args.mix}")
     t0 = time.perf_counter()
     params = consensus_from_stacked(tree, K, args.mix, trim=args.trim,
-                                    scope=args.robust_scope)
+                                    scope=args.robust_scope,
+                                    quantize=args.consensus_quantize)
     _sync(device)
     timings["consensus_s"] = time.perf_counter() - t0
     return params, cfg, timings
@@ -132,6 +138,11 @@ def main(argv=None) -> dict:
                     help="robust-aggregation scope: global (one aggregate "
                          "over the active set; the default) or neighborhood "
                          "(per agent over its realized neighborhood)")
+    ap.add_argument("--consensus-quantize", choices=list(CONSENSUS_QUANTIZE),
+                    default="none",
+                    help="collapse the agent stack from int8-quantized "
+                         "leaves (Int8Stochastic, the training-side wire "
+                         "quantizer) instead of the stored ones")
     ap.add_argument("--checkpoint", default=None,
                     help="npz checkpoint (agent-stacked or plain)")
     ap.add_argument("--batch", type=int, default=2)

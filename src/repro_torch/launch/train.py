@@ -14,10 +14,18 @@ on one device.
       --robust-scope neighborhood --robust-gather fused \
       --attack sign_flip --attack-num 3 --attack-scale 3.0
 
-The last is the reference's ``byzantine_robust_diffusion`` preset (K = 12
+  PYTHONPATH=src python -m repro_torch.launch.train --full --agents 8 \
+      --local-steps 2 --batch 1 --seq 1024 --blocks 3 --optimizer sgd \
+      --step-size 0.05 --topology fedavg --mix pallas --compress int8 \
+      --error-feedback
+
+The third is the reference's ``byzantine_robust_diffusion`` preset (K = 12
 ring, 3 evenly spaced sign-flip adversaries, per-neighborhood trimmed
 mean): ``--attack`` corrupts the Byzantine agents' raw gradients before
 the optimizer sees them (:func:`repro_torch.core.attacks.make_attack`).
+The last is its ``compressed_fedavg`` preset: FedAvg, int8 with error
+feedback, every combination through the fused dequantize+mix kernel;
+``--compress topk|randk|gauss`` runs CHOCO's reference-difference mode.
 
 Counterpart of ``repro.launch.train`` on the stacked engine (on one device
 the reference's ``engine="auto"`` sharded engine equals it).  The flags are
@@ -44,6 +52,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.attacks import ATTACK_KINDS, make_attack
+from repro_torch.core.compression import dense_wire_bytes
 from repro_torch.core.diffusion import DiffusionConfig, DiffusionEngine
 from repro_torch.data.synthetic import lm_token_batch
 from repro_torch.device import resolve_device
@@ -63,9 +72,17 @@ _PENDING_FLAGS = {
     "--topology-": 16,
     "--graph": 18, "--link-drop": 18, "--participation-process": 18,
     "--markov-corr": 18, "--num-groups": 18,
-    "--compress": 20, "--error-feedback": 20, "--comm-gamma": 20,
     "--privacy": 22, "--data": 23, "--async-": 24, "--ef-host-offload": 25,
 }
+
+
+#: the reference's --compress choices
+COMPRESS_CHOICES = ["none", "topk", "randk", "int8", "gauss"]
+
+
+def _gamma_arg(s: str):
+    """--comm-gamma takes a float or the literal "auto"."""
+    return s if s == "auto" else float(s)
 
 
 def _reject_unported(ap: argparse.ArgumentParser, extra: list[str]) -> None:
@@ -117,6 +134,19 @@ def _parser() -> argparse.ArgumentParser:
                     help="Byzantine agent count, evenly spaced (default 1)")
     ap.add_argument("--attack-scale", type=float, default=None,
                     help="attack magnitude (default 1.0)")
+    ap.add_argument("--compress", default="none", choices=COMPRESS_CHOICES,
+                    help="communication compressor")
+    ap.add_argument("--compress-ratio", type=float, default=0.1,
+                    help="kept coordinate fraction (topk/randk/gauss)")
+    ap.add_argument("--compress-sigma", type=float, default=0.0,
+                    help="Gaussian-mask noise scale (gauss)")
+    ap.add_argument("--error-feedback", action="store_true", default=False,
+                    help="error-feedback residual memory")
+    ap.add_argument("--comm-gamma", type=_gamma_arg, default=None,
+                    help="consensus step of the compressed exchange: a "
+                         "float, or 'auto' (diff mode: the CHOCO floor from "
+                         "the topology's spectral gap, annealed from the "
+                         "observed contraction)")
     ap.add_argument("--blocks", type=int, default=20)
     ap.add_argument("--batch", type=int, default=2, help="per-agent batch")
     ap.add_argument("--seq", type=int, default=64)
@@ -136,13 +166,34 @@ def init_stacked(key: torch.Generator, cfg, num_agents: int,
     return tree_map(lambda *xs: torch.stack(xs), *agents)
 
 
+def _comm_banner(pipeline, params, args) -> dict | None:
+    """The reference's ``comm:`` line: the compressor that runs, its mode
+    and gamma, and the payload bytes per combination against dense
+    float32.  Returns them, or None without compression."""
+    if args.compress == "none":
+        return None
+    wire = pipeline.wire_bytes(params)
+    info = {"compressor": pipeline.compressor.name, "mode": pipeline.mode,
+            "gamma": pipeline.gamma, "wire_bytes": wire,
+            "dense_wire_bytes": dense_wire_bytes(params)}
+    if wire == 0:
+        print("comm: single agent: mixing disabled, compression inert")
+    else:
+        print(f"comm: {info['compressor']} ratio={args.compress_ratio} "
+              f"mode={pipeline.mode} gamma={pipeline.gamma}  "
+              f"{wire / 1e6:.2f} MB/combination on the wire "
+              f"({info['dense_wire_bytes'] / wire:.1f}x below dense f32)")
+    return info
+
+
 def main(argv=None, *, use_kernels: bool = False) -> dict:
     """Train.  Returns the final ``EngineState`` (``state``), the
     config (``cfg``), and per logged block the agents' losses on local step
-    0's batch (``losses``) and the realized masks (``active``), and per
+    0's batch (``losses``) and the realized masks (``active``), per
     block the seconds (``timings``: ``block_s``, ``local_s``,
     ``combine_s``) and ``tokens_per_s`` (K T B S over the block's
-    seconds)."""
+    seconds), and the ``comm:`` banner's numbers (``comm``, None without
+    compression)."""
     ap = _parser()
     args, extra = ap.parse_known_args(argv)
     _reject_unported(ap, extra)
@@ -157,6 +208,9 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
         num_agents=K, local_steps=T, step_size=args.step_size,
         topology=args.topology, participation=args.participation,
         drift_correction=args.drift_correction, mix=args.mix,
+        compress=args.compress, compress_ratio=args.compress_ratio,
+        compress_sigma=args.compress_sigma,
+        error_feedback=args.error_feedback, comm_gamma=args.comm_gamma,
         local_steps_mode=args.local_steps_mode)
     optimizer = _OPTIMIZERS[args.optimizer]()
     if args.attack != "none":
@@ -176,6 +230,7 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
     key = torch.Generator().manual_seed(args.seed)
     params = init_stacked(key, cfg, K, device)
     state = eng.init_state(params, optimizer.init(params), key=key)
+    comm = _comm_banner(eng.pipeline, params, args)
     del params
     if eng.step_mask is not None:
         t_k = eng.step_mask.sum(dim=0).long()
@@ -183,7 +238,7 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
               f"{int(t_k.max())}] (uniform T={T})")
 
     out = {"cfg": cfg, "losses": [], "active": [], "timings": [],
-           "tokens_per_s": []}
+           "tokens_per_s": [], "comm": comm}
     tokens = K * T * args.batch * args.seq
     t_start = time.perf_counter()
     for i in range(args.blocks):

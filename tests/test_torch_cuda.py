@@ -292,3 +292,135 @@ def test_cuda_tiled_mixers_match_their_plain_paths(monkeypatch, name):
         torch.testing.assert_close(got[k].float(), want[k].to(
             tree[k].dtype).float(), atol=1e-5, rtol=2 ** -7)
         assert torch.equal(got[k][m == 0], tree[k][m == 0])
+
+
+def _int8_operands(gen, K, M, tile_m):
+    """The operands the fused path hands the kernel: a (K, M) standard
+    normal stack quantized per (agent, tile) by the path's quantizer, with
+    agent 0's first tile all zero (scale 1.0) and the last 77 columns zero,
+    as padding leaves them; every other tile's largest value lands on
+    +-127.  Returns (int8 Wq, float32 scales (K, M / tile_m))."""
+    import torch
+
+    from repro_torch.core.compression import quantize_int8
+
+    x = torch.randn((K, M // tile_m, tile_m), generator=gen, device="cuda")
+    x[0, 0] = 0.0
+    x.view(K, M)[:, M - 77:] = 0.0
+    u = torch.rand(x.shape, generator=gen, device="cuda")
+    q, scale = quantize_int8(x, axis=2, u=u)
+    del x, u
+    return q.to(torch.int8).view(K, M), scale[:, :, 0].contiguous()
+
+
+def _uniform_int8_operands(gen, K, M, tile_m):
+    """Int8 values uniform in [-127, 127] times scales uniform in (0, 1]
+    (terms up to 127), with agent 0's first tile all zero (scale 1.0)."""
+    Wq = torch.randint(-127, 128, (K, M), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    scales = 1.0 - torch.rand((K, M // tile_m), generator=gen, device="cuda")
+    Wq[0, :tile_m] = 0
+    scales[0, 0] = 1.0
+    return Wq, scales
+
+
+@pytest.mark.cuda
+def test_cuda_int8_kernel_matches_mix_int8_ref():
+    """Kernel 5 against its plain version: K up to the shared-memory limit,
+    both tiles, both outputs, all-zero, all-one and random masks.  On the
+    quantizer's operands, within 1e-5 relative to max(1, |plain|); on
+    uniform int8 times uniform scales (terms up to 127), within the
+    float32 summation bound of the float64 value (mix_int8_exact),
+    elementwise; an inactive agent's delta row exactly zero."""
+    _need_card()
+    from repro_torch.kernels import diffusion_mix_int8 as dmi
+    from repro_torch.kernels.ref import mix_int8_exact, mix_int8_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for K in (4, 8, 12, 64, 240):
+        A = torch.as_tensor(make_topology("erdos", K, seed=K).A,
+                            dtype=torch.float32, device="cuda")
+        for tile_m in (128, 512):
+            M = tile_m * 7
+            for make in (_int8_operands, _uniform_int8_operands):
+                Wq, scales = make(gen, K, M, tile_m)
+                for m in (torch.zeros(K), torch.ones(K),
+                          (torch.rand(K) < 0.6).float()):
+                    m = m.cuda()
+                    for sub in (False, True):
+                        before = dmi.diffusion_mix_int8.launches
+                        out = dmi.diffusion_mix_int8(A, m, Wq, scales,
+                                                     tile_m=tile_m,
+                                                     subtract_identity=sub)
+                        torch.cuda.synchronize()
+                        assert dmi.diffusion_mix_int8.launches == before + 1
+                        case = (K, tile_m, make.__name__, sub)
+                        if make is _int8_operands:
+                            ref = mix_int8_ref(A, m, Wq, scales,
+                                               tile_m=tile_m,
+                                               subtract_identity=sub)
+                            assert _rel(out, ref) <= 1e-5, case
+                        else:
+                            exact, bound = mix_int8_exact(
+                                A, m, Wq, scales, tile_m=tile_m,
+                                subtract_identity=sub)
+                            assert bool(((out.double() - exact).abs()
+                                         <= bound).all()), case
+                        if sub:
+                            assert not out[m == 0].any()
+    with pytest.raises(ValueError, match="int8"):
+        dmi.diffusion_mix_int8(A, m, Wq.float(), scales, tile_m=512)
+    with pytest.raises(ValueError, match="divisible"):
+        dmi.diffusion_mix_int8(A, m, Wq[:, :100].contiguous(), scales,
+                               tile_m=512)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_int8_pipeline_matches_cpu(monkeypatch):
+    """The compressed_fedavg pipeline (FedAvg, int8 + error feedback,
+    fused mixer) on the card and on the CPU with the same injected
+    uniforms, over column tiles that split leaves: parameters within float32 summation order (1e-5) or one
+    bf16 rounding of it; one launch per column tile.  The first round's
+    residual is bit-equal (the same quantizer on the same inputs)."""
+    _need_card()
+    from repro_torch.core import compression, mixing
+    from repro_torch.kernels import diffusion_mix_int8 as dmi
+
+    monkeypatch.setattr(mixing, "TILE_ELEMS", 8 * 1024)
+    K = 8
+    topo = make_topology("fedavg", K)
+    gen = torch.Generator().manual_seed(6)
+    tree = {"a": torch.randn((K, 37, 61), generator=gen),
+            "b": torch.randn((K, 2500), generator=gen).to(torch.bfloat16)}
+    M = 37 * 61 + 2500
+    pipe = mixing.make_pipeline("pallas", topo, compress="int8",
+                                error_feedback=True, device="cuda")
+    _, width, _ = mixing.int8_layout(K, M)
+    m = torch.tensor([1.0, 0.0, 1.0, 1.0, 1.0, 0.0, 1.0, 1.0])
+    A = torch.as_tensor(topo.A, dtype=torch.float32)
+    outs, first = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.to(dev) for k, v in tree.items()}
+        state = pipe.init_state(p)
+        before = dmi.diffusion_mix_int8.launches
+        for rnd in range(2):
+            u = torch.rand((K, width), generator=torch.Generator()
+                           .manual_seed(rnd))
+            p, state = pipe(p, m.to(dev), A.to(dev), state,
+                            compression.Draws(u=u))
+            if rnd == 0:
+                first[dev] = {k: v.cpu() for k, v in state.items()}
+        if dev == "cuda":
+            assert (dmi.diffusion_mix_int8.launches - before
+                    == 2 * mixing.num_tiles(K, M, int8=True))
+        outs[dev] = (p, state)
+    for k in tree:
+        # the first round quantizes the same inputs: the same residual
+        assert torch.equal(first["cuda"][k], first["cpu"][k])
+        got, want = outs["cuda"][0][k].cpu(), outs["cpu"][0][k]
+        assert got.dtype == tree[k].dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-5,
+                                   rtol=2 ** -7)
+        assert torch.equal(got[m == 0], tree[k][m == 0])
+        assert torch.equal(outs["cuda"][1][k].cpu()[m == 0],
+                           torch.zeros_like(tree[k][m == 0]))

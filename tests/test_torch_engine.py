@@ -28,6 +28,7 @@ from repro.optim import optimizers as ref_opt  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import diffusion as diff  # noqa: E402
 from repro_torch.core.attacks import make_attack  # noqa: E402
+from repro_torch.core.compression import TopK  # noqa: E402
 from repro_torch.core import graphs, mixing, schedules  # noqa: E402
 from repro_torch.core import participation as part  # noqa: E402
 from repro_torch.core.state import EngineState  # noqa: E402
@@ -228,18 +229,43 @@ def test_schedules_state_graphs_and_pipeline():
     torch.testing.assert_close(got["w"], mixer(tree, active, A_t)["w"],
                                rtol=0, atol=0)
     assert cs == ()
-    for kwargs in ({"compressor": "topk"}, {"mode": "diff"},
-                   {"mode": "direct"}):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            mixing.CommPipeline(mixer, **kwargs)
+    # the compressed modes (tests/test_torch_compression.py holds them
+    # against the reference): a sparsifier resolves to diff mode, and the
+    # Identity compressor forced into diff or direct mode still equals the
+    # plain mixer
+    pipe = mixing.CommPipeline(mixer, TopK(0.1))
+    assert pipe.mode == "diff" and pipe.stateful and pipe.gamma == 0.5
+    for mode in ("diff", "direct"):
+        pipe = mixing.CommPipeline(mixer, mode=mode)
+        assert pipe.mode == mode
+        got, _ = pipe(tree, active, A_t, pipe.init_state(tree))
+        torch.testing.assert_close(got["w"], mixer(tree, active, A_t)["w"],
+                                   rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("changes", [{"compress": "topk"},
                                      {"error_feedback": True}])
 def test_engine_refuses_unported_compression(changes):
+    """Compression is ported: the engine builds with these settings, as
+    the reference's does, and its state carries what the pipeline needs
+    (top-k: the diff-mode reference copy; error feedback alone wraps
+    nothing, since Identity is never wrapped, so no state)."""
+    from repro.core import DiffusionEngine as RefEngine
+    from repro.core import DiffusionConfig as RefConfig
+
     cfg = diff.DiffusionConfig(num_agents=K, **changes)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        diff.DiffusionEngine(cfg, lambda p, b: 0.0, device="cpu")
+    eng = diff.DiffusionEngine(cfg, lambda p, b: 0.0, device="cpu")
+    ref = RefEngine(RefConfig(**dataclasses.asdict(cfg)), lambda p, b: 0.0)
+    assert eng.pipeline.mode == ref.pipeline.mode
+    assert eng.pipeline.stateful == ref.pipeline.stateful
+    params = {"w": torch.zeros(K, 3)}
+    state = eng.init_state(params)
+    ref_state = ref.init_state({"w": jnp.zeros((K, 3))})
+    if ref.pipeline.stateful:
+        assert tuple(state.comm_state["ref"]["w"].shape) == (K, 3)
+        assert ref_state.comm_state["ref"]["w"].shape == (K, 3)
+    else:
+        assert state.comm_state is None and ref_state.comm_state is None
 
 
 def test_lm_token_batch_layout_matches_reference():

@@ -260,8 +260,12 @@ def test_gather_consensus_on_a_ring_is_the_mean():
 
 def test_consensus_pending_paths_raise():
     port = {"a": torch.zeros(4, 3)}
-    with pytest.raises(NotImplementedError, match="item 20"):
-        consensus_from_stacked(port, 4, "dense", quantize="int8")
+    # int8 extraction is ported (tests/test_torch_compression.py); an
+    # unknown quantize value is refused, as by the reference
+    with pytest.raises(ValueError, match="quantize"):
+        consensus_from_stacked(port, 4, "dense", quantize="fp8")
+    with pytest.raises(ValueError, match="quantize"):
+        ref_consensus({"a": jnp.zeros((4, 3))}, 4, "dense", quantize="fp8")
     # a robust aggregate is not a weighted mean (the reference's guard)
     with pytest.raises(ValueError, match="order statistic"):
         consensus_from_stacked(port, 4, "trimmed_mean", weights=np.ones(4))

@@ -157,6 +157,54 @@ def test_train_main_byzantine_preset_on_the_cpu():
     assert int(noise["state"].opt_state["t"]) == 2          # T = 2 steps
 
 
+def _ref_pipeline(compress, **kw):
+    from repro.core import make_pipeline, make_topology
+    return make_pipeline("dense", make_topology(kw.pop("topology", "ring"),
+                                                4), compress=compress, **kw)
+
+
+@pytest.mark.parametrize("flags,want", [
+    # the reference's compressed_fedavg preset: FedAvg, int8 + EF, gamma 1
+    (["--topology", "fedavg", "--mix", "pallas", "--compress", "int8",
+      "--error-feedback"],
+     dict(compress="int8", error_feedback=True, topology="fedavg")),
+    # its compressed_diffusion preset: ring, top-k 0.1, EF dropped in diff
+    (["--mix", "pallas", "--compress", "topk", "--error-feedback"],
+     dict(compress="topk", compress_ratio=0.1, error_feedback=True)),
+    (["--mix", "dense", "--compress", "gauss", "--compress-sigma", "0.1",
+      "--comm-gamma", "0.3"],
+     dict(compress="gauss", compress_ratio=0.1, sigma=0.1, gamma=0.3)),
+    (["--mix", "sparse", "--compress", "randk", "--compress-ratio", "0.25",
+      "--comm-gamma", "auto"],
+     dict(compress="randk", compress_ratio=0.25, gamma="auto")),
+])
+def test_train_main_compression_flags(flags, want):
+    """The compression flags with the reference's defaults (ratio 0.1):
+    the ``comm:`` banner's compressor, mode, gamma and wire bytes are the
+    reference pipeline's, the losses finite, and a stateful pipeline's
+    memory is threaded through the blocks."""
+    argv = ["--device", "cpu", "--blocks", "2", "--optimizer", "sgd",
+            "--step-size", "0.05", "--seq", "16", "--batch", "1"] + flags
+    out = train.main(argv)
+    ref = _ref_pipeline(**want)
+    comm = out["comm"]
+    assert (comm["compressor"], comm["mode"], comm["gamma"]) == (
+        ref.compressor.name, ref.mode, ref.gamma)
+    ref_params = jax.tree.map(
+        lambda s: jnp.zeros((4,) + s.shape, s.dtype),
+        ref_tf.param_specs(ref_get_config("smollm-360m").smoke))
+    assert comm["wire_bytes"] == ref.wire_bytes(ref_params)
+    assert np.isfinite(out["losses"]).all()
+    state = out["state"]
+    assert (state.comm_state is None) == (not ref.stateful)
+    if ref.mode == "diff":
+        assert any(x.any() for x in tree_leaves(state.comm_state["ref"]))
+    again = train.main(argv)
+    for x, y in zip(tree_leaves(state.params),
+                    tree_leaves(again["state"].params)):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("flags,match", [
     (["--trim", "1"], "robust mixer"),
     (["--mix", "pallas", "--robust-scope", "neighborhood"], "robust mixer"),
@@ -174,8 +222,8 @@ def test_train_flag_guards_raise(flags, match):
 @pytest.mark.parametrize("flag,item", [
     (["--spec", "x.json"], "item 16"), (["--preset", "fedavg_full"],
                                         "item 16"),
-    (["--checkpoint", "c.npz"], "item 16"), (["--compress", "topk"],
-                                             "item 20"),
+    (["--checkpoint", "c.npz"], "item 16"), (["--ef-host-offload"],
+                                             "item 25"),
     (["--graph=gossip"], "item 18"), (["--privacy"], "item 22"),
 ])
 def test_unported_flags_name_their_roadmap_item(flag, item):
