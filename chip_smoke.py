@@ -30,11 +30,18 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
 4. ``flash_attention`` against its plain version ``attention_ref``: every
    case of the reference's kernel tests (f32 and bf16, windows 32 and 96,
    S = 160 and 192, D = 32/64/128), a non-causal ragged pair of lengths,
-   q past 2^31 elements, zamba2-1.2b's full-width shape (1, 1024, 32, 32,
-   64) in bf16, and the full-width training shape in f32 and
-   bf16, where the kernel, the plain version and
-   ``scaled_dot_product_attention`` are timed in bf16.  Tolerances: the
-   reference's, 2e-5 (f32) and 2e-2 (bf16).
+   Skv = 333 with a window for each D in bf16, q past 2^31 elements,
+   zamba2-1.2b's full-width shape (1, 1024, 32, 32, 64) in bf16, and the
+   full-width training shape in f32 and bf16.  Tolerances: the
+   reference's, 2e-5 (f32) and 2e-2 (bf16); every bf16 case (the
+   tensor-core route) also within 2^-7 P|V| + one bf16 ulp of its rounding
+   model ``attention_bf16p_ref``.  The ``ptxas`` lines of both routes and
+   the count of HGMMA instructions in the built library (none fails).  At
+   the training and zamba2 shapes in bf16 the kernel and
+   ``scaled_dot_product_attention`` are timed by their device time
+   (``torch.profiler``) and by CUDA events around a loop of calls (the
+   wrapper's host time, where the host is slower), the plain version by
+   CUDA events.
 5. Train, full width: Algorithm 1 on smollm-360m through
    ``repro_torch.launch.train.main`` (K=4, T=2, B=2, S=1024, 3 blocks,
    Adam, ``--mix pallas``, ``use_kernels=True``); both kernels' launch
@@ -111,12 +118,14 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     residual within 2 quantization steps of its (agent, tile); (b) the
     compressed_diffusion preset (ring, top-k 0.1, CHOCO's diff mode,
     gamma 0.5, T=1), 2 blocks through ``diffusion_mix``, then one more
-    combination: the reference copy moves for active agents only; (c)
-    both presets at smoke size, card against CPU block by block from the
-    same state with the same injected draws: phase 6's gates, with every
-    int8 rounding or top-k selection that lands differently at its
-    threshold recorded, and the entries beyond them only where a flip
-    reaches.
+    combination: the reference copy moves for active agents only, and
+    the top-k selection of every leaf timed, the tie rule's mask against
+    ``torch.topk`` alone; (c) both presets at smoke size, card against CPU
+    block by block from the same state with the same injected draws:
+    phase 6's gates, with every int8 rounding or top-k selection that
+    lands differently at its threshold recorded (top-k: only in rows whose
+    inputs differ, and the card's selection on the CPU's input is the
+    CPU's), and the entries beyond them only where a flip reaches.
 15. Int8 consensus: phase 3's K=8 stack through ``serve.main`` with
     ``--consensus-quantize int8 --mix pallas``: relative squared error
     against the stored stack's consensus below the reference's 1e-3, two
@@ -215,6 +224,40 @@ def time_ms(fn, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: the summed durations of the kernels
+    it launches, from ``torch.profiler``'s raw device events over
+    ``iters`` calls after a warm-up.  Where the host takes longer per call
+    than the device, :func:`time_ms` measures the host; this does not."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0)
+    if not ns:
+        raise AssertionError("the profiler saw no device time")
+    return ns / 1e6 / iters
+
+
+def sass_count(name: str, opcode: str) -> int:
+    """How many ``opcode`` instructions ``cuobjdump -sass`` finds in the
+    library built for ``csrc/<name>.cu``."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(build._lib_path(name))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return sum(opcode in line for line in sass.splitlines())
 
 
 def rel_err(out, ref) -> float:
@@ -476,8 +519,19 @@ def phase_attention(card: str) -> dict:
 
     fa.build()
     ptxas = ptxas_lines("flash_attention")
+    route = ""
     for line in ptxas:
-        print("  ptxas:", line)
+        if "Compiling entry function" in line:
+            route = ("bf16 route (wgmma)" if "hopper" in line
+                     else "float32 route (FMA)")
+        print(f"  ptxas [{route}]:", line)
+    hgmma = sass_count("flash_attention", "HGMMA")
+    print(f"phase 4: {hgmma} HGMMA instructions in the built library "
+          "(cuobjdump -sass)")
+    if not hgmma:
+        raise AssertionError("flash_attention's bf16 route has no HGMMA "
+                             "instruction: it does not run on the tensor "
+                             "cores")
     gen = torch.Generator(device="cuda").manual_seed(4)
     f32, bf16 = torch.float32, torch.bfloat16
     # (B, Sq, Skv, H, Kv, D, dtype, causal, window): every case of the
@@ -495,7 +549,10 @@ def phase_attention(card: str) -> dict:
               for dt in (f32, bf16)]
     # zamba2-1.2b's shared attention at full width (phase 9's forward)
     cases += [(1, 1024, 1024, 32, 32, 64, bf16, True, None)]
+    # Skv ragged against the 64-key tile, with a window, for every D
+    cases += [(1, 333, 333, 3, 1, D, bf16, True, 50) for D in (32, 64, 128)]
     worst = {f32: 0.0, bf16: 0.0}
+    worst_model = 0.0
     for B, Sq, Skv, H, Kv, D, dt, causal, window in cases:
         q, k, v = _attention_inputs(gen, B, Sq, Skv, H, Kv, D, dt)
         out = fa.flash_attention(q, k, v, causal=causal, window=window)
@@ -508,9 +565,15 @@ def phase_attention(card: str) -> dict:
                 f"{causal} window={window}: max |err| {err:.3e} beyond "
                 f"{ATTN_TOL}")
         worst[dt] = max(worst[dt], err)
+        if dt == bf16:
+            worst_model = max(worst_model, _bf16p_share(
+                out, q, k, v, causal=causal, window=window,
+                label=f"{(B, Sq, Skv, H, Kv, D)} window={window}"))
     print(f"phase 4: {len(cases)} cases within the reference's gates "
           f"{ATTN_TOL}: worst max |err| f32 {worst[f32]:.3e}, bf16 "
-          f"{worst[bf16]:.3e}")
+          f"{worst[bf16]:.3e}; every bf16 case within the rounding budget "
+          f"of attention_bf16p_ref (2^-7 P|V| + 1 bf16 ulp), at "
+          f"{worst_model:.3f} of it at worst")
 
     # 64-bit offsets: q and out hold more than 2^31 elements; the last
     # batch entries sit past that offset
@@ -522,8 +585,11 @@ def phase_attention(card: str) -> dict:
     if not ok:
         raise AssertionError(f"flash_attention past 2^31 elements: max |err| "
                              f"{big:.3e}")
+    share = _bf16p_share(out[-4:], q[-4:], k[-4:], v[-4:],
+                         label="past 2^31 elements")
     print(f"phase 4: q of {q.numel():,} elements (> 2^31): last batch "
-          f"entries max |err| {big:.3e}")
+          f"entries max |err| {big:.3e}, {share:.3f} of the bf16 rounding "
+          f"budget")
     del q, k, v, out, ref
     torch.cuda.empty_cache()
 
@@ -534,10 +600,21 @@ def phase_attention(card: str) -> dict:
     ref = attention_ref(q, k, v)
     max_abs = (out.float() - ref.float()).abs().max().item()
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    ms = time_ms(lambda: fa.flash_attention(q, k, v), iters=20)
+
+    def kernel():
+        return fa.flash_attention(q, k, v)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    # the kernel's device time (profiler) and the loop time (CUDA events
+    # around 20 calls, which at a few tens of microseconds is the wrapper's
+    # host time), SDPA's the same two ways
+    ms, library_ms = device_ms(kernel), device_ms(sdpa)
+    loop_ms = time_ms(kernel, iters=20)
     plain_ms = time_ms(lambda: attention_ref(q, k, v), iters=20)
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+    library_loop_ms = time_ms(sdpa, iters=20)
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())   # q, k, v in, out written
     flops = 2 * 2 * B * H * S * S * D / 2           # causal: half the scores
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -552,19 +629,59 @@ def phase_attention(card: str) -> dict:
            "launches": None, "max_abs_err": max_abs, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-           "library_ms": library_ms, "fp32_fma_bound_ms": fma_ms,
+           "library_ms": library_ms, "loop_ms": loop_ms,
+           "library_loop_ms": library_loop_ms, "fp32_fma_bound_ms": fma_ms,
            "bytes": nbytes, "flops": flops, "shape": [B, S, H, Kv, D],
-           "dtype": "bfloat16", "ptxas": ptxas}
-    print(f"phase 4: {TRAIN_ATTN_SHAPE} bf16 causal: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}: {flops:.3e} "
-          f"operations at the bf16 rate {BF16_FLOPS_PER_S:.3g}/s, {nbytes:,} "
-          f"bytes at {HBM_BYTES_PER_S:.3g} B/s); the same operations as "
-          f"float32 FMAs outside the tensor cores, as the kernel does them, "
-          f"{fma_ms:.4f} ms [{card}]")
+           "dtype": "bfloat16", "hgmma": hgmma,
+           "bf16p_budget_share": worst_model, "ptxas": ptxas}
+    print(f"phase 4: {TRAIN_ATTN_SHAPE} bf16 causal: kernel device "
+          f"{ms:.4f} ms (profiler; loop {loop_ms:.4f} ms), SDPA device "
+          f"{library_ms:.4f} ms (loop {library_loop_ms:.4f} ms), plain "
+          f"{plain_ms:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']}: {flops:.3e} operations at the bf16 rate "
+          f"{BF16_FLOPS_PER_S:.3g}/s, {nbytes:,} bytes at "
+          f"{HBM_BYTES_PER_S:.3g} B/s; the kernel at "
+          f"{100 * row['bound_ms'] / ms:.1f} % of it); the same operations "
+          f"as float32 FMAs {fma_ms:.4f} ms [{card}]")
     del q, k, v, qt, kt, vt, out, ref
     torch.cuda.empty_cache()
+
+    # zamba2-1.2b's shared attention (1, 1024, 32, 32, 64), timed alike
+    q, k, v = _attention_inputs(gen, 1, 1024, 1024, 32, 32, 64, bf16)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    z_ms = device_ms(lambda: fa.flash_attention(q, k, v))
+    z_lib = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    z_loop = time_ms(lambda: fa.flash_attention(q, k, v), iters=20)
+    row["zamba2"] = {"shape": [1, 1024, 32, 32, 64], "ms": z_ms,
+                     "library_ms": z_lib, "loop_ms": z_loop}
+    print(f"phase 4: zamba2 (1, 1024, 32, 32, 64) bf16 causal: kernel "
+          f"device {z_ms:.4f} ms (loop {z_loop:.4f} ms), SDPA device "
+          f"{z_lib:.4f} ms [{card}]")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return row
+
+
+def _bf16p_share(out, q, k, v, *, causal=True, window=None,
+                 label="") -> float:
+    """The bf16 kernel's largest distance from its rounding model
+    ``attention_bf16p_ref`` as a share of ``attention_bf16p_budget``
+    (2^-7 P|V| + one bf16 ulp: one p_j rounded to the neighbouring bf16
+    value, and the final rounding); raises above 1."""
+    from repro_torch.kernels.ref import (attention_bf16p_budget,
+                                         attention_bf16p_ref)
+
+    model = attention_bf16p_ref(q, k, v, causal=causal, window=window)
+    budget = attention_bf16p_budget(q, k, v, model, causal=causal,
+                                    window=window)
+    share = ((out.float() - model.float()).abs()
+             / budget.clamp(min=1e-30)).max().item()
+    if not share <= 1.0:
+        raise AssertionError(f"flash_attention {label}: {share:.3f} of the "
+                             "bf16 rounding budget around "
+                             "attention_bf16p_ref")
+    return share
 
 
 def _grads_one_step(params, cfg, batch, *, remat: bool = False):
@@ -2287,6 +2404,23 @@ def phase_train_diff(card: str) -> tuple[dict, dict]:
     print(f"phase 14b: one more combination in {pipe_s:.3f}s: the reference "
           f"copy moved at {sum(moved):,} active elements and not at all for "
           f"the inactive agents, whose parameters are bit-equal [{card}]")
+    # the top-k selection of every leaf at full width: the tie rule's mask
+    # (the threshold from torch.topk, then the cumsum) against torch.topk
+    # alone, whose selection breaks ties in no fixed order
+    from repro_torch.core.compression import _num_kept, _top_k_mask
+
+    rule_ms = topk_ms = 0.0
+    for leaf in tree_leaves(new_params):
+        flat = leaf.reshape(K, -1).abs().float()
+        k = _num_kept(flat.shape[1], 0.1)
+        rule_ms += time_ms(lambda: _top_k_mask(flat, k), iters=3)
+        topk_ms += time_ms(lambda: torch.topk(flat, k, dim=1, sorted=False),
+                           iters=3)
+        del flat
+    row.update(topk_rule_ms=rule_ms, topk_ms=topk_ms)
+    print(f"phase 14b: top-k selection of every leaf (K={K}, ratio 0.1): "
+          f"the tie rule's mask {rule_ms:.3f} ms, torch.topk alone "
+          f"{topk_ms:.3f} ms [{card}]")
     print(json.dumps({"phase": "14b", **row}))
     del params, ref, new_params, new_ref
     torch.cuda.empty_cache()
@@ -2337,20 +2471,22 @@ class _CompressorRecord:
 
 def _threshold_flips(kind, card_calls, cpu_calls, sizes, ratio, tol):
     """The coordinates where the card's message and the CPU's differ
-    because a rounding (int8) or a selection (top-k) sits at its threshold.
+    because a rounding (int8) or a selection (top-k) sits at its threshold
+    and the inputs differ there.
 
     Holds the compressor inputs within ``tol``; for int8, the rounded
     values x / scale + u within a hundredth of a step of each other
     everywhere (so a flip is one step, at an integer, with the same
-    uniforms); for top-k, as many coordinates leaving each row's selection
-    as entering it, each at a magnitude within twice the row's input
-    difference of the row's k-th largest; the messages off the flips
-    within ``tol``.  Returns the (K, n) flip masks per leaf (the fused
+    uniforms); for top-k, the card's selection on the CPU's own input is
+    the CPU's (ties break alike), no flip in a row whose inputs are equal,
+    as many coordinates leaving each row's selection as entering it, each
+    at a magnitude within twice the row's input difference of the row's
+    k-th largest; the messages off the flips within ``tol``.  Returns the (K, n) flip masks per leaf (the fused
     layout's column tiles joined and split at ``sizes``), the largest
     message difference at a flip, and the largest input difference."""
     import torch
 
-    from repro_torch.core.compression import _num_kept
+    from repro_torch.core.compression import _num_kept, _top_k_mask
 
     if len(card_calls) != len(cpu_calls):
         raise AssertionError("the card and the CPU compressed a different "
@@ -2373,6 +2509,17 @@ def _threshold_flips(kind, card_calls, cpu_calls, sizes, ratio, tol):
             cg, cc = (t[1].reshape(K, -1).double() for t in (got, want))
             flip = (cg != 0) != (cc != 0)
             k = _num_kept(xc.shape[1], ratio)
+            # ties break alike on both devices: the card's selection on the
+            # CPU's input is the CPU's, and a row whose inputs are equal
+            # flips nowhere
+            x0 = want[0].reshape(K, -1)
+            own = _top_k_mask(x0.cuda().abs().float(), k).cpu()
+            if not torch.equal(x0 * own.to(x0.dtype), want[1].reshape(K, -1)):
+                raise AssertionError("the card's top-k on the CPU's input "
+                                     "differs from the CPU's")
+            if bool(flip[(xg == xc).all(1)].any()):
+                raise AssertionError("a top-k flip in a row whose inputs "
+                                     "are equal")
             thr = xc.abs().topk(k, dim=1).values[:, -1:]
             room = 2 * (xg - xc).abs().amax(dim=1, keepdim=True)
             if not bool(((xc.abs() - thr).abs() <= room + 1e-12)[flip]

@@ -135,14 +135,56 @@ def quantize_int8(x: torch.Tensor, key=None, axis: int = -1, *,
     return q, scale
 
 
+#: columns per chunk when ties are counted (:func:`_top_k_mask`)
+_SCAN_CHUNK = 4096
+
+
+def _top_k_mask(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask of the k largest entries of each row of ``x`` (K, n),
+    ties at the k-th value going to the lower index: the set
+    ``jax.lax.top_k`` selects, on the CPU and on CUDA alike.
+
+    ``torch.topk`` has no tie rule (its CPU and CUDA versions differ), so
+    it gives only the threshold, each row's k-th largest value (the values
+    it returns do not depend on ties).  Every entry above the threshold is
+    kept and, of those equal to it, the first k - #above by index.  Ties
+    are counted per chunk of :data:`_SCAN_CHUNK` columns: every tie in a
+    chunk before the one that holds the last kept tie is kept, and only
+    that chunk takes a cumsum (PyTorch's CUDA cumsum scans a long row in one
+    block: a whole-row scan took 0.6 s over smollm's leaves at K = 8).  No
+    step waits for the host.
+    """
+    K, n = x.shape
+    thr = torch.topk(x, k, dim=1, sorted=False).values.amin(dim=1,
+                                                            keepdim=True)
+    above = x > thr
+    tie = x == thr
+    need = k - above.sum(dim=1, dtype=torch.int32)         # >= 1 per row
+    chunks = -(-n // _SCAN_CHUNK)
+    if chunks * _SCAN_CHUNK != n:
+        padded = tie.new_zeros((K, chunks * _SCAN_CHUNK))
+        padded[:, :n] = tie
+        tie = padded
+    tie = tie.view(K, chunks, _SCAN_CHUNK)
+    counts = tie.sum(dim=2, dtype=torch.int32)
+    upto = torch.cumsum(counts, dim=1, dtype=torch.int32)
+    cut = (upto < need[:, None]).sum(dim=1)    # the chunk of the last kept tie
+    rows = torch.arange(K, device=x.device)
+    edge = tie[rows, cut]
+    room = need - (upto[rows, cut] - counts[rows, cut])
+    keep = tie & (torch.arange(chunks, device=x.device)[None, :, None]
+                  < cut[:, None, None])
+    keep[rows, cut] = edge & (torch.cumsum(edge, dim=1, dtype=torch.int32)
+                              <= room[:, None])
+    return above.logical_or_(keep.view(K, -1)[:, :n])
+
+
 def _rand_subset_mask(u: torch.Tensor, flat: torch.Tensor,
                       k: int) -> torch.Tensor:
     """{0,1} mask (flat's dtype) of the k largest uniforms of each row:
     a uniform k-subset per agent.  The one definition of the rand-k mask,
     shared by RandK and GaussianMask."""
-    idx = torch.topk(u, k, dim=1, sorted=False).indices
-    mask = torch.zeros_like(flat)
-    return mask.scatter_(1, idx, 1)
+    return _top_k_mask(u, k).to(flat.dtype)
 
 
 def dense_wire_bytes(params: PyTree) -> int:
@@ -197,8 +239,8 @@ class Identity(Compressor):
 class TopK(Compressor):
     """Keep the largest-magnitude ``ratio`` fraction per agent per leaf.
 
-    ``torch.topk`` and the reference's ``jax.lax.top_k`` select the same
-    set unless magnitudes tie at the threshold.
+    Selects the reference's ``jax.lax.top_k`` set, ties at the threshold
+    going to the lower index (:func:`_top_k_mask`).
     """
 
     name = "topk"
@@ -215,8 +257,7 @@ class TopK(Compressor):
         k = _num_kept(n, self.ratio)
         if k >= n:
             return x
-        idx = torch.topk(flat.abs().float(), k, dim=1, sorted=False).indices
-        mask = torch.zeros_like(flat).scatter_(1, idx, 1)
+        mask = _top_k_mask(flat.abs().float(), k).to(flat.dtype)
         return (flat * mask).reshape(x.shape)
 
     def encode(self, params, state, key=None):

@@ -3,10 +3,15 @@ CUDA for Hopper.
 
 Counterpart of ``repro.kernels.flash_attention.flash_attention`` (the Pallas
 TPU kernel ``_flash_kernel``).  The CUDA source is
-``csrc/flash_attention.cu``; it is built with ``nvcc`` for ``sm_90a`` at
-first use (:mod:`repro_torch.kernels.build`), bound through ctypes, and
-registered with the PyTorch dispatcher as ``torch.ops.repro_torch.
-flash_attention(q, k, v, causal, window)`` for CUDA tensors.  It has no
+``csrc/flash_attention.cu``, with two routes chosen by dtype: float32
+through float32 FMAs (the reference's 2e-5 gate rules out TF32), bfloat16
+through Hopper's tensor cores (``wgmma`` on bf16 operands with float32
+accumulation, TMA loads, P rounded to bf16 before P V: its plain model is
+:func:`repro_torch.kernels.ref.attention_bf16p_ref`).  It is built with
+``nvcc`` for ``sm_90a`` at first use (:mod:`repro_torch.kernels.build`),
+bound through ctypes, and registered with the PyTorch dispatcher as
+``torch.ops.repro_torch.flash_attention(q, k, v, causal, window)`` for
+CUDA tensors.  It has no
 autograd of its own: :func:`repro_torch.kernels.ops.attention_op` wraps it
 with the reference's backward.
 
@@ -88,6 +93,11 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, Kv = k.shape[1], k.shape[2]
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        # the tensor-core route reads through TMA, which takes 16-byte
+        # aligned buffers: a view that starts elsewhere is copied
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q, k, v))
     lib = build()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

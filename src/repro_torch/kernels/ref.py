@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.core.participation import masked_combination
 
-__all__ = ["attention_ref", "gather_mix_ref", "gather_robust_mix_ref",
+__all__ = ["attention_ref", "attention_bf16p_ref", "attention_bf16p_budget",
+           "gather_mix_ref", "gather_robust_mix_ref",
            "mix_int8_exact", "mix_int8_ref", "mix_ref", "ssd_ref",
            "ssd_intra_chunk_ref"]
 
@@ -40,6 +41,82 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_bf16p_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        block_kv: int = 64, tiles=None) -> torch.Tensor:
+    """The bf16 flash-attention kernel's arithmetic, in float32.
+
+    An online softmax over key tiles of ``block_kv`` keys (the kernel's
+    tile) with P rounded to bf16 before P V and float32 everywhere else: the
+    running max m, the running sum l of the unrounded p, and O = O corr +
+    bf16(p) V.  Masked scores take -1e30 and keys past Skv are absent, as
+    in the kernel; the result is O / max(l, 1e-30) in q's dtype.
+
+    ``tiles`` lists the key tiles to visit, in order (default: all of them
+    once); the tests drop or repeat one to show that the card's tolerance
+    sees it.
+    """
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scale = 1.0 / np.sqrt(D)
+    qg = q.reshape(B, Sq, Kv, G, D).float()
+    kf, vf = k.float(), v.float()
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    m = torch.full((B, Kv, G, Sq, 1), -1e30, device=q.device)
+    l = torch.zeros((B, Kv, G, Sq, 1), device=q.device)
+    o = torch.zeros((B, Kv, G, Sq, D), device=q.device)
+    if tiles is None:
+        tiles = range(-(-Skv // block_kv))
+    for t in tiles:
+        k0, k1 = t * block_kv, min((t + 1) * block_kv, Skv)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg, kf[:, k0:k1]) * scale
+        kpos = torch.arange(k0, k1, device=q.device)[None, :]
+        mask = torch.ones((Sq, k1 - k0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask = mask & (kpos <= qpos)
+        if window is not None:
+            mask = mask & (kpos > qpos - window)
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        o = o * corr + torch.einsum("bkgqc,bckd->bkgqd",
+                                    p.bfloat16().float(), vf[:, k0:k1])
+        m = m_new
+    out = o / l.clamp(min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at each |x| (float32; 0 at 0): 2^(e - 8) for |x| in
+    [2^(e-1), 2^e)."""
+    _, e = torch.frexp(x.float().abs())
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+    return torch.where(x != 0, ulp, torch.zeros_like(ulp))
+
+
+def attention_bf16p_budget(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           out: torch.Tensor, *, causal: bool = True,
+                           window: int | None = None) -> torch.Tensor:
+    """Elementwise error budget of rounding P to bf16, around ``out``:
+    2^-7 (P |V|) + one bf16 ulp of |out|, with P |V| = softmax(S) |V| in
+    float32.
+
+    Rounding one p_j to bf16 moves it by at most half an ulp, 2^-8 p_j, so
+    the bf16-P model stays within 2^-8 (P |V|) of exact attention before its
+    own rounding to bf16 (one ulp); 2^-7 doubles that for slack.  Between
+    the kernel and the model the same budget holds: their float32 p may
+    differ in the last bits (summation order, exp2 against exp), so one p_j
+    may round to the neighbouring bf16 value, one ulp of p_j away (at most
+    2^-7 p_j), and the final rounding may differ by one ulp.
+    """
+    pv = attention_ref(q.float(), k.float(), v.float().abs(), causal=causal,
+                       window=window)
+    return 2.0 ** -7 * pv + _bf16_ulp(out)
 
 
 def mix_ref(A: torch.Tensor, active: torch.Tensor,

@@ -19,7 +19,8 @@ from repro.kernels.ops import attention_op as ref_attention_op  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels.ops import attention_op  # noqa: E402
-from repro_torch.kernels.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.ref import (attention_bf16p_budget,  # noqa: E402
+                                     attention_bf16p_ref, attention_ref)
 
 # the reference's gates (tests/test_kernels.py), atol = rtol
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -99,6 +100,71 @@ def test_attention_op_gradients_match_reference():
                               tt)
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+
+
+# the reference's bf16 sweep (tests/test_kernels.py)
+BF16_SWEEP = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 192, 6, 1, 32),
+              (2, 128, 4, 2, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,Kv,D", BF16_SWEEP)
+def test_bf16p_model_within_the_reference_gate(B, S, H, Kv, D):
+    """``attention_bf16p_ref``, the plain model of the bf16 kernel's
+    rounding (P in bf16 before P V), is within the reference's bf16 gate
+    (2e-2) of the reference's kernel, run in interpret mode as the
+    reference's own tests run it."""
+    jx, tt = _inputs(6, B, S, S, H, Kv, D, "bfloat16")
+    want = ref_attention_op(*jx, causal=True, interpret=True)
+    got = attention_bf16p_ref(*tt, causal=True)
+    assert got.dtype == torch.bfloat16
+    _assert_close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H,Kv,D,causal,window", [
+    *[(B, S, S, H, Kv, D, True, None) for B, S, H, Kv, D in BF16_SWEEP],
+    (1, 256, 256, 4, 2, 32, True, 32),
+    (1, 333, 333, 3, 1, 128, True, 50),
+    (2, 200, 333, 4, 2, 64, False, None),
+])
+def test_bf16p_model_within_its_rounding_budget(B, Sq, Skv, H, Kv, D,
+                                                causal, window):
+    """Rounding P to bf16 moves each p_j by at most 2^-8 p_j, so the model
+    stays within 2^-7 (P |V|) + one bf16 ulp of exact attention
+    (``attention_bf16p_budget``)."""
+    _, (q, k, v) = _inputs(7, B, Sq, Skv, H, Kv, D, "bfloat16")
+    model = attention_bf16p_ref(q, k, v, causal=causal, window=window)
+    exact = attention_ref(q, k, v, causal=causal, window=window)
+    budget = attention_bf16p_budget(q, k, v, exact, causal=causal,
+                                    window=window)
+    assert bool(((model.float() - exact.float()).abs() <= budget).all())
+
+
+@pytest.mark.parametrize("change", ["drop", "double"])
+@pytest.mark.parametrize("case", ["causal", "window", "full", "flat"])
+def test_bf16p_budget_sees_a_missing_or_doubled_key_tile(change, case):
+    """The card holds the bf16 kernel to ``attention_bf16p_budget`` of the
+    model (tests/test_torch_cuda.py, chip_smoke.py phase 4).  That budget
+    sees one key tile dropped or visited twice.  The reference's 2e-2 gate
+    alone does not always: with flat attention over 2048 keys (q scaled by
+    1/4, non-causal) the perturbed model stays inside the gate."""
+    S, causal, window, scale = {"causal": (512, True, None, 1.0),
+                                "window": (512, True, 96, 1.0),
+                                "full": (512, False, None, 1.0),
+                                "flat": (2048, False, None, 0.25)}[case]
+    _, (q, k, v) = _inputs(8, 1, S, S, 4, 2, 64, "bfloat16")
+    q = (q.float() * scale).bfloat16()
+    model = attention_bf16p_ref(q, k, v, causal=causal, window=window)
+    budget = attention_bf16p_budget(q, k, v, model, causal=causal,
+                                    window=window)
+    tiles = list(range(S // 64))
+    tiles = ([t for t in tiles if t != 5] if change == "drop"
+             else tiles + [5])
+    bad = attention_bf16p_ref(q, k, v, causal=causal, window=window,
+                              tiles=tiles).float()
+    assert bool(((bad - model.float()).abs() > budget).any())
+    if case == "flat":
+        ref = attention_ref(q, k, v, causal=causal, window=window).float()
+        assert bool(((bad - ref).abs() <= 2e-2 * (1 + ref.abs())).all())
 
 
 def test_kernel_operands_are_checked():

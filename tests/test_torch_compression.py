@@ -150,6 +150,100 @@ def test_topk_bit_equal(ratio):
     _assert_bit_equal(got, want)
 
 
+def _tie_rows(case):
+    """Rows (numpy, and the dtype to cast to) whose k-th value ties, and
+    the ratio: all-equal rows (k = 96 of 960), norm scales near 1 in bf16
+    (32 distinct values across 960), float32 values on a coarse grid of
+    both signs (also over rows longer than three scan chunks), and each
+    float32 uniform repeated 8 times."""
+    rng = np.random.default_rng(3)
+    if case == "ones":
+        return np.ones((2, 960), np.float32), jnp.float32, 0.1
+    if case == "bf16_scales":
+        x = 1.0 + 0.02 * rng.standard_normal((4, 960))
+        return x.astype(np.float32), jnp.bfloat16, 0.1
+    if case == "grid":
+        x = np.round(rng.standard_normal((3, 1001)) * 4) / 4
+        return x.astype(np.float32), jnp.float32, 0.3
+    if case == "long":        # ties spread over several scan chunks
+        x = np.round(rng.standard_normal((2, 3 * comp._SCAN_CHUNK + 7)) * 2)
+        return (x / 2).astype(np.float32), jnp.float32, 0.3
+    u = rng.random((4, 128), dtype=np.float32)
+    return np.repeat(u, 8, axis=1), jnp.float32, 0.1
+
+
+def _jax_top_k_mask(x, k):
+    """{0,1} mask of ``jax.lax.top_k``'s set per row (numpy)."""
+    _, idx = jax.lax.top_k(x, k)
+    mask = np.zeros(x.shape, np.float32)
+    np.put_along_axis(mask, np.asarray(idx), 1.0, axis=1)
+    return mask
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 5])
+def test_top_k_mask_across_tie_chunks(n):
+    """Ties are counted per chunk of ``_SCAN_CHUNK`` columns: rows whose
+    last kept tie falls before, on and after a chunk boundary (all-equal
+    rows with k on either side of 4096, and rows of few values) give
+    ``jax.lax.top_k``'s set."""
+    rng = np.random.default_rng(n)
+    rows = np.concatenate([np.ones((1, n)), rng.integers(0, 3, (2, n))])
+    x = rows.astype(np.float32)
+    for k in sorted({1, max(1, n // 3), max(1, n - 1), 4095 % n + 1,
+                     4097 % n + 1}):
+        np.testing.assert_array_equal(
+            comp._top_k_mask(torch.from_numpy(x), k).numpy(),
+            _jax_top_k_mask(jnp.asarray(x), k) > 0, err_msg=str(k))
+
+
+@pytest.mark.parametrize("case", ["ones", "bf16_scales", "grid", "long",
+                                  "repeated"])
+def test_topk_ties_select_as_jax_top_k(case):
+    """Magnitudes tied at each row's k-th value: the port's top-k keeps the
+    lower index among equal magnitudes, as ``jax.lax.top_k`` does, and the
+    messages are bit-equal to the reference's."""
+    x, dtype, ratio = _tie_rows(case)
+    tree = {"s": jnp.asarray(x, dtype)}
+    want, _ = ref_comp.TopK(ratio).encode(tree, ())
+    got, _ = comp.TopK(ratio).encode(_to_torch(tree), ())
+    _assert_bit_equal(got, want)
+    k = comp._num_kept(x.shape[1], ratio)
+    flat = jnp.abs(tree["s"]).astype(jnp.float32)
+    kth = np.sort(np.asarray(flat), axis=1)[:, -k]
+    assert (np.asarray(flat) == kth[:, None]).sum() > x.shape[0]   # ties
+    np.testing.assert_array_equal(
+        comp._top_k_mask(torch.from_numpy(np.array(flat)), k).numpy(),
+        _jax_top_k_mask(flat, k) > 0)
+
+
+@pytest.mark.parametrize("case", ["ones", "grid", "long", "repeated"])
+def test_rand_subset_ties_select_as_jax_top_k(case):
+    """Uniforms tied at each row's k-th value: the rand-k mask (RandK's and
+    GaussianMask's one definition) is ``jax.lax.top_k``'s set, and RandK's
+    rescaled and contractive messages on those uniforms are the
+    reference's arithmetic on that mask."""
+    u, _, ratio = _tie_rows(case)
+    u = np.abs(u) / (np.abs(u).max() + 1)          # uniforms in [0, 1)
+    K, n = u.shape
+    k = comp._num_kept(n, ratio)
+    flat = np.random.default_rng(4).standard_normal((K, n)).astype(
+        np.float32)
+    want = _jax_top_k_mask(jnp.asarray(u), k)
+    got = comp._rand_subset_mask(torch.from_numpy(u), torch.from_numpy(flat),
+                                 k)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    draws = comp.Draws(u=[torch.from_numpy(u)])
+    x = torch.from_numpy(flat)
+    masked = jnp.asarray(flat) * jnp.asarray(want)
+    np.testing.assert_array_equal(
+        comp.RandK(ratio).encode_contractive({"s": x}, draws)["s"].numpy(),
+        np.asarray(masked))
+    np.testing.assert_array_equal(
+        comp.RandK(ratio).encode({"s": x}, (), draws)[0]["s"].numpy(),
+        np.asarray(masked * (n / k)))
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("name,sigma", [("randk", 0.0), ("gauss", 0.0),
                                         ("gauss", 0.5)])
@@ -763,13 +857,15 @@ _ENGINE_CASES = {
                           topology="fedavg"),
     "topk_diff_pallas": dict(mix="pallas", compress="topk",
                              compress_ratio=0.1, error_feedback=True),
+    "randk_diff_pallas": dict(mix="pallas", compress="randk",
+                              compress_ratio=0.1, error_feedback=True),
 }
 
 
 def _record_port(monkeypatch, kind, calls):
     """Append each of the port's compressor calls of a block to ``calls``:
     (input, q, scale, uniforms) of every int8 quantization, (input,
-    message) of every top-k leaf."""
+    message) of every top-k or rand-k leaf."""
     if kind == "int8":
         real = comp.quantize_int8
 
@@ -780,14 +876,15 @@ def _record_port(monkeypatch, kind, calls):
 
         monkeypatch.setattr(comp, "quantize_int8", quantize)
     else:
-        real_leaf = comp.TopK._leaf
+        cls = comp.TopK if kind == "topk" else comp.RandK
+        real_leaf = cls._leaf
 
-        def leaf(self, x):
-            out = real_leaf(self, x)
+        def leaf(self, x, *args, **kw):
+            out = real_leaf(self, x, *args, **kw)
             calls.append((x.clone(), out.clone()))
             return out
 
-        monkeypatch.setattr(comp.TopK, "_leaf", leaf)
+        monkeypatch.setattr(cls, "_leaf", leaf)
 
 
 def _record_reference(monkeypatch, kind, calls):
@@ -812,29 +909,35 @@ def _record_reference(monkeypatch, kind, calls):
 
         monkeypatch.setattr(ref_comp, "quantize_int8", quantize)
     else:
-        real_leaf = ref_comp.TopK._leaf
+        cls = ref_comp.TopK if kind == "topk" else ref_comp.RandK
+        real_leaf = cls._leaf
 
-        def leaf(self, x):
-            out = real_leaf(self, x)
+        def leaf(self, x, *args, **kw):
+            out = real_leaf(self, x, *args, **kw)
             jax.debug.callback(host(traced[0]), x, out)
             traced[0] += 1
             return out
 
-        monkeypatch.setattr(ref_comp.TopK, "_leaf", leaf)
+        monkeypatch.setattr(cls, "_leaf", leaf)
 
 
 def _threshold_flips(kind, port_calls, ref_calls, sizes, ratio, tol):
     """The coordinates where the port's message and the reference's differ
-    because a rounding (int8) or a selection (top-k) sits at its threshold.
+    because a rounding (int8) or a selection (top-k) sits at its threshold
+    and the two inputs differ there.
 
     Holds the compressor inputs within ``tol (1 + |x|)``; for int8, the
     rounded values x / scale + u within a hundredth of a step of each
-    other everywhere (so a flip is one step, at an integer); for top-k, as
-    many coordinates leaving each row's selection as entering it, each at
-    a magnitude within twice the row's input difference of the row's k-th
-    largest; and the messages off the flips within ``tol (1 + |c|)``.
-    Returns the (K, n) flip masks per leaf (a flattened layout split at
-    ``sizes``) and the largest message difference at a flip."""
+    other everywhere (so a flip is one step, at an integer); for top-k, the
+    port's selection on the reference's own input is the reference's (bit-
+    equal messages: no flip at a tie), no flip in a row whose inputs are
+    bit-equal, as many coordinates leaving each row's selection as
+    entering it, each at a magnitude within twice the row's input
+    difference of the row's k-th largest; for rand-k (the same injected
+    uniforms), no flip at all; and the messages off the flips within ``tol
+    (1 + |c|)``.  Returns the (K, n) flip masks per leaf (a flattened
+    layout split at ``sizes``) and the largest message difference at a
+    flip."""
     masks, dc = [], 0.0
     for got, want in zip(port_calls, ref_calls, strict=True):
         K = got[0].shape[0]
@@ -851,7 +954,17 @@ def _threshold_flips(kind, port_calls, ref_calls, sizes, ratio, tol):
         else:
             cp, cr = (t.reshape(K, -1).double() for t in (got[1], want[1]))
             flip = (cp != 0) != (cr != 0)
-            k = comp._num_kept(xr.shape[1], ratio)
+            # a coordinate exactly 0 in one input only is a selection
+            # either way; at every other coordinate a flip needs a tie
+            # broken otherwise (none may be) or inputs that differ
+            assert not bool(flip[(xp == xr).all(1)].any())
+        if kind == "randk":
+            assert not bool((flip & (xp != 0) & (xr != 0)).any())
+        elif kind == "topk":
+            x0 = want[0].reshape(K, -1)
+            k = comp._num_kept(x0.shape[1], ratio)
+            own = comp._top_k_mask(x0.abs().float(), k)
+            assert torch.equal(x0 * own.to(x0.dtype), want[1].reshape(K, -1))
             thr = xr.abs().topk(k, dim=1).values[:, -1:]
             room = 2 * (xp - xr).abs().amax(dim=1, keepdim=True)
             near = (xr.abs() - thr).abs() <= room + 1e-12
@@ -877,9 +990,10 @@ def test_engine_step_replay_parity_under_compression(
 
     Gate: the local updates sum float32 in another order, so a message
     coordinate whose rounding (int8) or selection (top-k) sits at its
-    threshold may come out differently.  Both compressors' inputs and
-    outputs are recorded and every such flip is accounted for
-    (:func:`_threshold_flips`).  Every weight and every state entry is
+    threshold may come out differently where the two inputs differ.  Both
+    compressors' inputs and outputs are recorded and every such flip is
+    accounted for (:func:`_threshold_flips`); a selection that breaks a tie
+    otherwise than ``jax.lax.top_k`` fails it, for top-k and rand-k.  Every weight and every state entry is
     within 1e-5 (1 + |w|) of the reference's, except at a flipped
     coordinate of its own or a neighbor's message; there it is within 2
     gamma times the largest message difference at a flip, plus 1e-5 (1 +
@@ -925,7 +1039,7 @@ def test_engine_step_replay_parity_under_compression(
         key_comm = jax.random.split(key)[1]
         if kind == "int8" and dcfg.mix == "pallas":
             draws = _flat_draws(key_comm, K_E, M)
-        elif kind == "int8":
+        elif kind in ("int8", "randk"):
             draws = _leaf_draws(key_comm, params)
         else:
             draws = None                       # top-k draws nothing

@@ -10,13 +10,17 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np  # noqa: E402
+
+from repro_torch.core import compression as comp  # noqa: E402
 from repro_torch.core.topology import make_topology  # noqa: E402
 from repro_torch.kernels import diffusion_mix as dm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.ops import ssd_op  # noqa: E402
-from repro_torch.kernels.ref import (attention_ref, mix_ref,  # noqa: E402
-                                     ssd_intra_chunk_ref, ssd_ref)
+from repro_torch.kernels.ref import (attention_bf16p_budget,  # noqa: E402
+                                     attention_bf16p_ref, attention_ref,
+                                     mix_ref, ssd_intra_chunk_ref, ssd_ref)
 
 # the reference's attention gates (tests/test_kernels.py), atol = rtol
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -56,6 +60,12 @@ def test_cuda_kernel_matches_mix_ref():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_kernel_matches_attention_ref(dtype):
+    """Both routes within the reference's gate of ``attention_ref``; the
+    bf16 (tensor-core) route also within :func:`attention_bf16p_budget` of
+    its rounding model ``attention_bf16p_ref``: one p_j rounded to the
+    neighbouring bf16 value (at most 2^-7 p_j) and one ulp of the final
+    rounding, a budget a dropped or doubled key tile breaks
+    (``tests/test_torch_attention.py``)."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(1, 128, 128, 4, 4, 64, True, None),
@@ -64,7 +74,12 @@ def test_cuda_kernel_matches_attention_ref(dtype):
              (2, 128, 128, 4, 2, 128, True, None),
              (1, 256, 256, 4, 2, 32, True, 32),
              (1, 300, 300, 4, 2, 128, True, 96),
-             (2, 200, 333, 4, 2, 64, False, None)]
+             (2, 200, 333, 4, 2, 64, False, None),
+             # the training path's and zamba2's full-width shapes
+             (2, 1024, 1024, 15, 5, 64, True, None),
+             (1, 1024, 1024, 32, 32, 64, True, None)]
+    # Skv ragged against the 64-key tile, with a window, for every D
+    cases += [(1, 333, 333, 3, 1, D, True, 50) for D in (32, 64, 128)]
     tol = ATTN_TOL[dtype]
     for B, Sq, Skv, H, Kv, D, causal, window in cases:
         q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
@@ -77,6 +92,41 @@ def test_cuda_kernel_matches_attention_ref(dtype):
         ref = attention_ref(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                    rtol=tol)
+        if dtype == torch.bfloat16:
+            model = attention_bf16p_ref(q, k, v, causal=causal,
+                                        window=window)
+            budget = attention_bf16p_budget(q, k, v, model, causal=causal,
+                                            window=window)
+            over = (out.float() - model.float()).abs() > budget
+            assert not bool(over.any()), (B, Sq, Skv, H, Kv, D, window)
+
+
+@pytest.mark.cuda
+def test_cuda_top_k_ties_select_as_on_the_cpu():
+    """The tie rule on the card: rows whose k-th value ties (all-equal
+    rows, bf16 norm scales, a coarse grid of both signs, repeated
+    uniforms, and rows long enough for ``torch.topk``'s multi-block path)
+    give the CPU's top-k and rand-k masks and top-k messages."""
+    _need_card()
+    rng = np.random.default_rng(5)
+    rows = [(np.ones((2, 960), np.float32), 96, torch.float32),
+            (1.0 + 0.02 * rng.standard_normal((4, 960)), 96, torch.bfloat16),
+            (np.round(rng.standard_normal((3, 1001)) * 4) / 4, 300,
+             torch.float32),
+            (np.repeat(rng.random((4, 128)), 8, axis=1), 102, torch.float32),
+            (np.round(rng.standard_normal((2, 4_000_037)) * 64) / 64,
+             400_003, torch.float32)]
+    for x, k, dtype in rows:
+        cpu = torch.from_numpy(np.asarray(x, np.float32)).to(dtype)
+        card = cpu.cuda()
+        for a, b in ((cpu, card), (cpu.abs().float(), card.abs().float())):
+            want = comp._top_k_mask(a.float(), k)
+            assert int(want.sum()) == k * a.shape[0]
+            assert torch.equal(comp._top_k_mask(b.float(), k).cpu(), want)
+        ratio = k / x.shape[1]
+        want = comp.TopK(ratio).encode({"s": cpu}, ())[0]["s"]
+        got = comp.TopK(ratio).encode({"s": card}, ())[0]["s"]
+        assert torch.equal(got.cpu(), want)
 
 
 def _ssd_inputs(gen, b, s, h, p, n, dtype):
