@@ -168,11 +168,14 @@ TRAIN_GRAD_TOL = 5e-2
 TF32_FLOPS_PER_S = 495e12        # H100 SXM, TF32 tensor cores, dense
 # the reference's SSD gates (tests/test_kernels.py), atol = rtol
 SSD_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
-# the intra-chunk kernel against its plain version: both sum float32
-# products of the same inputs (bf16 widened exactly), in other orders; at
-# mamba2's shape each Y_diag entry gathers Q N = 16,384 products of terms
-# up to about 10, and on an H100 (80 GB HBM3, 700 W) the two orders were
-# at most 7.3e-5 apart (relative to max(1, |plain|)), so the gate is 2e-4
+# the intra-chunk kernel against its plain version: at mamba2's shape each
+# Y_diag entry gathers Q N = 16,384 products of terms up to about 10; the
+# float32-FMA kernel this one replaced summed the same products in another
+# order and on an H100 (80 GB HBM3, 700 W) was at most 7.3e-5 from the
+# plain version (relative to max(1, |plain|)), so the gate is 2e-4.  The
+# tensor-core kernel splits each product into three TF32 ones (missing
+# only lo*lo, 2^-22); against a float64 reference it is as far off as the
+# FMA kernel was
 INTRA_TOL = 2e-4
 # (b, s, h, p, n, chunk) of one mamba layer's SSD on each path
 SSD_PATH_SHAPES = {"mamba2-2.7b": (1, 1024, 80, 64, 128, 128),
@@ -271,7 +274,7 @@ def ptxas_lines(name: str) -> list[str]:
     and its spills."""
     from repro_torch.kernels import build
 
-    keep = ("Compiling entry function", "registers", "spill")
+    keep = ("Compiling entry function", "Used", "spill")
     return [line.strip() for line in build.build_log(name).splitlines()
             if any(k in line for k in keep)]
 
@@ -1107,11 +1110,18 @@ def phase_ssd(card: str) -> dict:
 
     from repro_torch.kernels import ssd_scan
     from repro_torch.kernels.ref import ssd_intra_chunk_ref
+    from repro_torch.models.ssm import inter_chunk
 
     ssd_scan.build()
     ptxas = ptxas_lines("ssd_scan")
     for line in ptxas:
         print("  ptxas:", line)
+    hgmma = sass_count("ssd_scan", "HGMMA")
+    print(f"phase 7: {hgmma} HGMMA instructions in the built library "
+          "(cuobjdump -sass)")
+    if not hgmma:
+        raise AssertionError("ssd_intra_chunk has no HGMMA instruction: it "
+                             "does not run on the tensor cores")
     gen = torch.Generator(device="cuda").manual_seed(7)
     f32, bf16 = torch.float32, torch.bfloat16
     worst_intra = worst_op = 0.0
@@ -1146,37 +1156,62 @@ def phase_ssd(card: str) -> dict:
         op_err = _check_ssd_op(x, dt, A, B, C, chunk, label)
         xd = (x.float() * dt[..., None]).contiguous()
         dA = (dt * A).contiguous()
-        ms = time_ms(lambda: ssd_scan.ssd_intra_chunk(xd, dA, B, C,
-                                                      chunk=chunk), iters=20)
+
+        def kernel():
+            return ssd_scan.ssd_intra_chunk(xd, dA, B, C, chunk=chunk)
+
+        # the kernel's device time (profiler) and the loop time (CUDA events
+        # around 20 calls, which at a few tens of microseconds is the
+        # wrapper's host time)
+        ms = device_ms(kernel)
+        loop_ms = time_ms(kernel, iters=20)
         plain_ms = time_ms(lambda: ssd_intra_chunk_ref(xd, dA, B, C,
                                                        chunk=chunk), iters=5)
+        # what lies outside the kernel on the path: the inter-chunk
+        # recurrence and Y_off (ssd_chunked_kernel), in plain PyTorch
         nc = s // chunk
+        y_diag, states, dA_cs = kernel()
+        Cc = C.float().reshape(b, nc, chunk, n)
+        dA_c = dA_cs.reshape(b, nc, chunk, h)
+
+        def outside():
+            y_off, _ = inter_chunk(states, Cc, dA_c)
+            return y_diag.reshape(b, nc, chunk, h, p) + y_off
+
+        outside_ms = device_ms(outside)
+        outside_loop_ms = time_ms(outside, iters=20)
         nbytes = (4 * (2 * b * s * h * p + 2 * b * s * h + b * nc * h * p * n)
                   + 2 * B.element_size() * b * s * n)
         tri = chunk * (chunk + 1) // 2      # the kept (j <= i) pairs
-        flops = 2 * b * h * nc * (tri * (n + p) + chunk * p * n)
-        square = 2 * b * h * nc * (chunk * chunk * (n + p) + chunk * p * n)
+        # C B^T once per (batch, chunk): it does not depend on the head
+        flops = (2 * b * nc * tri * n
+                 + 2 * b * h * nc * (tri * p + chunk * p * n))
         bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ops = flops / FP32_FLOPS_PER_S * 1e3
+        bound_ops = flops / TF32_FLOPS_PER_S * 1e3
+        fma_ms = flops / FP32_FLOPS_PER_S * 1e3
         rows[arch] = {
             "shape": [b, s, h, p, n, chunk], "max_abs_err": max_abs,
-            "ssd_op_max_abs_err": op_err, "ms": ms, "plain_ms": plain_ms,
+            "ssd_op_max_abs_err": op_err, "ms": ms, "loop_ms": loop_ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(bound_bytes, bound_ops),
             "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-            "tf32_bound_ms": max(bound_bytes,
-                                 flops / TF32_FLOPS_PER_S * 1e3),
-            "square_fp32_ms": square / FP32_FLOPS_PER_S * 1e3,
-            "bytes": nbytes, "flops": flops, "flops_square": square}
-        print(f"phase 7: {label}, B/C bf16: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {rows[arch]['bound_ms']:.4f} ms "
-              f"({rows[arch]['bound_by']}: {flops:.4e} float32 operations of "
-              f"the kept j <= i pairs at {FP32_FLOPS_PER_S:.3g}/s, "
-              f"{nbytes:,} bytes at {HBM_BYTES_PER_S:.3g} B/s); the full "
-              f"square the kernel computes, {square:.4e} operations, "
-              f"{rows[arch]['square_fp32_ms']:.4f} ms; tf32_bound_ms "
-              f"{rows[arch]['tf32_bound_ms']:.4f}; library ms: none (no "
-              f"single PyTorch call computes this function); max |err| "
-              f"intra {max_abs:.3e}, ssd_op {op_err:.3e} [{card}]")
+            "fp32_fma_bound_ms": max(bound_bytes, fma_ms),
+            "outside_ms": outside_ms, "outside_loop_ms": outside_loop_ms,
+            "bytes": nbytes, "flops": flops}
+        print(f"phase 7: {label}, B/C bf16: kernel device {ms:.4f} ms "
+              f"(profiler; loop {loop_ms:.4f} ms), plain {plain_ms:.3f} ms, "
+              f"bound {rows[arch]['bound_ms']:.4f} ms "
+              f"({rows[arch]['bound_by']}: {nbytes:,} bytes at "
+              f"{HBM_BYTES_PER_S:.3g} B/s; {flops:.4e} operations, C B^T "
+              f"once per chunk, at the TF32 rate {TF32_FLOPS_PER_S:.3g}/s "
+              f"{bound_ops:.4f} ms; the kernel at "
+              f"{100 * rows[arch]['bound_ms'] / ms:.1f} % of it); the same "
+              f"operations as float32 FMAs {fma_ms:.4f} ms; library ms: none "
+              f"(no single PyTorch call computes this function); inter-chunk "
+              f"recurrence + Y_off device {outside_ms:.4f} ms (loop "
+              f"{outside_loop_ms:.4f} ms); max |err| intra {max_abs:.3e}, "
+              f"ssd_op {op_err:.3e} [{card}]")
+        del y_diag, states, dA_cs, Cc, dA_c
         del x, dt, A, B, C, xd, dA
     torch.cuda.empty_cache()
     main = rows["mamba2-2.7b"]
@@ -1186,9 +1221,11 @@ def phase_ssd(card: str) -> dict:
             "launches": None, "max_abs_err": main["max_abs_err"],
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": None, "tf32_bound_ms": main["tf32_bound_ms"],
+            "library_ms": None, "loop_ms": main["loop_ms"],
+            "fp32_fma_bound_ms": main["fp32_fma_bound_ms"],
             "bytes": main["bytes"], "flops": main["flops"],
-            "shape": main["shape"], "by_path": rows, "ptxas": ptxas}
+            "shape": main["shape"], "hgmma": hgmma, "by_path": rows,
+            "ptxas": ptxas}
 
 
 def phase_train_mamba(card: str) -> tuple[dict, dict]:

@@ -13,7 +13,7 @@ from repro_torch.core.participation import masked_combination
 __all__ = ["attention_ref", "attention_bf16p_ref", "attention_bf16p_budget",
            "gather_mix_ref", "gather_robust_mix_ref",
            "mix_int8_exact", "mix_int8_ref", "mix_ref", "ssd_ref",
-           "ssd_intra_chunk_ref"]
+           "ssd_intra_chunk_ref", "ssd_intra_chunk_split_ref", "tf32_rna"]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -278,4 +278,79 @@ def ssd_intra_chunk_ref(xd: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
     y = torch.einsum("bcijh,bcjhp->bcihp", scores, xdc)
     decay = torch.exp(cs[:, :, -1:, :] - cs)                      # (b,c,l,h)
     states = torch.einsum("bcjhp,bcjn->bchpn", xdc * decay[..., None], Bc)
+    return y.reshape(b, s, h, p), states, cs.reshape(b, s, h)
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    the nearest value with 10 fraction bits, ties away from zero (integer
+    operations on the bits; finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    hi = tf32_rna(x)
+    return hi, tf32_rna(x - hi)
+
+
+def _tf32_product(eq: str, a: torch.Tensor, b: torch.Tensor, *,
+                  split: bool = True) -> torch.Tensor:
+    """``einsum(eq, a, b)`` of float32 operands as the tensor cores take
+    them: with ``split``, hi*hi + hi*lo + lo*hi of TF32 parts, else one
+    product of the rounded operands; products and sums in float64 (only
+    the operands' rounding shows), the result in float32."""
+    f64 = torch.float64
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    out = torch.einsum(eq, ah.to(f64), bh.to(f64))
+    if split:
+        out = (out + torch.einsum(eq, ah.to(f64), bl.to(f64))
+               + torch.einsum(eq, al.to(f64), bh.to(f64)))
+    return out.float()
+
+
+def ssd_intra_chunk_split_ref(xd: torch.Tensor, dA: torch.Tensor,
+                              B: torch.Tensor, C: torch.Tensor, *,
+                              chunk: int, split: bool = True):
+    """The arithmetic of the CUDA intra-chunk kernel (``csrc/ssd_scan.cu``),
+    in plain PyTorch: the products :func:`ssd_intra_chunk_ref` computes in
+    float32, taken on TF32 operands.
+
+    * G = C_c B_c^T once per chunk: one product of the operands as they
+      are when B and C are bfloat16 (exact in TF32), else split;
+    * S = G o L in float32; Y_diag = S xd_c, split;
+    * state_c^T = (B_c o dec)^T xd_c with B_c o dec formed in float32,
+      split.
+
+    A split product is hi*hi + hi*lo + lo*hi, each part rounded by
+    :func:`tf32_rna`; with ``split=False`` every product is one TF32
+    product of the rounded operands (what one pass on the tensor cores
+    would give).  Sums are in float64, so the model shows the operands'
+    rounding and not the kernel's summation order.  Returns (Y_diag,
+    states, dA_cumsum) as :func:`ssd_intra_chunk_ref` does.
+    """
+    b, s, h, p = xd.shape
+    n = B.shape[-1]
+    if s % chunk:
+        raise ValueError(f"s={s} not divisible by chunk={chunk}")
+    nc, Q = s // chunk, chunk
+    f32, f64 = torch.float32, torch.float64
+    exact = B.dtype == torch.bfloat16 and C.dtype == torch.bfloat16
+    xdc = xd.to(f32).reshape(b, nc, Q, h, p)
+    Bc = B.to(f32).reshape(b, nc, Q, n)
+    Cc = C.to(f32).reshape(b, nc, Q, n)
+    if exact:
+        G = torch.einsum("bcin,bcjn->bcij", Cc.to(f64), Bc.to(f64)).float()
+    else:
+        G = _tf32_product("bcin,bcjn->bcij", Cc, Bc, split=split)
+    cs = torch.cumsum(dA.to(f32).reshape(b, nc, Q, h), dim=2)    # (b,c,l,h)
+    seg = cs[:, :, :, None, :] - cs[:, :, None, :, :]             # (b,c,i,j,h)
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=xd.device).tril()
+    Lm = torch.exp(seg.masked_fill(~mask[:, :, None], float("-inf")))
+    S = G[..., None] * Lm
+    y = _tf32_product("bcijh,bcjhp->bcihp", S, xdc, split=split)
+    decay = torch.exp(cs[:, :, -1:, :] - cs)                      # (b,c,l,h)
+    Bd = Bc[:, :, :, None, :] * decay[..., None]                  # (b,c,j,h,n)
+    states = _tf32_product("bcjhn,bcjhp->bchpn", Bd, xdc, split=split)
     return y.reshape(b, s, h, p), states, cs.reshape(b, s, h)

@@ -29,7 +29,7 @@ __all__ = ["ssd_intra_chunk", "ssd_chunked_kernel", "check_operands",
            "CHUNKS", "HEAD_DIMS", "MAX_STATE", "build"]
 
 #: chunk lengths, head dims and the largest state the kernel is built for
-#: (the largest, Q = 128, N = 128, P = 64, takes 165,888 bytes of the
+#: (the largest, Q = 128, N = 128, P = 64, takes 218,624 bytes of the
 #: 232,448 of shared memory a block may opt into on Hopper)
 CHUNKS = (32, 64, 128)
 HEAD_DIMS = (16, 32, 64)
@@ -143,6 +143,8 @@ def ssd_intra_chunk(xd: torch.Tensor, dA: torch.Tensor, B: torch.Tensor,
         B = B.contiguous()
     if C.stride(-1) != 1:
         C = C.contiguous()
+    if xd.data_ptr() % 16:
+        xd = xd.clone()        # the kernel streams xd in 16-byte pieces
     check_operands(xd, dA, B, C, chunk)
     return torch.ops.repro_torch.ssd_intra_chunk(xd, dA, B, C, chunk)
 

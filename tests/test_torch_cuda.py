@@ -26,9 +26,9 @@ from repro_torch.kernels.ref import (attention_bf16p_budget,  # noqa: E402
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the reference's SSD gates (tests/test_kernels.py), atol = rtol
 SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
-# the intra-chunk kernel against its plain version: both sum float32
-# products of the same (exactly widened) inputs, in other orders (up to
-# Q N = 16,384 per output; chip_smoke.py states the gate's origin)
+# the intra-chunk kernel against its plain version: float32 sums of up to
+# Q N = 16,384 products per output, the kernel's split into three TF32
+# products each (chip_smoke.py states the gate's origin)
 INTRA_TOL = 2e-4
 
 
@@ -144,14 +144,24 @@ def _ssd_inputs(gen, b, s, h, p, n, dtype):
 def test_cuda_ssd_intra_chunk_matches_plain(dtype):
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    # (b, s, h, p, n, chunk): every chunk and head dim, states from 8 to
-    # 128 and an odd one, mamba2's and zamba2's path shapes cut in s
-    cases = [(1, 64, 2, 16, 8, 32), (2, 128, 4, 32, 16, 64),
-             (1, 96, 3, 64, 32, 32), (1, 64, 2, 16, 13, 32),
-             (1, 256, 4, 64, 128, 128), (2, 256, 3, 64, 64, 128),
-             (1, 128, 2, 32, 128, 64)]
-    for b, s, h, p, n, chunk in cases:
+    # (b, s, h, p, n, chunk, A's scale): every chunk and head dim, states
+    # from 1 to 128 (8, 13, 33 and 100 are not multiples of the tensor
+    # cores' depth), mamba2's and zamba2's path shapes cut in s; head counts
+    # (5, 7) that split unevenly over the persistent blocks; and 168 to 640
+    # (chunk, head) items, more than the card has SMs, so the blocks' runs
+    # cross chunks.  A scale of 400 makes dA so negative that L and the
+    # decay underflow to 0.
+    cases = [(1, 64, 2, 16, 8, 32, 1), (2, 128, 4, 32, 16, 64, 1),
+             (1, 96, 3, 64, 32, 32, 1), (1, 64, 2, 16, 13, 32, 1),
+             (1, 256, 4, 64, 128, 128, 1), (2, 256, 3, 64, 64, 128, 1),
+             (1, 128, 2, 32, 128, 64, 1), (1, 128, 5, 16, 100, 128, 1),
+             (2, 192, 7, 32, 33, 64, 1), (1, 64, 3, 16, 1, 64, 1),
+             (3, 512, 7, 64, 33, 64, 1), (1, 1024, 80, 64, 128, 128, 1),
+             (2, 256, 5, 32, 100, 32, 1), (1, 256, 3, 16, 64, 128, 400),
+             (1, 128, 2, 32, 128, 128, 400)]
+    for b, s, h, p, n, chunk, scale in cases:
         x, dt, A, _, _ = _ssd_inputs(gen, b, s, h, p, n, dtype)
+        A = A * scale
         # B and C as strided slices of one projection, as in the model
         xBC = torch.randn((b, s, 3 * n + 5), generator=gen,
                           device="cuda").to(dtype)
@@ -167,7 +177,8 @@ def test_cuda_ssd_intra_chunk_matches_plain(dtype):
                                   refs):
             assert out.dtype == torch.float32 and out.shape == ref.shape
             err = ((out - ref).abs() / ref.abs().clamp(min=1)).max().item()
-            assert err <= INTRA_TOL, (b, s, h, p, n, chunk, name, err)
+            assert err <= INTRA_TOL, (b, s, h, p, n, chunk, scale, name,
+                                      err)
 
 
 @pytest.mark.cuda

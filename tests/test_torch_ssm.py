@@ -19,7 +19,9 @@ from repro.kernels.ssd_scan import ssd_intra_chunk as ref_intra  # noqa: E402
 from repro.models import ssm as ref_ssm  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.ops import ssd_op  # noqa: E402
-from repro_torch.kernels.ref import ssd_intra_chunk_ref, ssd_ref  # noqa: E402
+from repro_torch.kernels.ref import (ssd_intra_chunk_ref,  # noqa: E402
+                                     ssd_intra_chunk_split_ref, ssd_ref,
+                                     tf32_rna)
 from repro_torch.models import ssm  # noqa: E402
 
 # float32 sums of two frameworks over one sequence
@@ -107,6 +109,75 @@ def test_ssd_intra_chunk_ref_matches_reference_kernel(dtype):
     for got, want in zip(ssd_scan.ssd_intra_chunk(*pt, chunk=64), outs):
         assert torch.equal(got, want)
     assert ssd_scan.ssd_intra_chunk.launches == before
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    """``tf32_rna`` keeps 10 fraction bits, rounding to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` does; bf16 values are exact."""
+    rng = np.random.default_rng(20)
+    x = (rng.standard_normal(4096) * np.exp(rng.uniform(-20, 20, 4096))
+         ).astype(np.float32)
+    ulp = np.exp2(np.floor(np.log2(np.abs(x.astype(np.float64)))) - 10)
+    q = np.abs(x.astype(np.float64)) / ulp
+    want = np.sign(x) * np.floor(q + 0.5) * ulp
+    got = tf32_rna(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    one = np.float32(1.0)
+    ties = np.array([one + np.float32(2.0 ** -11), -(one + np.float32(2.0 ** -11)),
+                     one + np.float32(3 * 2.0 ** -11)], np.float32)
+    np.testing.assert_array_equal(
+        tf32_rna(torch.from_numpy(ties)).numpy(),
+        np.array([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1 + 2 * 2.0 ** -10],
+                 np.float32))
+    bf = torch.from_numpy(x).bfloat16().float()
+    assert torch.equal(tf32_rna(bf), bf)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_intra_chunk_split_ref_matches_reference_kernel(dtype):
+    """The model of the CUDA kernel's split-TF32 arithmetic against the
+    reference's Pallas kernel (interpret mode), as the plain version is."""
+    x, dt, A, B, C = _inputs(2, 128, 3, 16, 8, seed=2)
+    xd = x * dt[..., None]
+    dA = dt * A
+    pt, jx = _both([xd, dA, B, C], dtype, cast=(2, 3))
+    outs = ssd_intra_chunk_split_ref(*pt, chunk=64)
+    refs = ref_intra(*jx, chunk=64, interpret=True)
+    for got, want in zip(outs, refs):
+        assert got.dtype == torch.float32
+        assert tuple(got.shape) == tuple(want.shape)
+        _close(got, want)
+
+
+def test_ssd_intra_chunk_split_ref_needs_the_split():
+    """At one mamba2-shaped chunk (Q = N = 128, P = 64, bf16 B and C) the
+    split model stays within the card's gate (2e-4 relative to
+    max(1, |plain|)) of the plain float32 version, and one TF32 pass does
+    not: the gate sees plain TF32."""
+    rng = np.random.default_rng(21)
+    b, s, h, p, n, Q = 1, 128, 4, 64, 128, 128
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = (np.log1p(np.exp(rng.standard_normal((b, s, h)))) * 0.5
+          ).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(h) * 0.3)).astype(np.float32)
+    xd = torch.from_numpy(x * dt[..., None])
+    dA = torch.from_numpy(dt * A)
+    B = torch.from_numpy(rng.standard_normal((b, s, n)).astype(np.float32)
+                         ).bfloat16()
+    C = torch.from_numpy(rng.standard_normal((b, s, n)).astype(np.float32)
+                         ).bfloat16()
+    refs = ssd_intra_chunk_ref(xd, dA, B, C, chunk=Q)
+
+    def rel(outs):
+        return [((o - r).abs() / r.abs().clamp(min=1)).max().item()
+                for o, r in zip(outs, refs)]
+
+    split = rel(ssd_intra_chunk_split_ref(xd, dA, B, C, chunk=Q))
+    one = rel(ssd_intra_chunk_split_ref(xd, dA, B, C, chunk=Q, split=False))
+    assert max(split) <= 2e-4, split
+    assert one[0] > 2e-4, one          # Y_diag
+    assert one[1] > 2e-4, one          # the states
+    assert split[2] == 0.0 and one[2] == 0.0     # dA_cumsum is not a product
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
