@@ -74,12 +74,20 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
    path where ``flash_attention`` and ``ssd_intra_chunk`` run together.
 10. ``gather_robust_mix`` and ``gather_mix`` against their plain versions
     ``gather_robust_mix_ref`` and ``gather_mix_ref``: K in {8, 12, 16,
-    1024}, D in {3, 5, 8, 12} (ring, ring hops 2, grid, FedAvg), odd M,
-    all-active, all-inactive and random masks, realized link drops on the
-    base support (numpy), trimmed-mean and median slot weights; one
-    K*M > 2^31 case; and each path's shape with smollm-360m's M (training:
-    K=12 ring; serving: K=8 FedAvg, D=8), the kernel timed on the whole
-    buffer, the plain versions and ``A_eff.T @ W`` in column slices.
+    20, 1024}, D in {3, 5, 8, 12, 20} (ring, ring hops 2, grid, FedAvg;
+    FedAvg at K=20 takes the kernels' one-target route, every other table
+    the group route, and both must be covered), odd M, all-active,
+    all-inactive and random masks, realized link drops on the base
+    support (numpy), trimmed-mean and median slot weights; one
+    K*M > 2^31 case; and each path's shapes (training: K=12 ring, D=3;
+    serving: K=8 FedAvg, D=8): the column tile the mixers launch on
+    (12 x 22,369,621 and 8 x 33,554,432) and the whole of smollm-360m's
+    M, the kernel timed by a CUDA-event loop after two warm-up calls with
+    the plan computed once as the mixers do, the plain versions and
+    ``A_eff.T @ W`` in column slices, each beside its
+    byte and operations bounds (the robust kernel's operations: one sort
+    per distinct member set, min/max at half the float32 issue rate), its
+    route, launch shape and achieved bytes/s; the ``ptxas`` summary.
     Tolerance: max |kernel - plain| <= 1e-5 * max(1, |plain|); inactive
     rows bit-equal.
 11. Train smollm-360m at full width through ``train.main`` at K=12 (ring,
@@ -153,6 +161,11 @@ ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+# float32 instructions per second (an FMA counts 2 of FP32_FLOPS_PER_S), and
+# min/max at half that rate (64 a clock per SM against 128: the CUDA
+# programming guide's throughput table, compute capability 9.0)
+FP32_ISSUE_PER_S = FP32_FLOPS_PER_S / 2
+MINMAX_ISSUE_PER_S = FP32_ISSUE_PER_S / 2
 BF16_FLOPS_PER_S = 989e12        # H100 SXM, bf16 tensor cores, dense
 # the reference's attention gates (tests/test_kernels.py), as allclose's
 # atol = rtol
@@ -210,6 +223,15 @@ def card_info() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip().splitlines()[0]
+
+
+def card_clocks() -> str:
+    """The card's SM and memory clocks, temperature and power draw now."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,temperature.gpu,"
+         "power.draw", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
 
@@ -1516,16 +1538,48 @@ def _hold_gather(fn, plain, ops, W, m, label, width=None):
     return err, max_abs, out
 
 
-def _sort_ops(D: int) -> int:
-    """Float operations per (target, column) of the robust kernel: the
-    compare-exchanges of the bitonic network over P = next power of 2 >= D
-    slots (a min and a max each) and the D-slot contraction (a multiply
-    and an add each)."""
-    P = 1
-    while P < D:
-        P *= 2
-    lg = P.bit_length() - 1
-    return 2 * (P // 2) * lg * (lg + 1) // 2 + 2 * D
+def _sort_networks() -> dict:
+    """{width: compare-exchanges} of the robust kernel's sorting networks
+    (``csrc/sort_networks.cuh``)."""
+    import re
+
+    text = (ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+            / "sort_networks.cuh").read_text()
+    return {int(P): int(N) for P, N in
+            re.findall(r"^SORT_NET\((\d+), (\d+),", text, re.M)}
+
+
+def _robust_ops(idx, member, wslot, active) -> tuple[int, int]:
+    """(min/max, float32 multiply and add) operations per column of the
+    robust function for this draw, whatever computes it: one sort per
+    distinct member set of the active targets (the table's network for D,
+    a min and a max per compare-exchange), and a multiply and an add per
+    slot for each distinct (member set, weight row) among them."""
+    import torch
+
+    K, D = idx.shape
+    nets = _sort_networks()
+    exchanges = nets[min(P for P in nets if P >= D)]
+    act = active.reshape(-1) > 0
+    key = torch.where(member > 0, idx.long(), K).sort(dim=1).values[act]
+    if not key.numel():
+        return 0, 0
+    weights = wslot.float().contiguous().view(torch.int32).long()[act]
+    sets = torch.unique(key, dim=0).shape[0]
+    results = torch.unique(torch.cat([key, weights], dim=1), dim=0).shape[0]
+    return 2 * exchanges * sets, 2 * D * results
+
+
+def _ptxas_summary(lines: list) -> dict:
+    """Kernels, their register range and any spill, from ``ptxas`` lines."""
+    import re
+
+    regs = [int(m.group(1)) for line in lines
+            for m in [re.search(r"Used (\d+) registers", line)] if m]
+    spills = [line for line in lines if "spill" in line
+              and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    return {"kernels": len(regs), "registers": [min(regs), max(regs)],
+            "spills": spills}
 
 
 def phase_gather_kernels(card: str) -> tuple[dict, dict]:
@@ -1542,23 +1596,27 @@ def phase_gather_kernels(card: str) -> tuple[dict, dict]:
 
     gm.build()
     grm.build()
-    ptxas = {n: ptxas_lines(n) for n in ("gather_mix", "gather_robust_mix")}
-    for n, lines in ptxas.items():
-        for line in lines:
-            print(f"  ptxas ({n}):", line)
+    ptxas = {n: _ptxas_summary(ptxas_lines(n))
+             for n in ("gather_mix", "gather_robust_mix")}
+    for n, summary in ptxas.items():
+        print(f"  ptxas ({n}): {summary['kernels']} kernels, "
+              f"{summary['registers'][0]}-{summary['registers'][1]} "
+              f"registers, spills: {summary['spills'] or 'none'}")
     gen = torch.Generator(device="cuda").manual_seed(10)
     rng = np.random.default_rng(10)
+    # FedAvg at K = 20 takes the one-target route (no group stages its
+    # D = 20 rows); every other table the group route
     topos = [(K, kind, kw) for K in (8, 12, 16, 1024)
              for kind, kw in (("ring", {}), ("ring", {"hops": 2}),
                               ("grid", {}), ("fedavg", {}))
              if not (kind == "grid" and K == 8)
-             and not (kind == "fedavg" and K > 12)]
+             and not (kind == "fedavg" and K > 12)] + [(20, "fedavg", {})]
     n_cases, worst = 0, {"gather_mix": 0.0, "gather_robust_mix": 0.0}
-    Ds = set()
+    Ds, routes = set(), set()
     for K, kind, kw in topos:
         topo = make_topology(kind, K, **kw)
         Ds.add(topo.max_degree + 1)
-        M = 100_003 if K <= 16 else 4_099          # odd M
+        M = 100_003 if K <= 20 else 4_099          # odd M
         W = torch.randn((K, M), generator=gen, device="cuda")
         draws = [("ones", topo.A, np.ones(K)), ("zeros", topo.A, np.zeros(K)),
                  ("random", topo.A, (rng.random(K) < 0.6) * 1.0),
@@ -1567,6 +1625,7 @@ def phase_gather_kernels(card: str) -> tuple[dict, dict]:
         for mname, A_np, mask in draws:
             for robust in ("trimmed_mean", "median"):
                 lin, rob = _gather_operands(topo, A_np, mask, robust)
+                routes.add((K, kind, gm.stage_plan(lin[0]).route))
                 label = f"{kind}{kw} K={K} D={topo.max_degree + 1} {mname}"
                 err, _, out = _hold_gather(
                     grm.gather_robust_mix, gather_robust_mix_ref, rob, W,
@@ -1580,11 +1639,14 @@ def phase_gather_kernels(card: str) -> tuple[dict, dict]:
             del out
         del W
     print(f"phase 10: {n_cases} robust cases (trimmed mean and median) and "
-          f"{n_cases // 2} linear cases, K in (8, 12, 16, 1024), D in "
+          f"{n_cases // 2} linear cases, K in (8, 12, 16, 20, 1024), D in "
           f"{sorted(Ds)}, odd M, masks all-active / all-inactive / random "
           f"and realized link drops: within {TOL} (worst gather_robust_mix "
           f"{worst['gather_robust_mix']:.3e}, gather_mix "
-          f"{worst['gather_mix']:.3e}); inactive rows bit-equal")
+          f"{worst['gather_mix']:.3e}); inactive rows bit-equal; routes "
+          + ", ".join(f"{kind} K={K}: {r}" for K, kind, r in sorted(routes)))
+    if {r for _, _, r in routes} != {"group", "target"}:
+        raise AssertionError("phase 10 did not cover both kernel routes")
     torch.cuda.empty_cache()
 
     # 64-bit offsets: idx * M + j passes 2^31
@@ -1608,12 +1670,12 @@ def phase_gather_kernels(card: str) -> tuple[dict, dict]:
           f"gather_robust_mix rel err {big['gather_robust_mix']:.3e}, "
           f"gather_mix {big['gather_mix']:.3e}; inactive rows bit-equal")
 
-    def at_path_shape(K, topo, mask, label):
-        """Both kernels at one path's shape: K agents of smollm-360m's M
-        parameters, the kernel on the whole buffer, the plain versions and
-        ``A_eff.T @ W`` in column slices (the plain gather's (K, D, M)
-        intermediate does not fit)."""
-        M = full_width_M()
+    def at_path_shape(K, topo, mask, label, M):
+        """Both kernels on a (K, M) buffer of one path: a column tile the
+        mixers launch on, or the whole of smollm-360m's M parameters.  The
+        plan is computed once, outside the timed calls, as the mixers do;
+        the plain versions and ``A_eff.T @ W`` run in column slices (the
+        plain gather's (K, D, M) intermediate does not fit)."""
         D = topo.max_degree + 1
         lin, rob = _gather_operands(topo, topo.A, mask)
         W = torch.randn((K, M), generator=gen, device="cuda")
@@ -1622,18 +1684,28 @@ def phase_gather_kernels(card: str) -> tuple[dict, dict]:
         A_eff = masked_combination(
             torch.as_tensor(topo.A, dtype=torch.float32, device="cuda"),
             rob[3])
+        plan = gm.stage_plan(lin[0])
+        rplan = grm.share_sorts(plan, *rob)
+        minmax, fp = _robust_ops(*rob)
         table_bytes = K * D * (4 + 4 + 4) + 4 * K
-        for name, fn, plain, ops, ops_per, lib in (
+        for name, fn, plain, ops, p, lib, query in (
                 ("gather_robust_mix", grm.gather_robust_mix,
-                 gather_robust_mix_ref, rob, _sort_ops(D), False),
-                ("gather_mix", gm.gather_mix, gather_mix_ref, lin, 2 * D,
-                 True)):
+                 gather_robust_mix_ref, rob, rplan, False,
+                 grm.build().gather_robust_mix_shape),
+                ("gather_mix", gm.gather_mix, gather_mix_ref, lin, plan,
+                 True, gm.build().gather_mix_shape)):
+            launch = gm.group_launch(query, p, D, K, M)
             err, max_abs, out = _hold_gather(fn, plain, ops, W, rob[3],
                                              f"{name} at the {label} shape",
                                              width=width)
             del out
             torch.cuda.empty_cache()
-            ms = time_ms(lambda: fn(*ops, W), iters=3)
+            # the first calls after the plain version's slices and
+            # empty_cache ran slower on an H100: warm up first
+            for _ in range(2):
+                fn(*ops, W, p)
+            ms = time_ms(lambda: fn(*ops, W, p), iters=5)
+            clocks = card_clocks()
 
             def sliced(f):
                 return lambda: [f(W[:, a:a + width])
@@ -1643,38 +1715,63 @@ def phase_gather_kernels(card: str) -> tuple[dict, dict]:
             library_ms = (time_ms(sliced(lambda w: A_eff.T @ w), iters=1)
                           if lib else None)
             nbytes = 4 * 2 * K * M + table_bytes
-            flops = ops_per * K * M
             bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            bound_ops = flops / FP32_FLOPS_PER_S * 1e3
+            if lib:
+                ops_text = f"{2 * D * K * M:.3e} float32 operations"
+                bound_ops = 2 * D * K * M / FP32_FLOPS_PER_S * 1e3
+            else:
+                # min/max share the float32 issue slots at half their rate
+                ops_text = (f"{minmax * M:.3e} min/max and {fp * M:.3e} "
+                            f"float32 operations")
+                bound_ops = max((minmax + fp) * M / FP32_ISSUE_PER_S,
+                                minmax * M / MINMAX_ISSUE_PER_S) * 1e3
             rows[name] = {
                 "shape": [K, M], "D": D, "mask": [int(x) for x in mask],
+                "route": p.route, "group": p.group,
+                "staged_rows": p.staged_rows, "launch": launch,
                 "rel_err": err, "max_abs_err": max_abs, "ms": ms,
                 "plain_ms": plain_ms, "library_ms": library_ms,
                 "bound_ms": max(bound_bytes, bound_ops),
+                "bound_bytes_ms": bound_bytes, "bound_ops_ms": bound_ops,
                 "bound_by": "bytes" if bound_bytes >= bound_ops
-                else "operations", "bytes": nbytes, "flops": flops,
-                "column_slices": width}
+                else "operations", "bytes": nbytes,
+                "bytes_per_s": nbytes / ms * 1e3, "column_slices": width,
+                "clocks": clocks}
             print(f"phase 10: {name} at the {label} shape K={K} D={D} "
-                  f"M={M}: rel err {err:.3e}; kernel {ms:.3f} ms on the "
-                  f"whole buffer, plain {plain_ms:.3f} ms and "
+                  f"M={M}: {p.route} route (R={p.group}, U="
+                  f"{p.staged_rows}, launch {launch}); rel err {err:.3e}; "
+                  f"kernel {ms:.3f} ms ({nbytes / ms / 1e6:.1f} GB/s; SM "
+                  f"and memory clocks, temperature, power after it: "
+                  f"{clocks}), plain {plain_ms:.3f} "
+                  f"ms and "
                   + (f"A_eff.T @ W {library_ms:.3f} ms" if lib else
                      "no library call")
-                  + f" in slices of {width} columns, bound "
-                  f"{rows[name]['bound_ms']:.3f} ms ({rows[name]['bound_by']}"
-                  f": {nbytes:,} bytes, {flops:.3e} float32 operations) "
-                  f"[{card}]")
+                  + f" in slices of {width} columns; bound "
+                  f"{rows[name]['bound_ms']:.3f} ms "
+                  f"({rows[name]['bound_by']}: {nbytes:,} bytes in "
+                  f"{bound_bytes:.3f} ms, {ops_text} in {bound_ops:.3f} ms),"
+                  f" {rows[name]['bound_ms'] / ms:.1%} of it [{card}]")
         del W
         torch.cuda.empty_cache()
         return rows
 
-    train = at_path_shape(12, make_topology("ring", 12),
-                          np.array([1.0] * 5 + [0.0] + [1.0] * 5 + [0.0]),
-                          "training")
-    serve = at_path_shape(8, make_topology("fedavg", 8), np.ones(8),
-                          "serving")
+    from repro_torch.core.mixing import tile_columns
+
+    M = full_width_M()
+    train_mask = np.array([1.0] * 5 + [0.0] + [1.0] * 5 + [0.0])
+    shapes = {}
+    for label, K, kind, mask in (("training", 12, "ring", train_mask),
+                                 ("serving", 8, "fedavg", np.ones(8))):
+        topo = make_topology(kind, K)
+        # the launch the path makes (one column tile) and, as before, the
+        # whole buffer
+        shapes[label] = at_path_shape(K, topo, mask, f"{label} tile",
+                                      tile_columns(K))
+        shapes[f"{label} whole"] = at_path_shape(K, topo, mask,
+                                                 f"{label} whole-buffer", M)
     out = []
     for name, line in (("gather_robust_mix", 280), ("gather_mix", 245)):
-        row = train[name]
+        row = shapes["training"][name]
         out.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1684,7 +1781,10 @@ def phase_gather_kernels(card: str) -> tuple[dict, dict]:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "bytes": row["bytes"],
             "shape": row["shape"], "D": row["D"],
-            "by_path": {"train": row, "serve": serve[name]},
+            "by_path": {"train_tile": row,
+                        "serve_tile": shapes["serving"][name],
+                        "train": shapes["training whole"][name],
+                        "serve": shapes["serving whole"][name]},
             "ptxas": ptxas[name]})
     return tuple(out)
 

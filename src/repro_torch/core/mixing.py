@@ -467,6 +467,7 @@ class _NeighborTable:
         self.idx = torch.as_tensor(idx)              # (K, D) int32
         self.valid = torch.as_tensor(valid)          # (K, D) bool
         self._on: dict = {}
+        self._plans: dict = {}
 
     @property
     def slots(self) -> int:
@@ -477,6 +478,17 @@ class _NeighborTable:
         if key not in self._on:
             self._on[key] = (self.idx.to(device), self.valid.to(device))
         return self._on[key]
+
+    def plan(self, device):
+        """The gather kernels' plan of this table on ``device``
+        (:func:`repro_torch.kernels.gather_mix.stage_plan`), computed
+        once per device."""
+        from repro_torch.kernels.gather_mix import stage_plan
+
+        key = str(torch.device(device))
+        if key not in self._plans:
+            self._plans[key] = stage_plan(self.idx).to(device)
+        return self._plans[key]
 
 
 class NeighborGatherMixer(Mixer):
@@ -519,8 +531,10 @@ class NeighborGatherMixer(Mixer):
         from repro_torch.kernels.gather_mix import gather_mix
 
         gw = _gather_weights(A_eff, idx, valid)
+        plan = (self.table.plan(idx.device) if idx.device.type == "cuda"
+                else None)
         return tree_unflatten(params, tiled_apply(
-            leaves, lambda tile: gather_mix(idx, gw, tile)))
+            leaves, lambda tile: gather_mix(idx, gw, tile, plan)))
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"NeighborGatherMixer(K={self.num_agents}, "
@@ -926,16 +940,20 @@ class FusedNeighborhoodMixer(Mixer):
         use = True if self.use_kernel is None else bool(self.use_kernel)
         if not use or self.inner._table is None:
             return self.inner(params, active, A_t)
-        from repro_torch.kernels.gather_robust_mix import gather_robust_mix
+        from repro_torch.kernels.gather_robust_mix import (gather_robust_mix,
+                                                           share_sorts)
 
         idx, member, S = self.inner._gather_members(active, A_t)
         wslot = self.inner._slot_weights(S, idx.shape[1])
         act = active.to(device=idx.device, dtype=torch.float32)
+        plan = (share_sorts(self.inner._table.plan(idx.device), idx, member,
+                            wslot, act) if idx.device.type == "cuda"
+                else None)
         # the kernel's inactive branch returns the agent's own float32 row;
         # the round trip is exact for bf16/f16/f32 leaves
         return tree_unflatten(params, tiled_apply(
-            tree_leaves(params),
-            lambda tile: gather_robust_mix(idx, member, wslot, act, tile)))
+            tree_leaves(params), lambda tile: gather_robust_mix(
+                idx, member, wslot, act, tile, plan)))
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"FusedNeighborhoodMixer({self.inner!r}, "

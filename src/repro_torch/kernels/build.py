@@ -3,8 +3,9 @@
 Each source in ``kernels/csrc`` has a plain C interface and includes no
 PyTorch header, so ``nvcc`` compiles it in seconds.  The shared library
 goes into ``.repro_torch_build/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads at once.  Any failure raises:
+``.gitignore``), named by a hash of the source, the headers beside it
+(``*.cuh``) and the flags, so a changed source or header rebuilds and an
+unchanged one loads at once.  Any failure raises:
 there is no fallback.
 """
 from __future__ import annotations
@@ -68,10 +69,11 @@ def _compile(src: Path, out: Path) -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -219,20 +219,35 @@ def test_cuda_ssd_intra_chunk_rejects_what_it_does_not_take():
 
 
 def _gather_cases():
-    """(label, topology, mask) cases of the two gather kernels: ring,
-    ring hops = 2, grid and FedAvg (D = 3, 5, 5, K), all-active,
-    all-inactive and random masks."""
+    """(label, topology, realized A, mask) cases of the two gather kernels:
+    ring, ring hops = 2, grid and FedAvg (D = 3, 5, 5, K), all-active,
+    all-inactive and random masks; K = 1024 ring and grid (the group route
+    with more staged rows than targets); FedAvg at K = 20, whose D = 20
+    rows no group stages (the one-target route); and a FedAvg draw in which
+    some targets share a member set and others do not."""
     import numpy as np
+
+    from repro_torch.core.topology import metropolis_weights
 
     rng = np.random.default_rng(0)
     for kind, K, kw in (("ring", 12, {}), ("ring", 16, {"hops": 2}),
                         ("grid", 12, {}), ("fedavg", 8, {}),
-                        ("fedavg", 12, {})):
+                        ("fedavg", 12, {}), ("ring", 1024, {}),
+                        ("grid", 1024, {}), ("fedavg", 20, {})):
         topo = make_topology(kind, K, **kw)
         for mname, mask in (("ones", np.ones(K)), ("zeros", np.zeros(K)),
                             ("random", (rng.random(K) < 0.6) * 1.0)):
-            yield f"{kind}{kw} K={K} {mname}", topo, torch.as_tensor(
-                mask, dtype=torch.float32, device="cuda")
+            yield f"{kind}{kw} K={K} {mname}", topo, topo.A, mask
+    topo = make_topology("fedavg", 8)
+    adj = np.eye(8, dtype=bool)
+    adj[:4, :4] = adj[4:6, 4:6] = True       # sets {0..3}, {4, 5}, {6}, {7}
+    yield ("fedavg K=8 cliques", topo, metropolis_weights(adj),
+           np.array([1.0] * 7 + [0.0]))
+
+
+#: column counts: M = 1, and M = 1 (mod 4) to 3 (mod 4), so that the rows
+#: of a (K, M) buffer start at every phase of a 16-byte word
+_GATHER_M = (1, 1001, 1002, 1003, 65_537)
 
 
 def _rel(out, ref):
@@ -248,21 +263,26 @@ def test_cuda_gather_mix_matches_plain():
     from repro_torch.kernels.ref import gather_mix_ref
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    for label, topo, m in _gather_cases():
+    routes = set()
+    for label, topo, A_np, mask in _gather_cases():
         idx, valid = (torch.as_tensor(t, device="cuda")
                       for t in topo.neighbor_table())
-        A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+        A = torch.as_tensor(A_np, dtype=torch.float32, device="cuda")
+        m = torch.as_tensor(mask, dtype=torch.float32, device="cuda")
         gw = _gather_weights(masked_combination(A, m), idx, valid)
-        for M in (1, 1001, 65_537):
+        plan = gm.stage_plan(idx)
+        routes.add(plan.route)
+        for M in _GATHER_M:
             W = torch.randn((topo.num_agents, M), generator=gen,
                             device="cuda")
             before = gm.gather_mix.launches
-            out = gm.gather_mix(idx, gw, W)
+            out = gm.gather_mix(idx, gw, W, plan)
             torch.cuda.synchronize()
             assert gm.gather_mix.launches == before + 1
             assert _rel(out, gather_mix_ref(idx, gw, W)) <= 1e-5, (label, M)
             dead = m == 0
             assert torch.equal(out[dead], W[dead]), label
+    assert routes == {"group", "target"}
 
 
 @pytest.mark.cuda
@@ -270,27 +290,36 @@ def test_cuda_gather_mix_matches_plain():
 def test_cuda_gather_robust_mix_matches_plain(robust):
     _need_card()
     from repro_torch.core.mixing import make_mixer
+    from repro_torch.kernels import gather_mix as gm
     from repro_torch.kernels import gather_robust_mix as grm
     from repro_torch.kernels.ref import gather_robust_mix_ref
 
     gen = torch.Generator(device="cuda").manual_seed(3)
-    for label, topo, m in _gather_cases():
+    routes, shared = set(), False
+    for label, topo, A_np, mask in _gather_cases():
         mixer = make_mixer(robust, topo, trim=1, scope="neighborhood",
                            gather="table", device="cuda")
-        A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+        A = torch.as_tensor(A_np, dtype=torch.float32, device="cuda")
+        m = torch.as_tensor(mask, dtype=torch.float32, device="cuda")
         idx, member, S = mixer._gather_members(m, A)
         wslot = mixer._slot_weights(S, idx.shape[1])
-        for M in (1, 1001, 65_537):
+        plan = grm.share_sorts(gm.stage_plan(idx), idx, member, wslot, m)
+        routes.add(plan.route)
+        if plan.route == "group":
+            leaders = int(((plan.order & grm.LEADER) != 0).sum())
+            shared |= 0 < leaders < int((m > 0).sum())
+        for M in _GATHER_M:
             W = torch.randn((topo.num_agents, M), generator=gen,
                             device="cuda")
             before = grm.gather_robust_mix.launches
-            out = grm.gather_robust_mix(idx, member, wslot, m, W)
+            out = grm.gather_robust_mix(idx, member, wslot, m, W, plan)
             torch.cuda.synchronize()
             assert grm.gather_robust_mix.launches == before + 1
             ref = gather_robust_mix_ref(idx, member, wslot, m, W)
             assert _rel(out, ref) <= 1e-5, (label, M)
             dead = m == 0
             assert torch.equal(out[dead], W[dead]), label
+    assert routes == {"group", "target"} and shared
 
 
 @pytest.mark.cuda
