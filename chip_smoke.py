@@ -110,20 +110,33 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     phase 1's tolerance; uniform int8 values times uniform scales up to 1,
     whose terms reach 127, are held against the float64 value within the
     float32 summation bound (``mix_int8_exact``), with cuBLAS's error
-    beside the kernel's.  One K*M > 2^31 case; and the training path's
-    shape (K=8 FedAvg, smollm's M padded to the 512-column tile, one
-    column tile at a time with its scales), where the kernel, the plain
-    version and the composition (dequantize, then ``(A_eff - I).T @ C``)
-    are timed.
+    beside the kernel's.  K in {1, 2, 3, 5, 9, 16, 17} at the edges of
+    the kernel's routes; ``Wq`` at storage offsets 1, 2, 3 (the scalar
+    route) and 8, bit-equal to the aligned ``Wq``; every route covered.
+    One K*M > 2^31 case; and the training path's shape (K=8 FedAvg,
+    smollm's M padded to the 512-column tile, one column tile at a time
+    with its scales), where the kernel (rows route) and the same values
+    at a 1-byte storage offset (the scalar route, the earlier one column
+    a thread) are timed in turns by CUDA-event loops after two warm-up
+    calls, per full tile (the launch the path makes) and per combination,
+    beside the byte bound, GB/s and clocks, with the plain version and
+    the composition (dequantize, then ``(A_eff - I).T @ C``); and K=64
+    and 240 (M = 2^22, operations-bound), passes route against scalar
+    route (no slower).  The ``ptxas`` summary (no spill) and the SASS memory
+    instructions (a 16-byte evict-first store required).
 14. Train smollm-360m at full width through ``train.main`` at K=8 (q=0.9,
     B=1, S=1024, SGD mu=0.05, ``--mix pallas``, ``use_kernels=True``):
     (a) the reference's compressed_fedavg preset (FedAvg, int8, error
     feedback, T=2), 3 blocks through ``diffusion_mix_int8``, a profiled
     block, then one more combination of the trained stack: the kernel's
     delta against the plain version's from the same uniforms within one
-    bf16 ulp plus the summation bound and the messages bit-equal,
-    inactive agents' parameters and residual bit-equal, every active
-    residual within 2 quantization steps of its (agent, tile); (b) the
+    bf16 ulp plus the summation bound and the messages bit-equal, one
+    more under ``torch.profiler`` whose device time is printed by stage
+    (the ``record_function`` ranges of ``core/mixing.py``: rounding
+    draws, quantizer, int8 cast, kernel, messages, flatten copies, writes
+    into leaves; a report), inactive agents' parameters and residual
+    bit-equal, every active residual within 2 quantization steps of its
+    (agent, tile); (b) the
     compressed_diffusion preset (ring, top-k 0.1, CHOCO's diff mode,
     gamma 0.5, T=1), 2 blocks through ``diffusion_mix``, then one more
     combination: the reference copy moves for active agents only, and
@@ -219,6 +232,18 @@ SSM_GRAD_TOL_F32 = 1e-3
 SSM_LOSS_TOL_F32 = 1e-5
 
 
+#: the stages of one fused int8 combination, by the record_function
+#: ranges that core/mixing.py marks them with
+INT8_STAGES = (("rounding draws", "mix_int8.draw"),
+               ("quantizer passes", "mix_int8.quantize"),
+               ("int8 cast, scale copy", "mix_int8.cast"),
+               ("diffusion_mix_int8", "mix_int8.kernel"),
+               ("messages (q * scale)", "mix_int8.messages"),
+               ("tiled flatten copies", "tiled.gather"),
+               ("writes into leaves", "tiled.scatter"))
+RANGE_NAMES = {r for _, r in INT8_STAGES}
+
+
 def card_info() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -257,7 +282,6 @@ def device_ms(fn, iters: int = 20) -> float:
     ``iters`` calls after a warm-up.  Where the host takes longer per call
     than the device, :func:`time_ms` measures the host; this does not."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -266,23 +290,56 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    ns = sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
-             if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0)
+    ns = sum(n for _, n in device_events(prof))
     if not ns:
         raise AssertionError("the profiler saw no device time")
     return ns / 1e6 / iters
 
 
+def device_events(prof):
+    """(name, nanoseconds) of each device activity in a ``torch.profiler``
+    trace (kernels, copies, sets), without the device-side spans of
+    ``record_function`` ranges, which repeat their kernels' time."""
+    from torch.autograd import DeviceType
+
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or e.duration_ns() <= 0:
+            continue
+        annotation = getattr(e, "is_user_annotation", None)
+        if annotation is not None and annotation():
+            continue
+        if annotation is None and e.name() in RANGE_NAMES:
+            continue
+        yield e.name(), e.duration_ns()
+
+
 def sass_count(name: str, opcode: str) -> int:
-    """How many ``opcode`` instructions ``cuobjdump -sass`` finds in the
+    """How many instructions whose opcode starts with ``opcode``
+    ``cuobjdump -sass`` finds in the library built for
+    ``csrc/<name>.cu``."""
+    return sum(sass_opcodes(name, (opcode,)).values())
+
+
+def sass_opcodes(name: str, prefixes=("LDG", "STG", "LDS")) -> dict:
+    """How many instructions of each opcode starting with one of
+    ``prefixes`` (``STG.E.EF.128``, say) ``cuobjdump -sass`` finds in the
     library built for ``csrc/<name>.cu``."""
+    import re
+    from collections import Counter
+
     from repro_torch.kernels import build
 
     cuobjdump = Path(build.find_nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(build._lib_path(name))], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    return sum(opcode in line for line in sass.splitlines())
+    ops = Counter()
+    for line in sass.splitlines():
+        m = re.search(r"\*/\s*(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)",
+                      line)
+        if m and m.group(1).startswith(tuple(prefixes)):
+            ops[m.group(1)] += 1
+    return dict(sorted(ops.items()))
 
 
 def rel_err(out, ref) -> float:
@@ -736,7 +793,6 @@ def _profile_block(state, cfg, K, T, B, S, steady_s: float, card: str, *,
     ``key_averages()`` builds every host event too and took minutes at a
     few hundred thousand launches."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.diffusion import DiffusionConfig, DiffusionEngine
@@ -763,10 +819,9 @@ def _profile_block(state, cfg, K, T, B, S, steady_s: float, card: str, *,
         wall = time.perf_counter() - t0
     del new_state
     by_name: dict = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
-            ms, n = by_name.get(e.name(), (0.0, 0))
-            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    for name, ns in device_events(prof):
+        ms, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (ms + ns / 1e6, n + 1)
     kernels = [(name, ms, n) for name, (ms, n) in by_name.items()]
     busy_ms = sum(ms for _, ms, _ in kernels)
     top = sorted(kernels, key=lambda r: -r[1])[:8]
@@ -2139,9 +2194,23 @@ def _uniform_int8_operands(gen, K: int, M: int, tile_m: int):
     return Wq, scales
 
 
+def _at_offset(Wq, offset: int):
+    """A contiguous copy of ``Wq`` whose data pointer lies ``offset`` bytes
+    past a 16-byte boundary: a view at a storage offset, as a caller may
+    hand the kernel."""
+    import torch
+
+    buf = torch.empty(Wq.numel() + 16, dtype=torch.int8, device=Wq.device)
+    out = buf[offset:offset + Wq.numel()].view(Wq.shape)
+    out.copy_(Wq)
+    return out
+
+
 def phase_int8_kernel(card: str) -> dict:
     """Phase 13: ``diffusion_mix_int8`` against its plain version
-    ``mix_int8_ref`` on the card, then the training path's shape timed."""
+    ``mix_int8_ref`` on the card, every route covered, then the training
+    path's shape and two operations-bound shapes timed, the redesigned
+    routes against the scalar route (the earlier design) in turns."""
     import numpy as np
     import torch
 
@@ -2155,6 +2224,17 @@ def phase_int8_kernel(card: str) -> dict:
     ptxas = ptxas_lines("diffusion_mix_int8")
     for line in ptxas:
         print("  ptxas:", line)
+    ptxas_sum = _ptxas_summary(ptxas)
+    sass = sass_opcodes("diffusion_mix_int8")
+    wide = {op: n for op, n in sass.items()
+            if op.startswith("STG") and op.endswith(".128")}
+    print(f"phase 13: ptxas: {ptxas_sum['kernels']} kernels, "
+          f"{ptxas_sum['registers'][0]}-{ptxas_sum['registers'][1]} "
+          f"registers, spills: {ptxas_sum['spills'] or 'none'}; SASS memory "
+          f"instructions {sass}")
+    if ptxas_sum["spills"] or not any(".EF." in op for op in wide):
+        raise AssertionError("phase 13: the kernel spills or has no 16-byte "
+                             f"evict-first store ({wide})")
     gen = torch.Generator(device="cuda").manual_seed(13)
     rng = np.random.default_rng(13)
 
@@ -2251,6 +2331,51 @@ def phase_int8_kernel(card: str) -> dict:
           f"({uni['plain_share']:.3f}); the kernel no worse than cuBLAS in "
           f"{uni['kernel_not_worse']} of {uni['cases']}; kernel vs plain "
           f"{uni['rel_vs_plain']:.3e} relative to max(1, |plain|) [{card}]")
+    # the routes' edges (rows up to K = 16, passes past it) on the
+    # quantizer's operands, an odd count of 512-column tiles
+    routes, n_edge, edge_worst = {}, 0, 0.0
+    for K in (1, 2, 3, 5, 9, 16, 17):
+        A = torch.as_tensor(make_topology("erdos", K, seed=K).A,
+                            dtype=torch.float32, device="cuda")
+        Wq, scales = _int8_operands(gen, K, 512 * 201, 512)
+        m = torch.as_tensor((rng.random(K) < 0.6) * 1.0,
+                            dtype=torch.float32, device="cuda")
+        for sub in (False, True):
+            err, _ = hold(A, m, Wq, scales, 512, sub,
+                          f"K={K} route edge subtract_identity={sub}")
+            edge_worst = max(edge_worst, err)
+            n_edge += 1
+        routes.setdefault(dmi.route(Wq, 512), []).append(K)
+        del Wq, scales
+    # Wq at storage offsets 1, 2, 3 (the scalar route) and 8 (4-byte but
+    # not 16-byte aligned: a vector route): bit-equal to the aligned Wq
+    n_offset = 0
+    for K in (8, 20):
+        A = torch.as_tensor(make_topology("erdos", K, seed=K).A,
+                            dtype=torch.float32, device="cuda")
+        Wq, scales = _int8_operands(gen, K, 512 * 201, 512)
+        m = torch.as_tensor((rng.random(K) < 0.6) * 1.0,
+                            dtype=torch.float32, device="cuda")
+        want = dmi.diffusion_mix_int8(A, m, Wq, scales, tile_m=512,
+                                      subtract_identity=True)
+        for off in (1, 2, 3, 8):
+            Wm = _at_offset(Wq, off)
+            label = f"K={K} Wq at storage offset {off}"
+            hold(A, m, Wm, scales, 512, True, label)
+            got = dmi.diffusion_mix_int8(A, m, Wm, scales, tile_m=512,
+                                         subtract_identity=True)
+            if not torch.equal(got, want):
+                raise AssertionError(f"diffusion_mix_int8 {label}: differs "
+                                     "from the aligned Wq's result")
+            routes.setdefault(dmi.route(Wm, 512), []).append(f"{K}@{off}")
+            n_offset += 1
+        del Wq, scales, Wm, want, got
+    if set(routes) != set(dmi.ROUTES):
+        raise AssertionError(f"phase 13 did not cover every route: {routes}")
+    print(f"phase 13: {n_edge} cases at the routes' edges (K in 1, 2, 3, 5, "
+          f"9, 16, 17) within {TOL} (worst {edge_worst:.3e}); {n_offset} Wq "
+          f"at storage offsets 1, 2, 3, 8 bit-equal to the aligned Wq; "
+          f"routes taken: {routes}")
     # 64-bit offsets: l * M + j passes 2^31
     K, M = 8, (1 << 28) + 512
     A = torch.as_tensor(make_topology("ring", K).A, dtype=torch.float32,
@@ -2263,9 +2388,27 @@ def phase_int8_kernel(card: str) -> dict:
     print(f"phase 13: K={K} M={M} (K*M = {K * M:,} > 2^31): rel err "
           f"{big:.3e}")
 
+    def turns(fn_new, fn_old, iters):
+        """CUDA-event loops of both after two warm-up calls each, in the
+        order new, old, old, new; the mean of each one's two readings."""
+        for fn in (fn_new, fn_old):
+            for _ in range(2):
+                fn()
+        a = time_ms(fn_new, iters)
+        b = time_ms(fn_old, iters)
+        b2 = time_ms(fn_old, iters)
+        a2 = time_ms(fn_new, iters)
+        return (a + a2) / 2, (b + b2) / 2, [a, a2], [b, b2]
+
+    def mix(A, m, tile, sub=True):
+        return lambda w, sc: dmi.diffusion_mix_int8(
+            A, m, w, sc, tile_m=tile, subtract_identity=sub)
+
     # the training path's shape: K = 8 FedAvg, smollm-360m's M padded to
     # the 512-column tile, one column tile of the fused path at a time
-    # with its own scales, as PallasFusedMixer.mix_int8 launches it
+    # with its own scales, as PallasFusedMixer.mix_int8 launches it; the
+    # same values at a storage offset of 1 byte take the scalar route, the
+    # one-column-a-thread design the vector routes replaced
     K, M_real = 8, full_width_M()
     tile, M, cols = int8_layout(K, M_real)
     A = torch.as_tensor(averaging_matrix(K), dtype=torch.float32,
@@ -2278,57 +2421,143 @@ def phase_int8_kernel(card: str) -> dict:
         e, a = hold(A, m, Wq, sc, tile, True, f"training shape tile "
                     f"{tuple(Wq.shape)}")
         err, max_abs = max(err, e), max(max_abs, a)
+    scalar = [(_at_offset(Wq, 1), sc) for Wq, sc in tiles]
+    path_routes = (dmi.route(tiles[0][0], tile), dmi.route(scalar[0][0],
+                                                           tile))
+    if path_routes != ("rows", "scalar"):
+        raise AssertionError(f"phase 13: the path tile took {path_routes}")
+    f = mix(A, m, tile)
+    if not torch.equal(f(*tiles[0]), f(*scalar[0])):
+        raise AssertionError("phase 13: the path tile's rows and scalar "
+                             "routes differ")
     torch.cuda.empty_cache()
     A_sub = masked_combination(A, m) - torch.eye(K, device="cuda")
 
-    def combination(f):
+    def combination(g, ops):
         def run():
-            for Wq, sc in tiles:
-                f(Wq, sc)
+            for Wq, sc in ops:
+                g(Wq, sc)
         return run
 
     def composition(Wq, sc):
         C = (Wq.float().view(K, -1, tile) * sc[:, :, None]).view(K, -1)
         return A_sub.T @ C
 
-    ms = time_ms(combination(lambda w, sc: dmi.diffusion_mix_int8(
-        A, m, w, sc, tile_m=tile, subtract_identity=True)), iters=3)
-    tile_ms = time_ms(lambda: dmi.diffusion_mix_int8(
-        A, m, tiles[0][0], tiles[0][1], tile_m=tile, subtract_identity=True))
+    tile_ms, tile_scalar_ms, tile_reads, tile_scalar_reads = turns(
+        lambda: f(*tiles[0]), lambda: f(*scalar[0]), 20)
+    clocks = card_clocks()
+    ms, scalar_ms, reads, scalar_reads = turns(
+        combination(f, tiles), combination(f, scalar), 5)
+    plain_tile_ms = time_ms(lambda: mix_int8_ref(
+        A, m, *tiles[0], tile_m=tile, subtract_identity=True), iters=3)
     plain_ms = time_ms(combination(lambda w, sc: mix_int8_ref(
-        A, m, w, sc, tile_m=tile, subtract_identity=True)), iters=1)
-    library_ms = time_ms(combination(composition), iters=1)
+        A, m, w, sc, tile_m=tile, subtract_identity=True), tiles), iters=1)
+    library_tile_ms = time_ms(lambda: composition(*tiles[0]), iters=3)
+    library_ms = time_ms(combination(composition, tiles), iters=1)
+    del scalar
     nbytes = K * M + 4 * K * (M // tile) + 4 * K * M + 4 * (K * K + K)
     flops = 2 * K * K * M + K * M
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = flops / FP32_FLOPS_PER_S * 1e3
     w0 = tiles[0][0].shape[1]
-    tile_bound = ((5 * K * w0 + 4 * K * (w0 // tile)) / HBM_BYTES_PER_S
-                  * 1e3)
+    tile_bytes = 5 * K * w0 + 4 * K * (w0 // tile) + 4 * (K * K + K)
+    tile_bound = tile_bytes / HBM_BYTES_PER_S * 1e3
+    combo = {"ms": ms, "reads": reads, "scalar_route_ms": scalar_ms,
+             "scalar_route_reads": scalar_reads, "plain_ms": plain_ms,
+             "composition_ms": library_ms,
+             "bound_ms": max(bound_bytes, bound_ops),
+             "bound_by": ("bytes" if bound_bytes >= bound_ops
+                          else "operations"),
+             "share_of_bound": max(bound_bytes, bound_ops) / ms,
+             "bytes": nbytes, "flops": flops,
+             "bytes_per_s": nbytes / ms * 1e3}
+    print(f"phase 13: training shape K={K} FedAvg, M={M_real} padded to {M} "
+          f"(tile {tile}), {len(tiles)} column tiles of {cols} columns: rel "
+          f"err {err:.3e}; the same values at a 1-byte storage offset take "
+          f"the scalar route (one column a thread), bit-equal [{card}]")
+    print(f"phase 13: one full tile ({K} x {w0}, the launch the path "
+          f"makes): rows route {tile_ms:.3f} ms ({tile_reads[0]:.3f}, "
+          f"{tile_reads[1]:.3f}; {tile_bytes / tile_ms / 1e6:.1f} GB/s), "
+          f"{tile_bound / tile_ms:.1%} of its {tile_bound:.3f} ms byte "
+          f"bound; scalar route {tile_scalar_ms:.3f} ms "
+          f"({tile_scalar_reads[0]:.3f}, {tile_scalar_reads[1]:.3f}; "
+          f"{tile_bound / tile_scalar_ms:.1%}); plain {plain_tile_ms:.3f} "
+          f"ms, dequantize then (A_eff - I).T @ C {library_tile_ms:.3f} ms; "
+          f"SM and memory clocks, temperature, power after it: {clocks} "
+          f"[{card}]")
+    print(f"phase 13: one combination ({len(tiles)} tiles): rows route "
+          f"{ms:.3f} ms ({reads[0]:.3f}, {reads[1]:.3f}; "
+          f"{combo['bytes_per_s'] / 1e9:.1f} GB/s), {combo['share_of_bound']:.1%} "
+          f"of its {combo['bound_ms']:.3f} ms bound ({combo['bound_by']}: "
+          f"{nbytes:,} bytes, {flops:.3e} float32 operations); scalar route "
+          f"{scalar_ms:.3f} ms ({scalar_reads[0]:.3f}, {scalar_reads[1]:.3f});"
+          f" plain {plain_ms:.3f} ms, dequantize then (A_eff - I).T @ C "
+          f"{library_ms:.3f} ms [{card}]")
+    K_path, n_tiles = K, len(tiles)
+    del tiles
+    torch.cuda.empty_cache()
+
+    # where the float32 operations bound it: K = 64 and 240, M = 2^22, the
+    # passes route against the scalar route on the same values
+    ops_cases = {}
+    for K in (64, 240):
+        M = 1 << 22
+        A = torch.as_tensor(make_topology("erdos", K, seed=K).A,
+                            dtype=torch.float32, device="cuda")
+        m = torch.as_tensor((rng.random(K) < 0.8) * 1.0,
+                            dtype=torch.float32, device="cuda")
+        Wq, sc = _uniform_int8_operands(gen, K, M, 512)
+        Wm = _at_offset(Wq, 1)
+        f = mix(A, m, 512)
+        if (dmi.route(Wq, 512), dmi.route(Wm, 512)) != ("passes",
+                                                        "scalar"):
+            raise AssertionError(f"phase 13: K={K} took the wrong routes")
+        if not torch.equal(f(Wq, sc), f(Wm, sc)):
+            raise AssertionError(f"phase 13: K={K} M={M}: the passes and "
+                                 "scalar routes differ")
+        k_ms, s_ms, k_reads, s_reads = turns(lambda: f(Wq, sc),
+                                             lambda: f(Wm, sc), 5)
+        c_bytes = 5 * K * M + 4 * K * (M // 512)
+        c_flops = 2 * K * K * M + K * M
+        b_bytes = c_bytes / HBM_BYTES_PER_S * 1e3
+        b_ops = c_flops / FP32_FLOPS_PER_S * 1e3
+        bound = max(b_bytes, b_ops)
+        ops_cases[K] = {"shape": [K, M], "ms": k_ms, "reads": k_reads,
+                        "scalar_route_ms": s_ms, "scalar_route_reads": s_reads,
+                        "bound_ms": bound, "bound_bytes_ms": b_bytes,
+                        "bound_ops_ms": b_ops,
+                        "bound_by": "bytes" if b_bytes >= b_ops
+                        else "operations", "speedup": s_ms / k_ms}
+        print(f"phase 13: K={K} M={M}: passes route {k_ms:.3f} ms "
+              f"({k_reads[0]:.3f}, {k_reads[1]:.3f}), scalar route "
+              f"{s_ms:.3f} ms ({s_reads[0]:.3f}, {s_reads[1]:.3f}): "
+              f"{s_ms / k_ms:.2f}x; bound {bound:.3f} ms "
+              f"({ops_cases[K]['bound_by']}: {c_flops:.3e} float32 "
+              f"operations in {b_ops:.3f} ms, {c_bytes:,} bytes in "
+              f"{b_bytes:.3f} ms), {bound / k_ms:.1%} of it [{card}]")
+        if not k_ms <= s_ms:
+            raise AssertionError(f"phase 13: K={K}: the passes route is "
+                                 "slower than the scalar route")
+        del Wq, sc, Wm
+        torch.cuda.empty_cache()
     row = {"name": "diffusion_mix_int8", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/diffusion_mix_int8.cu",
            "replaces": "src/repro/kernels/diffusion_mix.py:132",
-           "launches": None, "max_abs_err": max_abs, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
-           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
-           "library_ms": None, "composition_ms": library_ms,
-           "bytes": nbytes, "flops": flops, "shape": [K, M],
-           "real_columns": M_real, "tile_m": tile,
-           "column_tiles": len(tiles), "one_tile_ms": tile_ms,
-           "one_tile_bound_ms": tile_bound, "rel_err": err,
-           "cases": n_cases, "worst_rel_err": worst, "big_rel_err": big,
-           "uniform_witness": uni,
-           "ptxas": ptxas}
-    print(f"phase 13: training shape K={K} FedAvg, M={M_real} padded to {M} "
-          f"(tile {tile}), {len(tiles)} column tiles of {cols} columns: rel "
-          f"err {err:.3e}; one combination: kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, dequantize then (A_eff - I).T @ C "
-          f"{library_ms:.3f} ms, bound {row['bound_ms']:.3f} ms "
-          f"({row['bound_by']}: {nbytes:,} bytes, {flops:.3e} float32 "
-          f"operations); one full tile {tile_ms:.3f} ms against "
-          f"{tile_bound:.3f} ms [{card}]")
-    del tiles
-    torch.cuda.empty_cache()
+           "launches": None, "max_abs_err": max_abs,
+           "ms_of": f"one full column tile ({K_path} x {w0}), the launch "
+                    "the path makes",
+           "ms": tile_ms, "plain_ms": plain_tile_ms, "bound_ms": tile_bound,
+           "bound_by": "bytes", "library_ms": None,
+           "composition_ms": library_tile_ms, "bytes": tile_bytes,
+           "shape": [K_path, w0], "real_columns": M_real, "tile_m": tile,
+           "column_tiles": n_tiles, "one_tile_ms": tile_ms,
+           "one_tile_bound_ms": tile_bound,
+           "scalar_route_ms": tile_scalar_ms, "combination": combo,
+           "clocks": clocks, "ops_bound_cases": ops_cases,
+           "rel_err": err, "cases": n_cases, "worst_rel_err": worst,
+           "edge_cases": n_edge, "routes": routes, "big_rel_err": big,
+           "uniform_witness": uni, "ptxas": ptxas,
+           "ptxas_summary": ptxas_sum, "sass": sass}
     return row
 
 
@@ -2363,6 +2592,48 @@ COMPRESSED_FEDAVG_FLAGS = ["--topology", "fedavg", "--compress", "int8",
 #: reference copy is the feedback), gamma 0.5 (top-k's default), T = 1
 COMPRESSED_DIFFUSION_FLAGS = ["--topology", "ring", "--compress", "topk",
                               "--compress-ratio", "0.1", "--error-feedback"]
+
+
+
+
+def _trace_stages(fn, stages) -> dict:
+    """Run ``fn()`` once under ``torch.profiler`` (CPU and CUDA): the host
+    seconds of the call (ending in a device sync), the device time and
+    count of all its device events, and for each ``(stage, range)`` the
+    device time of the kernels launched inside the ``record_function``
+    range, summed over the range's occurrences; and the six operators of
+    largest self host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [ns for _, ns in device_events(prof)]
+    stage_of = {r: name for name, r in stages}
+    out = {name: {"ms": 0.0, "ranges": 0} for name, _ in stages}
+    for e in prof.events():
+        # the range's host event: its device time sums the kernels
+        # launched inside it (the device-side annotation repeats the span)
+        name = stage_of.get(e.name)
+        if name is not None and e.device_type == DeviceType.CPU:
+            us = getattr(e, "device_time_total", None)
+            out[name]["ms"] += (e.cuda_time_total if us is None else us) / 1e3
+            out[name]["ranges"] += 1
+    busy = sum(device) / 1e6
+    # where the host time goes: the operators of largest self host time
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {"host_s": wall, "device_ms": busy, "device_events": len(device),
+            "stages": out,
+            "other_ms": busy - sum(r["ms"] for r in out.values()),
+            "host_top": [{"name": a.key[:60], "self_ms":
+                          a.self_cpu_time_total / 1e3, "count": a.count}
+                         for a in ops[:6]]}
 
 
 def phase_train_int8(card: str) -> tuple[dict, dict]:
@@ -2453,6 +2724,37 @@ def phase_train_int8(card: str) -> tuple[dict, dict]:
         "(the same uniforms)", _sliced(d_k, d_p, _sum_floors(target, K)))
     del d_k, d_p
     torch.cuda.empty_cache()
+
+    # one more combination under the profiler: its device time by stage
+    # (a report, not a gate)
+    trace = _trace_stages(lambda: pipe.mixer.mix_int8(
+        target, active, A, seeded(), want_messages=True), INT8_STAGES)
+    torch.cuda.empty_cache()
+    kern_ms = trace["stages"]["diffusion_mix_int8"]["ms"]
+    trace.update(untraced_host_s=kernel_s,
+                 kernel_share_of_device=(kern_ms / trace["device_ms"]
+                                         if trace["device_ms"] else None),
+                 kernel_share_of_host=kern_ms / 1e3 / kernel_s)
+    row["trace"] = trace
+    print(f"phase 14a: one more mix_int8 traced: {trace['host_s']:.3f}s on "
+          f"the host under the profiler ({kernel_s:.3f}s untraced), device "
+          f"busy {trace['device_ms']:.3f} ms in {trace['device_events']} "
+          f"device events [{card}]")
+    for name, r in trace["stages"].items():
+        print(f"  {r['ms']:9.3f} ms  {r['ranges']:5d} ranges  {name}")
+    print(f"  {trace['other_ms']:9.3f} ms                outside the ranges")
+    print(f"phase 14a: the device idles {1 - trace['device_ms'] / 1e3 / trace['host_s']:.1%} "
+          f"of the traced call; largest self host time: "
+          + "; ".join(f"{r['name']} {r['self_ms']:.1f} ms ({r['count']}x)"
+                      for r in trace["host_top"]))
+    if trace["device_ms"]:
+        print(f"phase 14a: diffusion_mix_int8 {kern_ms:.3f} ms: "
+              f"{trace['kernel_share_of_device']:.1%} of the call's device "
+              f"time, {trace['kernel_share_of_host']:.1%} of its untraced "
+              f"{kernel_s:.3f}s host time")
+    else:
+        print("phase 14a: the trace holds no device time: shares not "
+              "measured")
 
     # the whole pipeline once: inactive agents keep parameters and residual
     # bit-equal; every active residual within 2 steps of its (agent, tile)

@@ -48,7 +48,12 @@ with the compressors of :mod:`repro_torch.core.compression`.  Without
 compression the pipeline IS the mixer; with int8 and the fused mixer the
 encode and combine stages fuse into the dequantize+mix kernel
 (:meth:`PallasFusedMixer.mix_int8`), whose column tiles are cut at
-multiples of the int8 tile over the zero-padded width.
+multiples of the int8 tile over the zero-padded width.  The tiled
+flatten and the fused int8 path mark their stages with
+``torch.profiler.record_function`` ranges (``tiled.gather``,
+``tiled.scatter``; ``mix_int8.draw``, ``.quantize``, ``.cast``,
+``.kernel``, ``.messages``), so a profiler trace can group a
+combination's device time by stage.
 
 ``make_mixer("auto")`` resolves to the fused kernel on CUDA, as the
 reference's TPU branch does, and follows the reference's non-TPU policy
@@ -63,6 +68,7 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.core import compression as comp_lib
 from repro_torch.core.compression import _weak
@@ -269,20 +275,22 @@ def _tiled(leaves: list, fn, *, cols: int, width: int,
         w = min(cols, width - a)
         tile = buf[:K * w].view(K, w)
         segs, t = [], 0
-        while t < w and i < len(sizes):
-            n = min(sizes[i] - off, w - t)
-            if n:
-                tile[:, t:t + n].copy_(flats[i][:, off:off + n])
-                segs.append((i, off, t, n))
-            t, off = t + n, off + n
-            if off == sizes[i]:
-                i, off = i + 1, 0
-        if t < w:
-            tile[:, t:].zero_()          # the padding, in the last tile only
+        with record_function("tiled.gather"):
+            while t < w and i < len(sizes):
+                n = min(sizes[i] - off, w - t)
+                if n:
+                    tile[:, t:t + n].copy_(flats[i][:, off:off + n])
+                    segs.append((i, off, t, n))
+                t, off = t + n, off + n
+                if off == sizes[i]:
+                    i, off = i + 1, 0
+            if t < w:
+                tile[:, t:].zero_()      # the padding, in the last tile only
         res = fn(tile, a)
-        for r, out in zip(res, outs):
-            for j, o, t0, n in segs:
-                out[j][:, o:o + n].copy_(r[:, t0:t0 + n])
+        with record_function("tiled.scatter"):
+            for r, out in zip(res, outs):
+                for j, o, t0, n in segs:
+                    out[j][:, o:o + n].copy_(r[:, t0:t0 + n])
         del res
     return [[o.reshape(leaf.shape) for o, leaf in zip(out, leaves)]
             for out in outs]
@@ -432,23 +440,30 @@ class PallasFusedMixer(Mixer):
         def fn(x, start):
             w = x.shape[1]
             x3 = x.view(K, w // tile, tile)
-            if u is None:
-                uu = torch.rand(x3.shape, generator=key,
-                                device=key.device).to(x.device)
-            else:
-                uu = u[:, start:start + w].to(
-                    device=x.device, dtype=torch.float32).reshape(x3.shape)
-            q, scale = comp_lib.quantize_int8(x3, axis=2, u=uu)
+            with record_function("mix_int8.draw"):
+                if u is None:
+                    uu = torch.rand(x3.shape, generator=key,
+                                    device=key.device).to(x.device)
+                else:
+                    uu = u[:, start:start + w].to(
+                        device=x.device,
+                        dtype=torch.float32).reshape(x3.shape)
+            with record_function("mix_int8.quantize"):
+                q, scale = comp_lib.quantize_int8(x3, axis=2, u=uu)
             del uu
-            delta = diffusion_mix_int8(
-                A, active, q.to(torch.int8).view(K, w),
-                scale[:, :, 0].contiguous(), tile_m=tile,
-                subtract_identity=True)
+            with record_function("mix_int8.cast"):
+                wq = q.to(torch.int8).view(K, w)
+                sc = scale[:, :, 0].contiguous()
+            with record_function("mix_int8.kernel"):
+                delta = diffusion_mix_int8(A, active, wq, sc, tile_m=tile,
+                                           subtract_identity=True)
+            del wq, sc
             if not want_messages:
                 return (delta,)
             # the integer-valued float32 q times its scale: exactly the
             # values the kernel dequantizes
-            return delta, q.mul_(scale).view(K, w)
+            with record_function("mix_int8.messages"):
+                return delta, q.mul_(scale).view(K, w)
 
         outs = _tiled(leaves, fn, cols=cols, width=width,
                       outputs=2 if want_messages else 1)

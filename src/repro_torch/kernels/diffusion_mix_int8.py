@@ -17,7 +17,10 @@ the kernel, and a failure to build or launch raises.
 
 The kernel keeps the realized (K, K) matrix in shared memory, as
 ``diffusion_mix`` does, so K is at most
-:data:`repro_torch.kernels.diffusion_mix.MAX_AGENTS`.
+:data:`repro_torch.kernels.diffusion_mix.MAX_AGENTS`.  It takes any
+contiguous ``Wq``: one at a storage offset that breaks the 4-byte
+alignment of its 4-column loads takes the kernel's scalar route
+(:func:`route`).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import torch
 from repro_torch.kernels.diffusion_mix import MAX_AGENTS
 from repro_torch.kernels.ref import mix_int8_ref
 
-__all__ = ["diffusion_mix_int8", "check_operands", "build"]
+__all__ = ["diffusion_mix_int8", "check_operands", "build", "route"]
 
 
 def build() -> ctypes.CDLL:
@@ -41,7 +44,26 @@ def build() -> ctypes.CDLL:
                                            ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    q = lib.diffusion_mix_int8_route
+    q.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_void_p,
+                  ctypes.c_void_p]
+    q.restype = ctypes.c_int
     return lib
+
+
+#: the kernel's routes (``csrc/diffusion_mix_int8.cu``): one column a
+#: thread; 4 columns a thread with every row loaded first (K <= 16); 4
+#: columns a thread, 16 or 32 receivers a pass (K > 16)
+ROUTES = ("scalar", "rows", "passes")
+
+
+def route(Wq: torch.Tensor, tile_m: int) -> str:
+    """The route the kernel takes for a CUDA ``Wq`` and the wrapper's
+    output (a fresh allocation, 16-byte aligned): a ``Wq`` whose data
+    pointer is not a multiple of 4 bytes, or a ``tile_m`` not a multiple
+    of 4, takes the scalar route."""
+    return ROUTES[build().diffusion_mix_int8_route(
+        Wq.shape[0], int(tile_m), Wq.data_ptr(), None)]
 
 
 def check_operands(A: torch.Tensor, active: torch.Tensor, Wq: torch.Tensor,

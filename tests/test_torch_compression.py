@@ -591,6 +591,40 @@ def test_int8_tile_cut_does_not_change_the_result(monkeypatch):
     assert not results[0][1]["c"].any()
 
 
+def test_int8_stages_are_marked_for_the_profiler(monkeypatch):
+    """Each stage of the fused int8 path runs inside its record_function
+    range, once per column tile, so a profiler trace can group a
+    combination's device time by stage; under the profiler the result is
+    bit-equal to the untraced one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    K = 4
+    rng = np.random.default_rng(5)
+    tree = {"a": torch.from_numpy(rng.standard_normal((K, 3000)).astype(
+        np.float32)), "b": torch.from_numpy(rng.standard_normal(
+            (K, 9, 40)).astype(np.float32)).to(torch.bfloat16)}
+    M = 3000 + 360
+    monkeypatch.setattr(mixing, "TILE_ELEMS", K * 1100)
+    tiles = mixing.num_tiles(K, M, int8=True)
+    assert tiles == 4
+    A = torch.as_tensor(make_topology("ring", K).A, dtype=torch.float32)
+    m = torch.tensor([1.0, 1.0, 0.0, 1.0])
+    mixer = mixing.PallasFusedMixer()
+    want = mixer.mix_int8(tree, m, A, torch.Generator().manual_seed(2),
+                          want_messages=True)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = mixer.mix_int8(tree, m, A, torch.Generator().manual_seed(2),
+                             want_messages=True)
+    names = [e.name for e in prof.events()]
+    for stage in ("tiled.gather", "tiled.scatter", "mix_int8.draw",
+                  "mix_int8.quantize", "mix_int8.cast", "mix_int8.kernel",
+                  "mix_int8.messages"):
+        assert names.count(stage) == tiles, stage
+    for a, b in zip(tree_leaves(got[0]) + tree_leaves(got[1]),
+                    tree_leaves(want[0]) + tree_leaves(want[1])):
+        assert torch.equal(a, b)
+
+
 # ---------------------------------------------------------------------------
 # CommPipeline: replay parity, invariants, modes and gamma
 # ---------------------------------------------------------------------------

@@ -416,18 +416,22 @@ def _uniform_int8_operands(gen, K, M, tile_m):
 
 @pytest.mark.cuda
 def test_cuda_int8_kernel_matches_mix_int8_ref():
-    """Kernel 5 against its plain version: K up to the shared-memory limit,
-    both tiles, both outputs, all-zero, all-one and random masks.  On the
-    quantizer's operands, within 1e-5 relative to max(1, |plain|); on
-    uniform int8 times uniform scales (terms up to 127), within the
-    float32 summation bound of the float64 value (mix_int8_exact),
-    elementwise; an inactive agent's delta row exactly zero."""
+    """Kernel 5 against its plain version: K on each side of the routes'
+    edges (rows up to 16, passes past it) up to the shared-memory limit,
+    both tiles at an odd count of tiles, both outputs, all-zero, all-one
+    and random masks.  On the quantizer's operands, within 1e-5 relative
+    to max(1, |plain|); on uniform int8 times uniform scales (terms up to
+    127), within the float32 summation bound of the float64 value
+    (mix_int8_exact), elementwise; an inactive agent's delta row exactly
+    zero.  A Wq at a storage offset that breaks its alignment takes the
+    scalar route and gives the aligned Wq's result bit for bit."""
     _need_card()
     from repro_torch.kernels import diffusion_mix_int8 as dmi
     from repro_torch.kernels.ref import mix_int8_exact, mix_int8_ref
 
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for K in (4, 8, 12, 64, 240):
+    routes = set()
+    for K in (1, 2, 3, 4, 5, 8, 9, 12, 16, 17, 64, 240):
         A = torch.as_tensor(make_topology("erdos", K, seed=K).A,
                             dtype=torch.float32, device="cuda")
         for tile_m in (128, 512):
@@ -458,6 +462,29 @@ def test_cuda_int8_kernel_matches_mix_int8_ref():
                                          <= bound).all()), case
                         if sub:
                             assert not out[m == 0].any()
+                routes.add(dmi.route(Wq, tile_m))
+    for K in (8, 20):
+        A = torch.as_tensor(make_topology("erdos", K, seed=K).A,
+                            dtype=torch.float32, device="cuda")
+        m = torch.ones(K, device="cuda")
+        m[1] = 0.0
+        Wq, scales = _int8_operands(gen, K, 512 * 7, 512)
+        want = dmi.diffusion_mix_int8(A, m, Wq, scales, tile_m=512,
+                                      subtract_identity=True)
+        ref = mix_int8_ref(A, m, Wq, scales, tile_m=512,
+                           subtract_identity=True)
+        for off in (1, 2, 3, 8):
+            buf = torch.zeros(Wq.numel() + 16, dtype=torch.int8,
+                              device="cuda")
+            Wm = buf[off:off + Wq.numel()].view(Wq.shape)
+            Wm.copy_(Wq)
+            got = dmi.diffusion_mix_int8(A, m, Wm, scales, tile_m=512,
+                                         subtract_identity=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (K, off)
+            assert _rel(got, ref) <= 1e-5, (K, off)
+            routes.add(dmi.route(Wm, 512))
+    assert routes == set(dmi.ROUTES), routes
     with pytest.raises(ValueError, match="int8"):
         dmi.diffusion_mix_int8(A, m, Wq.float(), scales, tile_m=512)
     with pytest.raises(ValueError, match="divisible"):
