@@ -151,12 +151,43 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     ``--consensus-quantize int8 --mix pallas``: relative squared error
     against the stored stack's consensus below the reference's 1e-3, two
     runs bit-equal, prefill and 32 greedy steps.
+16. Time-varying graphs and stateful availability: smollm-360m at full
+    width through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
+    mu=0.05, 2 blocks, ``use_kernels=True``): (a) ``--mix pallas --graph
+    link_dropout --link-drop 0.3 --participation-process markov
+    --markov-corr 0.5``: exact launch counts (``diffusion_mix`` one per
+    tile a block, ``flash_attention`` by phase 11b's formula, the others
+    0), every realized A_t symmetric, doubly stochastic and on the ring's
+    support, a profiled block (the device's busy share), then one
+    combination of the trained stack under a realized
+    A_t with a dropped link, kernel against the dense mixer within phase
+    11b's gate and inactive agents bit-equal; (b) ``--graph tv_erdos
+    --graph-p 0.3 --mix auto --participation-process cyclic --num-groups
+    2``: ``auto`` takes the kernel mixer (the same counts), the masks
+    alternate the two groups; (c) at smoke size (K=6), card against CPU
+    from one host generator (phase 6's SGD gates, the realized masks and
+    matrices equal): link dropout with corr 0 and 0.6 and gossip under
+    ``pallas``, ``sparse``, ``gather`` and the neighbourhood trimmed mean
+    (fused kernel), tv_erdos under ``pallas``, with the i.i.d., Markov and
+    cyclic processes in turn.
+17. The paper's §VII regression at its published size (K=20, N=100, M=2,
+    mu=0.01, rho=0.1, T=5, erdos, ``--mix pallas``: one ``diffusion_mix``
+    launch a block) through the engine: (a) 100 blocks, card against CPU
+    under the same host draws, within 1e-5 (1 + |w|) per entry; (b) Fig. 5:
+    q ~ U(0.2, 0.95), 3 runs x 4,000 blocks, the steady MSD over the last
+    1,000 within 20 % of the port's Theorem 5 (300 mask samples); (c) Fig.
+    6: the steady MSD falls as q rises through 0.1, 0.5, 0.9 (T=1, 3 x
+    2,500 blocks); (d) Theorem 5 over link dropout's matrix law (K=6 ring,
+    drop 0.3, 3 x 2,500 blocks): the simulation within 15 % of it and
+    closer than the static law.  Microseconds a block and the sim/theory
+    ratios are printed, and 200 more Fig. 5 blocks are profiled (the
+    device's busy share).
 
 The kernel mixers run over a column-tiled flatten, one launch per tile
-(``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14 and 15
-count tiles.  Each path's launch counts (all six kernels) are set to 0
-just before its first run and read just after it (phases 3, 5, 8, 9, 11,
-12, 14 and 15).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
+(``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14, 15
+and 16 count tiles.  Each path's launch counts (all six kernels) are set
+to 0 just before its first run and read just after it (phases 3, 5, 8, 9,
+11, 12, 14, 15, 16 and 17).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
@@ -944,9 +975,13 @@ def phase_train_devices(arch: str = "smollm-360m",
         argv = base + ["--optimizer", optimizer, "--step-size", str(mu)]
         gpu = train.main(argv, use_kernels=True)
         cpu = train.main(argv + ["--device", "cpu"], use_kernels=True)
-        # every draw comes from one host generator: the same masks
+        # every draw comes from one host generator: the same masks and
+        # the same realized combination matrices
         if gpu["active"] != cpu["active"]:
             raise AssertionError("card and CPU realized different masks")
+        if not all(torch.equal(a, b)
+                   for a, b in zip(gpu["graphs"], cpu["graphs"])):
+            raise AssertionError("card and CPU realized different graphs")
         loss_rel = np.max(np.abs(np.subtract(gpu["losses"], cpu["losses"]))
                           / np.abs(cpu["losses"]))
         diffs = [(a.cpu() - b).abs() for a, b in
@@ -3212,6 +3247,400 @@ def phase_consensus_int8(path: str, card: str) -> dict:
     return launches
 
 
+#: phase 16's full-width runs: the time-varying graph and the availability
+#: process of each
+LINK_DROPOUT_MARKOV_FLAGS = ["--mix", "pallas", "--graph", "link_dropout",
+                             "--link-drop", "0.3", "--participation-process",
+                             "markov", "--markov-corr", "0.5"]
+TV_ERDOS_CYCLIC_FLAGS = ["--graph", "tv_erdos", "--graph-p", "0.3", "--mix",
+                         "auto", "--participation-process", "cyclic",
+                         "--num-groups", "2"]
+
+
+def _check_graphs(label: str, graphs, topo=None) -> None:
+    """Every realized A_t is symmetric, doubly stochastic and nonnegative
+    (within 1e-6), and zero off the base support when ``topo`` is given."""
+    import numpy as np
+
+    for i, A in enumerate(graphs):
+        A = A.double().numpy()
+        ok = (np.abs(A - A.T).max() <= 1e-6
+              and np.abs(A.sum(axis=0) - 1.0).max() <= 1e-6
+              and A.min() >= 0.0)
+        if topo is not None:
+            ok = ok and not A[~topo.adjacency].any()
+        if not ok:
+            raise AssertionError(f"{label}: the realized A_t of block {i} is "
+                                 f"not a valid combination matrix: {A}")
+
+
+def _graph_launches(K: int, M: int, blocks: int):
+    """Launch counts of a full-width run whose combination goes through
+    ``diffusion_mix``, for :func:`_train_full`."""
+    def want(cfg, n_logged):
+        return {"diffusion_mix": num_tiles(K, M) * blocks,
+                "flash_attention": cfg.num_layers * K * (2 * blocks
+                                                         + n_logged),
+                "gather_mix": 0, "gather_robust_mix": 0,
+                "ssd_intra_chunk": 0, "diffusion_mix_int8": 0}
+    return want
+
+
+def phase_train_link_dropout(card: str) -> tuple[dict, dict]:
+    """Phase 16a: full-width smollm-360m, K = 8 ring, under link dropout
+    and Markov availability, every combination through ``diffusion_mix``;
+    a profiled block; then one combination of the trained stack under a realized A_t with a
+    dropped link, kernel against the dense mixer."""
+    import torch
+
+    from repro_torch.core.graphs import LinkDropout
+    from repro_torch.core.mixing import DenseMixer, make_mixer
+    from repro_torch.core.schedules import MarkovAvailability
+    from repro_torch.core.topology import make_topology
+    from repro_torch.tree import tree_leaves
+
+    K, blocks = 8, 2
+    M = full_width_M()
+    out, row = _train_full(card, "phase 16a", LINK_DROPOUT_MARKOV_FLAGS,
+                           blocks, _graph_launches(K, M, blocks), K=K)
+    row["profile"] = _profile_block(
+        out["state"], out["cfg"], K, 2, 1, 1024,
+        min(t["block_s"] for t in out["timings"][1:]), card,
+        optimizer="sgd", mu=0.05, label="phase 16a",
+        config_kwargs={"graph": "link_dropout",
+                       "graph_kwargs": (("drop", 0.3),)},
+        engine_kwargs={"participation": MarkovAvailability(
+            0.9, 0.5, num_agents=K)})
+    topo = make_topology("ring", K)
+    _check_graphs("phase 16a", out["graphs"], topo)
+    edges = int((topo.adjacency & ~torch.eye(K, dtype=bool).numpy()).sum())
+
+    def live(A):
+        return int(((A > 0) & ~torch.eye(K, dtype=bool)).sum())
+
+    dropped = [A for A in out["graphs"] if live(A) < edges]
+    key = torch.Generator().manual_seed(1)
+    while not dropped:
+        A, _ = LinkDropout(topo, 0.3).sample((), key)
+        dropped = [A] if live(A) < edges else []
+    A_t = dropped[0].cuda()
+    row["realized_links"] = [live(A) // 2 for A in out["graphs"]]
+    params = out["state"].params
+    del out
+    torch.cuda.empty_cache()
+    active = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 0.0, 1.0],
+                          device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    got = make_mixer("pallas", topo, device="cuda")(params, active, A_t)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    n = read_launches()["diffusion_mix"]
+    if n != num_tiles(K, M):
+        raise AssertionError(f"phase 16a: one combination launched "
+                             f"diffusion_mix {n}x")
+
+    def dense():
+        # the float32 widening in column slices, rounded once (phase 11b)
+        width = CHECK_SLICE // K
+        for g, p, floor in zip(tree_leaves(got), tree_leaves(params),
+                               _sum_floors(params, 3)):
+            g, p = g.reshape(K, -1), p.reshape(K, -1)
+            for a in range(0, p.shape[1], width):
+                want = DenseMixer()({"x": p[:, a:a + width].float()},
+                                    active, A_t)["x"]
+                yield g[:, a:a + width], want.to(torch.bfloat16), floor
+
+    row["combine_kernel_vs_dense"] = _ulp_gate(
+        "phase 16a: one combination under a realized A_t with "
+        f"{edges // 2 - live(A_t.cpu()) // 2} dropped link(s), kernel vs "
+        "dense", dense())
+    if not _frozen_equal(got, params, active):
+        raise AssertionError("phase 16a: inactive agents not kept exactly")
+    row["combine_kernel_s"] = kernel_s
+    print(f"phase 16a: inactive agents bit-equal; realized links per block "
+          f"{row['realized_links']} of {edges // 2}; that combination took "
+          f"{kernel_s:.3f}s ({n} launches) [{card}]")
+    print(json.dumps({"phase": "16a", **row}))
+    del params, got
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+def phase_train_tv_erdos(card: str) -> tuple[dict, dict]:
+    """Phase 16b: the same model under a fresh Erdős–Rényi graph a block
+    and cyclic availability, ``--mix auto`` (the kernel mixer on CUDA)."""
+    import torch
+
+    K, blocks = 8, 2
+    M = full_width_M()
+    out, row = _train_full(card, "phase 16b", TV_ERDOS_CYCLIC_FLAGS, blocks,
+                           _graph_launches(K, M, blocks), K=K)
+    _check_graphs("phase 16b", out["graphs"])
+    groups = [[float(k % 2 == g) for k in range(K)] for g in (0, 1)]
+    want = [groups[i % 2] for i in range(blocks)]
+    if out["active"] != want:
+        raise AssertionError(f"phase 16b: cyclic masks {out['active']}, "
+                             f"expected {want}")
+    row["realized_links"] = [
+        int(((A > 0) & ~torch.eye(K, dtype=bool)).sum()) // 2
+        for A in out["graphs"]]
+    print(f"phase 16b: masks alternate the two groups; realized links per "
+          f"block {row['realized_links']} of {K * (K - 1) // 2} [{card}]")
+    print(json.dumps({"phase": "16b", **row}))
+    del out
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+#: phase 16c: (graph flags, mixer flags) at smoke size, card against CPU,
+#: each under the availability process beside it
+_ON_SUPPORT_MIXERS = (["--mix", "pallas"], ["--mix", "sparse"],
+                      ["--mix", "gather"],
+                      ["--mix", "trimmed_mean", "--trim", "1",
+                       "--robust-scope", "neighborhood", "--robust-gather",
+                       "fused"])
+_PROCESSES = ([], ["--participation-process", "markov", "--markov-corr",
+                   "0.5"],
+              ["--participation-process", "cyclic", "--num-groups", "2"])
+GRAPH_DEVICE_CASES = [
+    (graph, mixer, _PROCESSES[(i + j) % 3])
+    for i, graph in enumerate((["--graph", "link_dropout", "--link-drop",
+                                "0.3"],
+                               ["--graph", "link_dropout", "--link-drop",
+                                "0.3", "--graph-corr", "0.6"],
+                               ["--graph", "gossip"]))
+    for j, mixer in enumerate(_ON_SUPPORT_MIXERS)] + [
+    (["--graph", "tv_erdos", "--graph-p", "0.3"], ["--mix", "pallas"],
+     _PROCESSES[1]),
+    (["--graph", "tv_erdos", "--graph-p", "0.3"], ["--mix", "pallas"],
+     _PROCESSES[2])]
+
+
+def phase_graph_devices() -> None:
+    """Phase 16c: every graph kind, mixer and process at smoke size, card
+    against CPU from one host generator (phase 6's gates, the realized
+    masks and matrices equal)."""
+    for graph, mixer, process in GRAPH_DEVICE_CASES:
+        phase_train_devices(label="phase 16c", agents=6,
+                            mix=tuple(graph + mixer + process),
+                            optimizers=(("sgd", 0.05),))
+
+
+def _regression_engine(data, cfg, device):
+    from repro_torch.core.diffusion import DiffusionEngine
+
+    return DiffusionEngine(cfg, data.loss_fn(), device=device,
+                           grad_fn=data.grad_fn())
+
+
+def _steady_msd(data, cfg, w_opt, blocks: int, tail: int, reps: int,
+                device: str) -> tuple[float, float, dict]:
+    """Algorithm 1 on the regression through the engine's ``run`` (the
+    draws from one host generator a repetition, seeds 0..reps-1): the mean
+    over repetitions of the MSD averaged over the last ``tail`` blocks,
+    microseconds per block, and the launch counts of the runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import make_block_sampler
+
+    eng = _regression_engine(data, cfg, device)
+    sampler = make_block_sampler(data, T=cfg.local_steps, batch=1,
+                                 device=device)
+    w_star = torch.as_tensor(w_opt, dtype=torch.float32, device=device)
+    msds = []
+    reset_launches()
+    t0 = time.perf_counter()
+    for rep in range(reps):
+        _, _, hist = eng.run(torch.zeros(cfg.num_agents, 2, device=device),
+                             sampler, blocks, seed=rep, w_star=w_star)
+        msds.append(float(np.mean(hist[-tail:])))
+    us = (time.perf_counter() - t0) / (reps * blocks) * 1e6
+    return float(np.mean(msds)), us, read_launches()
+
+
+def _profile_regression(data, cfg, blocks: int, card: str) -> dict:
+    """``blocks`` blocks of the regression on the card under
+    ``torch.profiler``: the device time of their kernels against the host
+    clock around them (the device's busy share)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import make_block_sampler
+
+    eng = _regression_engine(data, cfg, "cuda")
+    sampler = make_block_sampler(data, T=cfg.local_steps, device="cuda")
+    key = torch.Generator().manual_seed(9)
+    state = eng.init_state(torch.zeros(cfg.num_agents, 2, device="cuda"))
+    state, _ = eng.step(state, sampler(key), key)          # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(blocks):
+            state, _ = eng.step(state, sampler(key), key)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = list(device_events(prof))
+    busy = sum(ns for _, ns in events) / 1e9
+    out = {"blocks": blocks, "wall_s": wall, "device_busy_s": busy,
+           "device_busy_share": busy / wall,
+           "device_events_per_block": len(events) / blocks}
+    print(f"phase 17b: {blocks} profiled blocks: kernels busy "
+          f"{1e3 * busy:.2f} ms of {1e3 * wall:.2f} ms on the host clock "
+          f"({100 * busy / wall:.1f} % busy), {len(events) / blocks:.0f} "
+          f"device events a block [{card}]")
+    return out
+
+
+def _want_mix(device: str, n: int) -> dict:
+    counts = dict.fromkeys(kernel_wrappers(), 0)
+    counts["diffusion_mix"] = n if device == "cuda" else 0
+    return counts
+
+
+def phase_regression(card: str, device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 17: the paper's §VII regression at its published size (K =
+    20, N = 100, M = 2, mu = 0.01, rho = 0.1, T = 5, erdos) with ``--mix
+    pallas``: one ``diffusion_mix`` launch a block.  (a) card against CPU;
+    (b) Fig. 5, the steady MSD against Theorem 5; (c) Fig. 6's ordering
+    in q; (d) the dynamic-graph law under link dropout."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import paper_regression as paper
+    from repro_torch.core import msd
+    from repro_torch.core.diffusion import DiffusionConfig
+    from repro_torch.core.graphs import make_graph_process
+    from repro_torch.data.synthetic import (make_block_sampler,
+                                            make_regression_problem)
+
+    row = {"card": card}
+    data = make_regression_problem(K=paper.K, N=paper.N, M=paper.M,
+                                   rho=paper.RHO, seed=0)
+    # (a) 100 blocks, card against CPU under the same host draws
+    blocks = 100
+    cfg = dataclasses.replace(paper.diffusion_config(), mix="pallas")
+    runs = []                     # (engine, sampler, generator, state)
+    for dev in (device, "cpu"):
+        eng = _regression_engine(data, cfg, dev)
+        runs.append([eng, make_block_sampler(data, T=paper.T, device=dev),
+                     torch.Generator().manual_seed(5),
+                     eng.init_state(torch.zeros(paper.K, paper.M,
+                                                device=dev))])
+    worst = 0.0
+    reset_launches()
+    for i in range(blocks):
+        for run in runs:
+            eng, sampler, key, state = run
+            run[3], _ = eng.step(state, sampler(key), key)
+        want = runs[1][3].params
+        got = runs[0][3].params.cpu()
+        worst = max(worst, ((got - want).abs() / (1 + want.abs()))
+                    .max().item())
+    launches = read_launches()
+    if launches != _want_mix(device, blocks):
+        raise AssertionError(f"phase 17a: launches {launches}")
+    if not worst <= TOL:
+        raise AssertionError(f"phase 17a: card vs CPU {worst:.3e} > "
+                             f"{TOL:g} (1 + |w|)")
+    row["replay"] = {"blocks": blocks, "worst": worst, "launches": launches}
+    print(f"phase 17a: {blocks} blocks, card vs CPU within {worst:.2e} "
+          f"(1 + |w|) (gate {TOL:g}); launches {launches}")
+    del runs
+
+    # (b) Fig. 5: random q, Theorem 5 with 300 mask samples
+    q = np.random.default_rng(1).uniform(0.2, 0.95, paper.K)
+    cfg5 = DiffusionConfig(num_agents=paper.K, local_steps=paper.T,
+                           step_size=paper.MU, topology="erdos",
+                           participation=tuple(q), mix="pallas")
+    t0 = time.perf_counter()
+    th = msd.theoretical_msd(data.problem(), A=cfg5.make_topology().A, q=q,
+                             mu=paper.MU, T=paper.T, num_mask_samples=300)
+    theory_s = time.perf_counter() - t0
+    reps, blocks = 3, 4000
+    sim, us, launches = _steady_msd(data, cfg5, th["w_opt"], blocks,
+                                    blocks // 4, reps, device)
+    ratio = sim / th["msd"]
+    if launches != _want_mix(device, reps * blocks):
+        raise AssertionError(f"phase 17b: launches {launches}")
+    row["fig5"] = {"sim": sim, "theory": th["msd"], "ratio": ratio,
+                   "us_per_block": us, "rho_EFF": th["rho_EFF"],
+                   "theory_s": theory_s, "reps": reps, "blocks": blocks,
+                   "launches": launches}
+    print(f"phase 17b: Fig. 5, {reps} x {blocks} blocks ({us:.1f} us a "
+          f"block): steady MSD {sim:.4e}, Theorem 5 {th['msd']:.4e} "
+          f"({theory_s:.1f}s), sim/theory {ratio:.3f} (band 0.8-1.2); "
+          f"launches {launches}")
+    if not abs(ratio - 1.0) < 0.20:
+        raise AssertionError("phase 17b: simulation outside 20 % of "
+                             "Theorem 5")
+    if device == "cuda":
+        row["fig5"]["profile"] = _profile_regression(data, cfg5, 200, card)
+
+    # (c) Fig. 6: higher activation probability, smaller MSD (T = 1)
+    fig6 = {}
+    reps, blocks = 3, 2500
+    for qv in (0.1, 0.5, 0.9):
+        cfg6 = DiffusionConfig(num_agents=paper.K, local_steps=1,
+                               step_size=paper.MU, topology="erdos",
+                               participation=qv, mix="pallas")
+        qq = np.full(paper.K, qv)
+        w_o = data.problem().w_opt(qq)
+        sim6, us6, launches = _steady_msd(data, cfg6, w_o, blocks,
+                                          blocks // 4, reps, device)
+        if launches != _want_mix(device, reps * blocks):
+            raise AssertionError(f"phase 17c: launches {launches}")
+        th6 = msd.theoretical_msd(data.problem(), A=cfg6.make_topology().A,
+                                  q=qq, mu=paper.MU, T=1,
+                                  num_mask_samples=200)["msd"]
+        fig6[qv] = {"sim": sim6, "theory": th6, "ratio": sim6 / th6,
+                    "us_per_block": us6}
+        print(f"phase 17c: Fig. 6, q = {qv}: steady MSD {sim6:.4e}, "
+              f"Theorem 5 {th6:.4e}, sim/theory {sim6 / th6:.3f} "
+              f"({us6:.1f} us a block)")
+    row["fig6"] = fig6
+    if not fig6[0.1]["sim"] > fig6[0.5]["sim"] > fig6[0.9]["sim"]:
+        raise AssertionError("phase 17c: the steady MSD does not fall as q "
+                             "rises")
+
+    # (d) Theorem 5 over the realized-matrix law of link dropout
+    K, T, mu, drop = 6, 2, 0.01, 0.3
+    dyn = make_regression_problem(K=K, N=80, M=2, rho=0.1, seed=7)
+    cfgd = DiffusionConfig(num_agents=K, local_steps=T, step_size=mu,
+                           topology="ring", participation=0.9,
+                           graph="link_dropout",
+                           graph_kwargs=(("drop", drop),), mix="pallas")
+    topo = cfgd.make_topology()
+    qd = np.full(K, 0.9)
+    g = make_graph_process("link_dropout", topo, drop=drop)
+    th_dyn = msd.theoretical_msd(dyn.problem(), graph=g, q=qd, mu=mu, T=T)
+    th_sta = msd.theoretical_msd(dyn.problem(), A=topo.A, q=qd, mu=mu, T=T)
+    reps, blocks = 3, 2500
+    simd, usd, launches = _steady_msd(dyn, cfgd, th_dyn["w_opt"], blocks,
+                                      600, reps, device)
+    if launches != _want_mix(device, reps * blocks):
+        raise AssertionError(f"phase 17d: launches {launches}")
+    rel_dyn = abs(simd - th_dyn["msd"]) / simd
+    rel_sta = abs(simd - th_sta["msd"]) / simd
+    row["dynamic"] = {"sim": simd, "theory_dynamic": th_dyn["msd"],
+                      "theory_static": th_sta["msd"], "rel_dynamic": rel_dyn,
+                      "rel_static": rel_sta, "us_per_block": usd,
+                      "launches": launches}
+    print(f"phase 17d: link dropout 0.3, K = 6 ring, {reps} x {blocks} "
+          f"blocks ({usd:.1f} us a block): steady MSD {simd:.4e}, dynamic "
+          f"law {th_dyn['msd']:.4e} (off {rel_dyn:.3f}, band 0.15), static "
+          f"law {th_sta['msd']:.4e} (off {rel_sta:.3f})")
+    if not (rel_dyn < 0.15 and rel_dyn < rel_sta):
+        raise AssertionError("phase 17d: the dynamic law misses the "
+                             "simulation")
+    print(json.dumps({"phase": "17", **row}))
+    return row["fig5"]["launches"], row
+
+
 def main() -> int:
     import torch
 
@@ -3269,6 +3698,11 @@ def main() -> int:
         timed("phase 14c", phase_compressed_devices)
         quantized_launches = timed("phase 15", phase_consensus_int8,
                                    stack_path, card)
+        link_drop_launches, _ = timed("phase 16a", phase_train_link_dropout,
+                                      card)
+        tv_erdos_launches, _ = timed("phase 16b", phase_train_tv_erdos, card)
+        timed("phase 16c", phase_graph_devices)
+        regression_launches, _ = timed("phase 17", phase_regression, card)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
@@ -3284,7 +3718,10 @@ def main() -> int:
                   for mix, counts in consensus_launches.items()},
                "train_smollm_compressed_fedavg": int8_launches,
                "train_smollm_compressed_diffusion": diff_launches,
-               "serve_smollm_int8": quantized_launches}
+               "serve_smollm_int8": quantized_launches,
+               "train_smollm_link_dropout_markov": link_drop_launches,
+               "train_smollm_tv_erdos_cyclic": tv_erdos_launches,
+               "regression_paper_fig5": regression_launches}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
             (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),

@@ -15,8 +15,12 @@ The step contract is the reference's,
 
     engine.step(state: EngineState, block_batch, key) -> (EngineState, metrics)
 
-with ``key`` a ``torch.Generator`` and an optional ``active=`` that injects
-a realized mask (replay parity: torch cannot replay JAX's random streams).
+with ``key`` a ``torch.Generator``.  A block draws from it in a fixed order:
+the activation mask, then the graph's uniforms (the static graph draws
+nothing), then the compression seed.  Replay parity (torch cannot replay
+JAX's random streams) injects the realized draws instead: ``active=`` a
+mask, ``part_u=`` the participation process's uniforms, ``graph_u=`` the
+graph's, ``comm_key=`` the compression draws.
 The optimizer state is advanced in place (:mod:`repro_torch.optim`), so
 ``step`` consumes the state it is given: the returned state holds the same
 optimizer tensors, and the old state is not to be stepped again.
@@ -65,7 +69,7 @@ class DiffusionConfig:
     step_size: float = 0.01              # mu
     topology: str = "ring"               # ring|grid|full|fedavg|erdos|...
     topology_kwargs: tuple = ()          # extra kwargs as sorted (k, v) pairs
-    graph: str = "static"                # static (the others: item 18)
+    graph: str = "static"                # static|link_dropout|gossip|tv_erdos
     graph_kwargs: tuple = ()             # graph-process kwargs, sorted (k, v)
     participation: Any = 1.0             # scalar or length-K sequence of q_k
     drift_correction: bool = False       # eq. (31): mu/q_k for active agents
@@ -257,7 +261,11 @@ class DiffusionEngine:
         ``EngineState.comm_state``.
       privacy: not ported (ROADMAP.md item 22); only ``None`` is taken.
       graph: a :class:`~repro_torch.core.graphs.GraphProcess` or a kind
-        name; defaults to ``config.graph``.
+        name; defaults to ``config.graph`` with ``config.graph_kwargs``.
+      grad_fn: per-agent gradients over stacked trees,
+        ``grad_fn(params, batch)``; defaults to ``stacked_grad(loss_fn)``
+        (the §VII regression's closed form:
+        :meth:`repro_torch.data.synthetic.RegressionData.grad_fn`).
       device: where the engine's matrices, masks and step sizes live
         (``None`` means CUDA); the parameters must live there too.
     """
@@ -266,7 +274,7 @@ class DiffusionEngine:
                  grad_transform=None, *, mixer=None, participation=None,
                  compressor=None, graph=None, privacy=None, device=None,
                  trim: int = 1, scope: str = "global",
-                 gather: str = "auto"):
+                 gather: str = "auto", grad_fn=None):
         if privacy is not None:
             raise NotImplementedError("the privacy tier is not ported yet: "
                                       "see ROADMAP.md queue 1 item 22")
@@ -299,7 +307,8 @@ class DiffusionEngine:
         self.compressor = self.pipeline.compressor
         self.step_mask = resolve_step_mask(config, self.topology,
                                            self.device)
-        self._grad_fn = stacked_grad(loss_fn)
+        self._grad_fn = grad_fn if grad_fn is not None else stacked_grad(
+            loss_fn)
 
     def init_state(self, params: PyTree, opt_state: PyTree = None, *,
                    key: torch.Generator | None = None) -> EngineState:
@@ -308,16 +317,23 @@ class DiffusionEngine:
                                  opt_state, key=key, graph=self.graph)
 
     def step(self, state: EngineState, block_batch: PyTree,
-             key: torch.Generator, *, active=None, comm_key=None):
+             key: torch.Generator | None, *, active=None, comm_key=None,
+             part_u=None, graph_u=None):
         """One block iteration of Algorithm 1.
 
         Args:
           state: :class:`EngineState` with ``params`` leaves (K, ...); its
             optimizer state is advanced in place.
           block_batch: tree with leaves (T, K, ...) on the engine's device.
-          key: generator of the activation draw (any device; the mask is
-            moved to the engine's).
-          active: a realized (K,) mask to use instead of drawing one.
+          key: generator of the block's draws (any device; the mask and
+            the realized matrix are moved to the engine's).  May be
+            ``None`` when every draw the block makes is injected.
+          active: a realized (K,) mask to use instead of drawing one; a
+            stateful process's state advances as its draw would have
+            (:meth:`~repro_torch.core.schedules.ParticipationProcess.
+            advance`).
+          part_u: the participation process's (K,) uniforms (replay).
+          graph_u: the graph process's (K, K) uniforms (replay).
           comm_key: the compression stage's draws: a generator or injected
             :class:`~repro_torch.core.compression.Draws` (replay).  Without
             it, a pipeline that draws takes a generator on the engine's
@@ -325,7 +341,8 @@ class DiffusionEngine:
             and graph draws.
         Returns:
           ``(new_state, metrics)``: ``metrics["active"]`` is the realized
-          (K,) mask, ``metrics["local_s"]`` and ``metrics["combine_s"]`` the
+          (K,) mask, ``metrics["A_t"]`` the realized (K, K) matrix,
+          ``metrics["local_s"]`` and ``metrics["combine_s"]`` the
           seconds of the local updates and of the combination (host clock
           around work that ends in a device sync).
         """
@@ -334,9 +351,13 @@ class DiffusionEngine:
                            "engine.init_state", graph=self.graph)
         part_state = state.part_state
         if active is None:
-            active, part_state = self.process.sample(part_state, key)
+            active, part_state = self.process.sample(part_state, key,
+                                                     u=part_u)
+        else:
+            part_state = self.process.advance(part_state, active)
         active = torch.as_tensor(active, dtype=torch.float32).to(self.device)
-        A_t, graph_state = self.graph.sample(state.graph_state, key)
+        A_t, graph_state = self.graph.sample(state.graph_state, key,
+                                             u=graph_u)
         if comm_key is None and self.pipeline.needs_key:
             comm_key = compression.device_stream(key, self.device)
         mus = part.step_size_matrix(cfg.step_size, active, self._q,
@@ -351,7 +372,7 @@ class DiffusionEngine:
         params, comm_state = self.pipeline(params, active, A_t,
                                            state.comm_state, comm_key)
         _sync(self.device)
-        metrics = {"active": active, "local_s": t1 - t0,
+        metrics = {"active": active, "A_t": A_t, "local_s": t1 - t0,
                    "combine_s": time.perf_counter() - t1}
         return EngineState(params, opt_state, part_state, comm_state,
                            graph_state, state.async_state,

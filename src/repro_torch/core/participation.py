@@ -12,9 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["sample_active", "masked_combination", "masked_combination_np",
-           "expected_combination", "expected_step_sizes", "expected_A_M",
-           "step_size_matrix"]
+__all__ = ["sample_active", "injected_uniforms", "masked_combination",
+           "masked_combination_np", "expected_combination",
+           "expected_step_sizes", "expected_A_M", "step_size_matrix"]
 
 
 def sample_active(key: torch.Generator, q: torch.Tensor) -> torch.Tensor:
@@ -25,6 +25,19 @@ def sample_active(key: torch.Generator, q: torch.Tensor) -> torch.Tensor:
     """
     q = q.to(device=key.device, dtype=torch.float32)
     return torch.bernoulli(q, generator=key)
+
+
+def injected_uniforms(u, shape: tuple) -> torch.Tensor:
+    """Uniforms handed in for replay, in place of a generator's draw (the
+    reference's ``jax.random.uniform``), as a float32 tensor of ``shape``;
+    a numpy array is copied."""
+    if not isinstance(u, torch.Tensor):
+        u = torch.from_numpy(np.array(u, dtype=np.float32))
+    u = u.to(torch.float32)
+    if tuple(u.shape) != tuple(shape):
+        raise ValueError(f"injected uniforms of shape {tuple(u.shape)}, "
+                         f"expected {tuple(shape)}")
+    return u
 
 
 def masked_combination(A: torch.Tensor, active: torch.Tensor) -> torch.Tensor:

@@ -59,13 +59,16 @@ def init_engine_state(process, pipeline, params: PyTree,
                       opt_state: PyTree = None, *,
                       key: torch.Generator | None = None,
                       graph=None) -> EngineState:
-    """Initial-state construction: stateful participation processes draw
-    their initial state from ``key``, stateful pipelines and graphs
+    """Initial-state construction: stateful participation processes, then
+    stateful graphs (the link mask of a correlated :class:`~repro_torch.
+    core.graphs.LinkDropout`), draw their initial state from ``key`` (a
+    host generator seeded 0 when none is given), stateful pipelines
     allocate theirs, and absent components stay ``None``."""
     part_state = comm_state = graph_state = None
+    if key is None:
+        key = torch.Generator().manual_seed(0)
     if process.stateful:
-        part_state = process.init_state(
-            key if key is not None else torch.Generator().manual_seed(0))
+        part_state = process.init_state(key)
     if pipeline.stateful:
         comm_state = pipeline.init_state(params)
     if graph is not None and graph.stateful:

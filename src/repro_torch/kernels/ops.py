@@ -7,19 +7,23 @@ differentiates the streaming twin
 the SSD intra-chunk kernel forward and differentiates the plain
 :func:`repro_torch.models.ssm.ssd_chunked`.  Both do what the reference's
 custom VJPs do: kernel forward, framework backward.  The reference has no
-backward kernel, so neither has the port.
+backward kernel, so neither has the port.  :func:`mix_op` is the masked
+combination step over a stacked tree through the ``diffusion_mix`` kernel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.mixing import tiled_apply
+from repro_torch.kernels.diffusion_mix import diffusion_mix
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_chunked_kernel
 from repro_torch.models.layers import flash_attention_jnp
 from repro_torch.models.ssm import pad_to_chunk, ssd_chunked
+from repro_torch.tree import tree_leaves, tree_unflatten
 
-__all__ = ["attention_op", "ssd_op"]
+__all__ = ["attention_op", "mix_op", "ssd_op"]
 
 #: the reference's key block (``attention_op``'s ``block_kv``)
 BLOCK_KV = 128
@@ -109,3 +113,22 @@ def ssd_op(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                       initial_state=initial_state)
         return y[:, :s], final
     return _SSD.apply(x, dt, A, B, C, chunk)
+
+
+def mix_op(A: torch.Tensor, active: torch.Tensor, params):
+    """Masked combination step (eq. 20) over an agent-stacked tree.
+
+    The leaves are flattened to (K, M) float32 one column tile at a time
+    (:func:`repro_torch.core.mixing.tiled_apply`), each tile goes through
+    :func:`~repro_torch.kernels.diffusion_mix.diffusion_mix` (one kernel
+    launch a tile on CUDA, the plain version on the CPU), and the result
+    comes back in each leaf's shape and dtype.  Equal to the dense mixer
+    on ``masked_combination(A, active)`` up to float32 summation order.
+    """
+    leaves = tree_leaves(params)
+    device = leaves[0].device
+    A = torch.as_tensor(A, dtype=torch.float32, device=device).contiguous()
+    active = torch.as_tensor(active, dtype=torch.float32,
+                             device=device).contiguous()
+    return tree_unflatten(params, tiled_apply(
+        leaves, lambda tile: diffusion_mix(A, active, tile)))

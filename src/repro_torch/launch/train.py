@@ -18,14 +18,24 @@ on one device.
       --local-steps 2 --batch 1 --seq 1024 --blocks 3 --optimizer sgd \
       --step-size 0.05 --topology fedavg --mix pallas --compress int8 \
       --error-feedback
+  PYTHONPATH=src python -m repro_torch.launch.train --full --agents 8 \
+      --local-steps 2 --batch 1 --seq 1024 --blocks 2 --optimizer sgd \
+      --step-size 0.05 --mix pallas --graph link_dropout --link-drop 0.3 \
+      --participation-process markov --markov-corr 0.5
 
 The third is the reference's ``byzantine_robust_diffusion`` preset (K = 12
 ring, 3 evenly spaced sign-flip adversaries, per-neighborhood trimmed
 mean): ``--attack`` corrupts the Byzantine agents' raw gradients before
 the optimizer sees them (:func:`repro_torch.core.attacks.make_attack`).
-The last is its ``compressed_fedavg`` preset: FedAvg, int8 with error
+The fourth is its ``compressed_fedavg`` preset: FedAvg, int8 with error
 feedback, every combination through the fused dequantize+mix kernel;
 ``--compress topk|randk|gauss`` runs CHOCO's reference-difference mode.
+The last resamples the combination matrix every block (``--graph
+static|link_dropout|gossip|tv_erdos``, with ``--link-drop``,
+``--graph-corr`` and ``--graph-p``) under bursty availability
+(``--participation-process iid|markov|cyclic``, with ``--markov-corr`` and
+``--num-groups``); a graph sub-flag given with a kind that does not use
+it raises ``ValueError``, as in the reference.
 
 Counterpart of ``repro.launch.train`` on the stacked engine (on one device
 the reference's ``engine="auto"`` sharded engine equals it).  The flags are
@@ -34,9 +44,9 @@ a reference flag outside the subset raises ``NotImplementedError`` naming
 the ROADMAP item that brings it.  ``--device`` defaults to CUDA and never
 falls back to the CPU by itself.
 
-Every random draw (initial weights, batches, activation masks) comes from
-one host generator seeded with ``--seed``, so the card and the CPU realize
-the same run.  The kernels of the local updates are chosen by
+Every random draw (initial weights, batches, activation masks, graphs)
+comes from one host generator seeded with ``--seed``, so the card and the
+CPU realize the same run.  The kernels of the local updates are chosen by
 ``cfg.use_kernels``, as in the reference: ``main(..., use_kernels=True)``
 applies ``dataclasses.replace(cfg, use_kernels=True)``, which runs the
 flash-attention kernel in attention layers and the SSD intra-chunk kernel
@@ -54,6 +64,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.attacks import ATTACK_KINDS, make_attack
 from repro_torch.core.compression import dense_wire_bytes
 from repro_torch.core.diffusion import DiffusionConfig, DiffusionEngine
+from repro_torch.core.schedules import CyclicGroups, MarkovAvailability
 from repro_torch.data.synthetic import lm_token_batch
 from repro_torch.device import resolve_device
 from repro_torch.launch.serve import MIX_CHOICES, check_robust_flags
@@ -69,15 +80,18 @@ _OPTIMIZERS = {"sgd": sgd, "momentum": momentum, "adam": adam}
 #: item that brings them (prefix match)
 _PENDING_FLAGS = {
     "--spec": 16, "--preset": 16, "--checkpoint": 16, "--engine": 16,
-    "--topology-": 16,
-    "--graph": 18, "--link-drop": 18, "--participation-process": 18,
-    "--markov-corr": 18, "--num-groups": 18,
-    "--privacy": 22, "--data": 23, "--async-": 24, "--ef-host-offload": 25,
+    "--topology-": 16, "--privacy": 22, "--data": 23, "--async-": 24,
+    "--ef-host-offload": 25,
 }
 
 
 #: the reference's --compress choices
 COMPRESS_CHOICES = ["none", "topk", "randk", "int8", "gauss"]
+
+#: graph sub-flag -> (the flag, the kinds that use it, its default)
+_GRAPH_FLAGS = {"link_drop": ("--link-drop", ("link_dropout",), 0.3),
+                "graph_corr": ("--graph-corr", ("link_dropout",), 0.0),
+                "graph_p": ("--graph-p", ("tv_erdos",), 0.3)}
 
 
 def _gamma_arg(s: str):
@@ -97,6 +111,41 @@ def _reject_unported(ap: argparse.ArgumentParser, extra: list[str]) -> None:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
 
 
+def check_graph_flags(args: argparse.Namespace) -> None:
+    """The reference's guard: each graph sub-flag is used by one kind, and
+    given with another kind it would be silently ignored, so it raises
+    ``ValueError``.  Then fills in the defaults of the flags not given."""
+    for dest, (flag, kinds, default) in _GRAPH_FLAGS.items():
+        if getattr(args, dest) is None:
+            setattr(args, dest, default)
+        elif args.graph not in kinds:
+            raise ValueError(
+                f"{flag} only applies to --graph {'|'.join(kinds)}; the "
+                f"{args.graph!r} graph process ignores it: drop the flag or "
+                "pick the matching kind")
+
+
+def graph_kwargs(args: argparse.Namespace) -> tuple:
+    """The graph-process kwargs the flags denote, as sorted (k, v) pairs:
+    only those the kind uses, as the reference's ``graph_kwargs``."""
+    if args.graph == "link_dropout":
+        return (("corr", args.graph_corr), ("drop", args.link_drop))
+    if args.graph == "tv_erdos":
+        return (("p", args.graph_p),)
+    return ()
+
+
+def make_participation(args: argparse.Namespace, num_agents: int):
+    """The availability process the flags denote (``None``: i.i.d.
+    Bernoulli with ``--participation``, the engine's default)."""
+    if args.participation_process == "markov":
+        return MarkovAvailability(args.participation, args.markov_corr,
+                                  num_agents=num_agents)
+    if args.participation_process == "cyclic":
+        return CyclicGroups(num_agents, args.num_groups)
+    return None
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="smollm-360m")
@@ -108,8 +157,27 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--local-steps", type=int, default=2, help="T")
     ap.add_argument("--step-size", type=float, default=0.5, help="mu")
     ap.add_argument("--topology", default="ring")
+    ap.add_argument("--graph", default="static",
+                    help="time variation of the combination graph: "
+                         "static|link_dropout|gossip|tv_erdos")
+    ap.add_argument("--link-drop", type=float, default=None,
+                    help="link_dropout: per-block edge failure probability "
+                         "(default 0.3)")
+    ap.add_argument("--graph-corr", type=float, default=None,
+                    help="link_dropout: link-outage autocorrelation "
+                         "(default 0.0)")
+    ap.add_argument("--graph-p", type=float, default=None,
+                    help="tv_erdos: per-block edge probability (default "
+                         "0.3)")
     ap.add_argument("--participation", type=float, default=0.9,
                     help="activation probability q")
+    ap.add_argument("--participation-process", default="iid",
+                    choices=["iid", "markov", "cyclic"],
+                    help="agent-availability model")
+    ap.add_argument("--markov-corr", type=float, default=0.5,
+                    help="availability autocorrelation (markov)")
+    ap.add_argument("--num-groups", type=int, default=2,
+                    help="round-robin groups (cyclic)")
     ap.add_argument("--drift-correction", action="store_true", default=False,
                     help="eq. (31) mu/q_k step sizes")
     ap.add_argument("--local-steps-mode", default="uniform",
@@ -193,20 +261,26 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
     block the seconds (``timings``: ``block_s``, ``local_s``,
     ``combine_s``) and ``tokens_per_s`` (K T B S over the block's
     seconds), and the ``comm:`` banner's numbers (``comm``, None without
-    compression)."""
+    compression), and per block the realized (K, K) combination matrix
+    (``graphs``, on the CPU)."""
     ap = _parser()
     args, extra = ap.parse_known_args(argv)
     _reject_unported(ap, extra)
     check_robust_flags(args)
+    check_graph_flags(args)
     device = resolve_device(args.device)
     bundle = get_config(args.arch)
     cfg = bundle.smoke if args.smoke else bundle.model
     if use_kernels:
         cfg = dataclasses.replace(cfg, use_kernels=True)
     K, T = args.agents, args.local_steps
+    process = make_participation(args, K)
     dcfg = DiffusionConfig(
         num_agents=K, local_steps=T, step_size=args.step_size,
-        topology=args.topology, participation=args.participation,
+        topology=args.topology, graph=args.graph,
+        graph_kwargs=graph_kwargs(args),
+        participation=(args.participation if process is None
+                       else tuple(process.q_vector())),
         drift_correction=args.drift_correction, mix=args.mix,
         compress=args.compress, compress_ratio=args.compress_ratio,
         compress_sigma=args.compress_sigma,
@@ -226,7 +300,12 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
 
     eng = DiffusionEngine(
         dcfg, loss, None if plain_sgd else optimizer.update, device=device,
-        trim=args.trim, scope=args.robust_scope, gather=args.robust_gather)
+        participation=process, trim=args.trim, scope=args.robust_scope,
+        gather=args.robust_gather)
+    if args.graph != "static":
+        print(f"graph: {args.graph}: the combination matrix is resampled "
+              f"every block ({eng.graph!r}); "
+              f"stateful={bool(eng.graph.stateful)}")
     key = torch.Generator().manual_seed(args.seed)
     params = init_stacked(key, cfg, K, device)
     state = eng.init_state(params, optimizer.init(params), key=key)
@@ -238,7 +317,7 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
               f"{int(t_k.max())}] (uniform T={T})")
 
     out = {"cfg": cfg, "losses": [], "active": [], "timings": [],
-           "tokens_per_s": [], "comm": comm}
+           "tokens_per_s": [], "comm": comm, "graphs": []}
     tokens = K * T * args.batch * args.seq
     t_start = time.perf_counter()
     for i in range(args.blocks):
@@ -251,6 +330,7 @@ def main(argv=None, *, use_kernels: bool = False) -> dict:
                                "local_s": metrics["local_s"],
                                "combine_s": metrics["combine_s"]})
         out["tokens_per_s"].append(tokens / block_s)
+        out["graphs"].append(metrics["A_t"].cpu())
         if i % args.log_every == 0:
             active = metrics["active"]
             with torch.no_grad():

@@ -13,11 +13,12 @@ torch = pytest.importorskip("torch")
 import numpy as np  # noqa: E402
 
 from repro_torch.core import compression as comp  # noqa: E402
+from repro_torch.core import graphs  # noqa: E402
 from repro_torch.core.topology import make_topology  # noqa: E402
 from repro_torch.kernels import diffusion_mix as dm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
-from repro_torch.kernels.ops import ssd_op  # noqa: E402
+from repro_torch.kernels.ops import mix_op, ssd_op  # noqa: E402
 from repro_torch.kernels.ref import (attention_bf16p_budget,  # noqa: E402
                                      attention_bf16p_ref, attention_ref,
                                      mix_ref, ssd_intra_chunk_ref, ssd_ref)
@@ -55,6 +56,45 @@ def test_cuda_kernel_matches_mix_ref():
                 assert dm.diffusion_mix.launches == before + 1
                 err = ((out - ref).abs() / ref.abs().clamp(min=1)).max()
                 assert err.item() <= 1e-5, (K, M, err.item())
+
+
+@pytest.mark.cuda
+def test_cuda_mix_op_and_link_dropout_matrices_match_plain(monkeypatch):
+    """``mix_op`` on the card, one launch a tile, against the plain version
+    on the same tiles, under realized link-dropout matrices drawn from a
+    host generator (the same matrices on the card and the CPU)."""
+    _need_card()
+    from repro_torch.core import mixing
+
+    monkeypatch.setattr(mixing, "TILE_ELEMS", 8 * 1000)
+    K = 8
+    topo = make_topology("ring", K)
+    on_card = graphs.LinkDropout(topo, 0.4, corr=0.5, device="cuda")
+    on_cpu = graphs.LinkDropout(topo, 0.4, corr=0.5, device="cpu")
+    key_a, key_b = (torch.Generator().manual_seed(3) for _ in range(2))
+    masks = torch.Generator().manual_seed(7)
+    st_a, st_b = on_card.init_state(key_a), on_cpu.init_state(key_b)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tree = {"a": torch.randn((K, 37, 61), generator=gen, device="cuda"),
+            "b": torch.randn((K, 2500), generator=gen,
+                             device="cuda").to(torch.bfloat16)}
+    for _ in range(4):
+        A_t, st_a = on_card.sample(st_a, key_a)
+        A_c, st_b = on_cpu.sample(st_b, key_b)
+        assert A_t.device.type == "cuda" and torch.equal(A_t.cpu(), A_c)
+        m = (torch.rand(K, generator=masks) < 0.7).float().cuda()
+        before = dm.diffusion_mix.launches
+        got = mix_op(A_t, m, tree)
+        torch.cuda.synchronize()
+        assert dm.diffusion_mix.launches - before == mixing.num_tiles(
+            K, 37 * 61 + 2500)
+        for k, x in tree.items():
+            want = mix_ref(A_t, m, x.reshape(K, -1).float()).reshape(x.shape)
+            assert got[k].dtype == x.dtype
+            torch.testing.assert_close(got[k].float(),
+                                       want.to(x.dtype).float(), atol=1e-5,
+                                       rtol=2 ** -7)
+            assert torch.equal(got[k][m == 0], x[m == 0])
 
 
 @pytest.mark.cuda

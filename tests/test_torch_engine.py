@@ -207,9 +207,13 @@ def test_schedules_state_graphs_and_pipeline():
     np.testing.assert_array_equal(q, np.full(K, 0.7))
     with pytest.raises(ValueError, match="agents"):
         schedules.resolve(cfg, schedules.IIDBernoulli(0.5, num_agents=3))
-    for cls in (schedules.MarkovAvailability, schedules.CyclicGroups):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            cls(0.5, 0.3, num_agents=K)
+    # the stateful processes (tests/test_torch_graphs.py holds them
+    # against the reference)
+    markov = schedules.MarkovAvailability(0.5, 0.3, num_agents=K)
+    cyclic = schedules.CyclicGroups(K, 2)
+    for proc in (markov, cyclic):
+        assert proc.stateful
+        assert schedules.resolve(cfg, proc)[0] is proc
     # the same seven fields in the reference's order
     assert ([f.name for f in dataclasses.fields(EngineState)]
             == [f.name for f in dataclasses.fields(RefEngineState)])
@@ -217,9 +221,13 @@ def test_schedules_state_graphs_and_pipeline():
     g = graphs.make_graph_process("static", topo, device="cpu")
     A_t, st = g.sample((), None)
     np.testing.assert_array_equal(A_t.numpy(), topo.A.astype(np.float32))
-    for kind in ("link_dropout", "gossip", "tv_erdos"):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            graphs.make_graph_process(kind, topo)
+    for kind, stateful, on_support, kw in (
+            ("link_dropout", False, True, {}),
+            ("link_dropout", True, True, {"corr": 0.5}),
+            ("gossip", False, True, {}), ("tv_erdos", False, False, {})):
+        proc = graphs.make_graph_process(kind, topo, **kw)
+        assert (proc.stateful, proc.within_base_support) == (stateful,
+                                                             on_support)
     mixer = mixing.make_mixer("dense", topo)
     pipe = mixing.CommPipeline(mixer)
     assert pipe.mode == "identity" and not pipe.stateful

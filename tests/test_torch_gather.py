@@ -366,8 +366,8 @@ def test_make_mixer_robust_and_gather_policy():
 
 
 class _OffSupport(graphs.GraphProcess):
-    """A graph process that realizes edges off the base support (what
-    tv_erdos will be), for the support rules."""
+    """A graph process that realizes edges off the base support (as
+    tv_erdos does), for the support rules."""
 
     name = "off_support"
     within_base_support = False

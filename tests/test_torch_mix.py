@@ -16,10 +16,12 @@ from repro.core.mixing import PallasFusedMixer as RefPallasMixer  # noqa: E402
 from repro.core.mixing import make_mixer as ref_make_mixer  # noqa: E402
 from repro.core.serving import consensus_from_stacked as ref_consensus  # noqa: E402
 from repro.kernels.diffusion_mix import diffusion_mix as ref_diffusion_mix  # noqa: E402
+from repro.kernels.ops import mix_op as ref_mix_op  # noqa: E402
 from repro_torch.core import mixing  # noqa: E402
 from repro_torch.core.serving import ParamStore, consensus_from_stacked  # noqa: E402
 from repro_torch.core.topology import make_topology  # noqa: E402
 from repro_torch.kernels import diffusion_mix as dm  # noqa: E402
+from repro_torch.kernels.ops import mix_op  # noqa: E402
 from repro_torch.kernels.ref import mix_ref  # noqa: E402
 from repro_torch.models.convert import to_numpy  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
@@ -47,6 +49,52 @@ def test_mix_ref_matches_pallas_kernel(K):
         cpu = dm.diffusion_mix(torch.from_numpy(A), torch.from_numpy(m),
                                torch.from_numpy(W))
         np.testing.assert_array_equal(cpu.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("K,topo", [(6, "ring"), (8, "erdos")])
+def test_mix_op_matches_dense_and_the_reference(monkeypatch, K, topo):
+    """``mix_op`` over a tree of mixed dtypes, tiles splitting leaves:
+    the dense mixer on the eq.-20 matrix, and the reference's ``mix_op``
+    (its Pallas kernel in interpret mode), within one float32 summation
+    bound and one bf16 ulp; inactive agents bit-equal; one plain-version
+    call a tile and never a kernel launch on the CPU."""
+    rng = np.random.default_rng(K)
+    A = ref_make_topology(topo, K).A.astype(np.float32)
+    m = np.array([1, 0] * (K // 2), np.float32)
+    tree = {"a": rng.standard_normal((K, 5, 7)).astype(np.float32),
+            "b": rng.standard_normal((K, 33)).astype(np.float32),
+            "c": rng.standard_normal((K, 3, 3)).astype(np.float32)}
+    ttree = {"a": torch.from_numpy(tree["a"]),
+             "b": torch.from_numpy(tree["b"]).to(torch.bfloat16),
+             "c": torch.from_numpy(tree["c"]).double()}
+    jtree = {"a": jnp.asarray(tree["a"]),
+             "b": jnp.asarray(tree["b"]).astype(jnp.bfloat16),
+             "c": jnp.asarray(tree["c"], jnp.float32)}
+    monkeypatch.setattr(mixing, "TILE_ELEMS", K * 16)   # 16-column tiles
+    calls = []
+    monkeypatch.setattr(dm, "mix_ref", lambda *a: calls.append(1)
+                        or mix_ref(*a))
+    before = dm.diffusion_mix.launches
+    got = mix_op(torch.from_numpy(A), torch.from_numpy(m), ttree)
+    assert dm.diffusion_mix.launches == before
+    assert len(calls) == mixing.num_tiles(K, 35 + 33 + 9) > 1
+    want = ref_mix_op(jnp.asarray(A), jnp.asarray(m), jtree, tile_m=128,
+                      interpret=True)
+    dense = mixing.DenseMixer()(
+        {k: v.double() for k, v in ttree.items()}, torch.from_numpy(m),
+        torch.from_numpy(A).double())
+    for k in tree:
+        assert got[k].dtype == ttree[k].dtype and got[k].shape == \
+            ttree[k].shape
+        g = got[k].double().numpy()
+        if k == "b":           # rounded to bf16 once: one bf16 ulp
+            rtol, atol = BF16_RTOL, 1e-6
+        else:
+            rtol, atol = 0, 1e-6
+        np.testing.assert_allclose(g, dense[k].numpy(), rtol=rtol, atol=atol)
+        np.testing.assert_allclose(g, np.asarray(want[k], np.float64),
+                                   rtol=rtol, atol=atol)
+        assert torch.equal(got[k][m == 0], ttree[k][m == 0])
 
 
 def test_kernel_operand_checks():
