@@ -182,12 +182,42 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     closer than the static law.  Microseconds a block and the sim/theory
     ratios are printed, and 200 more Fig. 5 blocks are profiled (the
     device's busy share).
+18. The privacy tier and the partitioned data: smollm-360m at full width
+    through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
+    mu=0.05, ``use_kernels=True``): (a) ``--mix pallas --privacy
+    --privacy-epsilon 8 --privacy-delta 1e-5 --privacy-clip 1.0 --data
+    dirichlet --data-alpha 0.3 --data-clusters 4``, 3 blocks unless the
+    budget halt stops the run: exact launch counts for the blocks run,
+    finite losses and parameters, the logged epsilon equal to the numpy
+    accountant over the realized masks and never falling, the halt fired
+    iff a block was projected past the budget, every block's tokens
+    bit-equal to a CPU iterator's and inside each agent's partition, then
+    one local step's gradients clipped at noise 0 (each agent's norm
+    within clip (1 + 1e-5) before the bf16 rounding, (1 + 2^-8) after);
+    (b) ``--privacy --privacy-epsilon 8 --privacy-secure-agg --data shards
+    --data-shards 2``, 2 blocks: ``diffusion_mix`` not launched (the wire
+    masks carry the combination), then one masked combination of the
+    trained stack under the block's mask and under a partial one against
+    the kernel mixer: within one bf16 ulp plus the summation bound, 5e-5
+    on a float32 widening, inactive agents bit-equal, with its seconds,
+    memory and mask tiles; (c) at smoke size, card against CPU: private
+    training at noise 0 with and without the masks on the static ring and
+    under link dropout 0.3 (phase 6's SGD gates), masked against unmasked
+    within 5e-5 on each device, and the Dirichlet and shards blocks
+    bit-equal; (d) the DP §VII regression (K=8, M=2, q=0.8, ring, T=2,
+    mu=0.01, 2,000 blocks, ``--mix pallas``): masked against unmasked
+    within 5e-5 on the static ring and under link dropout, the steady MSD
+    falls as epsilon rises through 2, 8, 32 and stays above half the
+    non-private floor, the realized epsilon within 0.7-1.3 of each target,
+    the MSD at epsilon 32 within 0.25-4 of Theorem 5 with the injected DP
+    variance; microseconds a block and 200 profiled blocks (the device's
+    busy share).
 
 The kernel mixers run over a column-tiled flatten, one launch per tile
-(``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14, 15
-and 16 count tiles.  Each path's launch counts (all six kernels) are set
-to 0 just before its first run and read just after it (phases 3, 5, 8, 9,
-11, 12, 14, 15, 16 and 17).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
+(``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14, 15,
+16 and 18 count tiles.  Each path's launch counts (all six kernels) are
+set to 0 just before its first run and read just after it (phases 3, 5, 8,
+9, 11, 12, 14, 15, 16, 17 and 18).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
@@ -3460,19 +3490,23 @@ def _steady_msd(data, cfg, w_opt, blocks: int, tail: int, reps: int,
     return float(np.mean(msds)), us, read_launches()
 
 
-def _profile_regression(data, cfg, blocks: int, card: str) -> dict:
+def _profile_regression(data, cfg, blocks: int, card: str, *, eng=None,
+                        opt_init=None, label: str = "phase 17b") -> dict:
     """``blocks`` blocks of the regression on the card under
-    ``torch.profiler``: the device time of their kernels against the host
-    clock around them (the device's busy share)."""
+    ``torch.profiler`` (through ``eng``, whose optimizer state
+    ``opt_init(params)`` makes, if given): the device time of their kernels
+    against the host clock around them (the device's busy share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data.synthetic import make_block_sampler
 
-    eng = _regression_engine(data, cfg, "cuda")
+    if eng is None:
+        eng = _regression_engine(data, cfg, "cuda")
     sampler = make_block_sampler(data, T=cfg.local_steps, device="cuda")
     key = torch.Generator().manual_seed(9)
-    state = eng.init_state(torch.zeros(cfg.num_agents, 2, device="cuda"))
+    w0 = torch.zeros(cfg.num_agents, 2, device="cuda")
+    state = eng.init_state(w0, None if opt_init is None else opt_init(w0))
     state, _ = eng.step(state, sampler(key), key)          # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3487,7 +3521,7 @@ def _profile_regression(data, cfg, blocks: int, card: str) -> dict:
     out = {"blocks": blocks, "wall_s": wall, "device_busy_s": busy,
            "device_busy_share": busy / wall,
            "device_events_per_block": len(events) / blocks}
-    print(f"phase 17b: {blocks} profiled blocks: kernels busy "
+    print(f"{label}: {blocks} profiled blocks: kernels busy "
           f"{1e3 * busy:.2f} ms of {1e3 * wall:.2f} ms on the host clock "
           f"({100 * busy / wall:.1f} % busy), {len(events) / blocks:.0f} "
           f"device events a block [{card}]")
@@ -3641,6 +3675,535 @@ def phase_regression(card: str, device: str = "cuda") -> tuple[dict, dict]:
     return row["fig5"]["launches"], row
 
 
+PRIVATE_DIRICHLET_FLAGS = ["--mix", "pallas", "--privacy", "--privacy-epsilon",
+                           "8", "--privacy-delta", "1e-5", "--privacy-clip",
+                           "1.0", "--data", "dirichlet", "--data-alpha", "0.3",
+                           "--data-clusters", "4"]
+PRIVATE_SECURE_AGG_FLAGS = ["--mix", "pallas", "--privacy",
+                            "--privacy-epsilon", "8", "--privacy-secure-agg",
+                            "--data", "shards", "--data-shards", "2"]
+#: a bound on |eta| over every mask a full-width combination draws (2.3e10
+#: standard normals; P(|N(0,1)| > 8) = 1.2e-15)
+MASK_BOUND = 8.0
+
+
+def _private_launches(K: int, M: int, mixed: bool):
+    """Launch counts of a full-width private run of ``n_logged`` blocks
+    (every block is logged; the budget halt may stop the run early):
+    ``diffusion_mix`` one per tile a block unless the secure-agg stage
+    takes the combination."""
+    def want(cfg, n_logged):
+        return {"diffusion_mix": num_tiles(K, M) * n_logged if mixed else 0,
+                "flash_attention": cfg.num_layers * K * 3 * n_logged,
+                "gather_mix": 0, "gather_robust_mix": 0,
+                "ssd_intra_chunk": 0, "diffusion_mix_int8": 0}
+    return want
+
+
+def _check_accountant(label: str, out: dict, blocks: int) -> dict:
+    """The logged epsilon against the numpy twins over the realized masks
+    (T x the increment a block), never falling; and the budget halt: a run
+    shorter than ``blocks`` is one whose next block the stationary rate
+    projected past the budget, and a full run never was."""
+    import numpy as np
+
+    from repro_torch.core.privacy import epsilon_from_rdp_np, rdp_increment_np
+
+    p = out["privacy"]
+    rdp = np.zeros(len(p.orders))
+    want = []
+    for active in out["active"]:
+        rdp = rdp + p.steps_per_block * rdp_increment_np(
+            float(np.mean(active)), p.noise_multiplier, p.orders)
+        want.append(epsilon_from_rdp_np(rdp, p.delta, p.orders))
+    got = out["epsilon"]
+    # the reference's gate for the float32 accountant
+    if len(got) != out["blocks_done"] or any(
+            abs(g - w) > 1e-6 + 2e-4 * abs(w) for g, w in zip(got, want)):
+        raise AssertionError(f"{label}: logged epsilon {got}, the realized "
+                             f"masks give {want}")
+    if any(b < a for a, b in zip(got, got[1:])):
+        raise AssertionError(f"{label}: epsilon fell: {got}")
+    # the halt: each block run was projected (the stationary rate's
+    # increment on the spend before it) within the budget, and a run cut
+    # short stopped at a block projected past it
+    inc_bar = p.steps_per_block * rdp_increment_np(0.9, p.noise_multiplier,
+                                                   p.orders)
+    rdp = np.zeros(len(p.orders))
+    projected = []
+    for active in out["active"] + [None]:
+        projected.append(epsilon_from_rdp_np(rdp + inc_bar, p.delta,
+                                             p.orders))
+        if active is not None:
+            rdp = rdp + p.steps_per_block * rdp_increment_np(
+                float(np.mean(active)), p.noise_multiplier, p.orders)
+    ran = out["blocks_done"]
+    if (any(x > p.epsilon_budget for x in projected[:ran])
+            or (ran < blocks and projected[ran] <= p.epsilon_budget
+                and want[-1] < p.epsilon_budget)):
+        raise AssertionError(f"{label}: {ran} of {blocks} blocks run, "
+                             f"projections {projected} against the budget "
+                             f"{p.epsilon_budget}")
+    projected = projected[ran]
+    print(f"{label}: sigma {p.noise_multiplier:.6f} (calibrated to epsilon "
+          f"{p.epsilon_budget:g} over {blocks} x {p.steps_per_block} "
+          f"invocations at q = 0.9); realized rates "
+          f"{[float(np.mean(a)) for a in out['active']]}; epsilon "
+          f"{[round(e, 4) for e in got]} against the numpy twins "
+          f"{[round(e, 4) for e in want]}; {out['blocks_done']} of {blocks} "
+          f"blocks run (the next projected to {projected:.3f})")
+    return {"noise_multiplier": p.noise_multiplier, "epsilon": got,
+            "epsilon_numpy": want, "blocks_done": out["blocks_done"],
+            "projected_next": projected}
+
+
+def _check_blocks(label: str, out: dict, provider_kwargs: dict) -> None:
+    """Every block run, re-derived from the run's own index-replayable
+    provider on the card, is bit-equal to a CPU provider's block of the
+    same index, and each agent's windows lie in its partition."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.pipeline import make_block_provider
+
+    cpu = make_block_provider(cfg=out["cfg"], device="cpu",
+                              **provider_kwargs)
+    it, ds = cpu.iterator, cpu.dataset
+    for i in range(out["blocks_done"]):
+        tokens = out["provider"](i, None)["tokens"].cpu()
+        if not torch.equal(tokens, cpu(i, None)["tokens"]):
+            raise AssertionError(f"{label}: block {i} differs from the CPU "
+                                 "iterator's")
+        for k, draw in enumerate(it.windows(i)):
+            if not np.isin(draw, cpu.partitions[k]).all():
+                raise AssertionError(f"{label}: block {i} agent {k} drew "
+                                     "outside its partition")
+            for t in range(draw.shape[0]):
+                for b in range(draw.shape[1]):
+                    x, _ = ds.window(int(draw[t, b]))
+                    if not np.array_equal(tokens[t, k, b].numpy(), x):
+                        raise AssertionError(f"{label}: block {i} agent {k} "
+                                             "is not its windows")
+    sizes = [len(p) for p in cpu.partitions]
+    print(f"{label}: {out['blocks_done']} blocks bit-equal to the CPU "
+          f"iterator's, every window in its agent's partition "
+          f"(windows per agent {sizes})")
+
+
+def phase_train_private(card: str) -> tuple[dict, dict]:
+    """Phase 18a: full-width smollm-360m, K = 8 ring, differentially
+    private (epsilon 8, delta 1e-5, clip 1) on a Dirichlet partition of
+    the seeded corpus, every combination through ``diffusion_mix``."""
+    import torch
+
+    from repro_torch.core.diffusion import stacked_grad
+    from repro_torch.core.privacy import clip_and_noise
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves, tree_map
+
+    K, blocks = 8, 3
+    M = full_width_M()
+    out, row = _train_full(card, "phase 18a", PRIVATE_DIRICHLET_FLAGS, blocks,
+                           _private_launches(K, M, True), K=K)
+    row["privacy"] = _check_accountant("phase 18a", out, blocks)
+    _check_blocks("phase 18a", out, dict(
+        kind="dirichlet", num_agents=K, local_steps=2, batch=1, seq=1024,
+        alpha=0.3, clusters=4, seed=0, corpus_tokens=65536))
+    # one local step with noise 0: the clip alone
+    cfg, params = out["cfg"], out["state"].params
+    batch = tree_map(lambda x: x[0], out["provider"](0, None))
+    del out
+    torch.cuda.empty_cache()
+    grads = stacked_grad(lambda p, b: tf.train_loss(p, cfg, b, remat=False))(
+        params, batch)
+    sq64 = sum(g.double().reshape(K, -1).square().sum(1)
+               for g in tree_leaves(grads))
+    # the float32 norm over the leaves in order, and min(1, clip / norm)
+    sq32 = torch.zeros((K,), dtype=torch.float32, device="cuda")
+    for g in tree_leaves(grads):
+        sq32 = sq32 + g.float().reshape(K, -1).square().sum(1)
+    scale32 = torch.clamp(1.0 / torch.sqrt(sq32), max=1.0)
+    clipped = clip_and_noise(grads, None, clip=1.0, noise_multiplier=0.0)
+    # the port's output, bit for bit: each leaf times that scale rounded
+    # to the leaf's dtype
+    exact = all(torch.equal(
+        c, g * scale32.reshape((K,) + (1,) * (g.ndim - 1)).to(g.dtype))
+        for c, g in zip(tree_leaves(clipped), tree_leaves(grads)))
+    del grads
+    norm = sum(g.double().reshape(K, -1).square().sum(1)
+               for g in tree_leaves(clipped)).sqrt()
+    del clipped
+    before = sq64.sqrt() * scale32.double()
+    row["clip"] = {"raw_norms": sq64.sqrt().tolist(),
+                   "scaled_norms_f32_scale": before.tolist(),
+                   "clipped_norms": norm.tolist(), "bit_equal": exact}
+    print(f"phase 18a: one local step, noise 0: raw gradient norms "
+          f"{[round(x, 4) for x in sq64.sqrt().tolist()]}; times the float32 "
+          f"scale {[f'{x:.7f}' for x in before.tolist()]} (gate 1 + 1e-5); "
+          f"clip_and_noise's leaves bit-equal to each gradient times that "
+          f"scale in its dtype: {exact}; their norms in bf16 "
+          f"{[f'{x:.7f}' for x in norm.tolist()]} (gate 1 + 2^-8: the scale "
+          f"and each product round to bf16) [{card}]")
+    if not exact:
+        raise AssertionError("phase 18a: clip_and_noise is not the gradient "
+                             "times min(1, clip / its float32 norm)")
+    if not (before <= 1.0 + 1e-5).all() or not (norm <= 1.0 + 2 ** -8).all():
+        raise AssertionError("phase 18a: a clipped gradient above the clip")
+    print(json.dumps({"phase": "18a", **row}))
+    del params, batch
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+def phase_train_secure_agg(card: str) -> tuple[dict, dict]:
+    """Phase 18b: the private_diffusion preset's privacy (secure-agg wire
+    masks) on shards, full width: the stage takes every combination, so
+    ``diffusion_mix`` is not launched; then one masked combination of the
+    trained stack against the kernel mixer."""
+    import torch
+
+    from repro_torch.core.mixing import make_mixer
+    from repro_torch.core.privacy import make_secure_agg, mask_tiles
+    from repro_torch.core.topology import make_topology
+    from repro_torch.tree import tree_leaves
+
+    # epsilon 8 calibrated over 3 blocks: a first block at full
+    # participation projects the second within the budget (over 2 it would
+    # not), so the masks' epoch is carried past block 0 at full width
+    K, blocks = 8, 3
+    M = full_width_M()
+    out, row = _train_full(card, "phase 18b", PRIVATE_SECURE_AGG_FLAGS,
+                           blocks, _private_launches(K, M, False), K=K)
+    row["privacy"] = _check_accountant("phase 18b", out, blocks)
+    epoch = int(out["state"].comm_state["t"])
+    if out["blocks_done"] < 2 or epoch != out["blocks_done"]:
+        raise AssertionError(f"phase 18b: {out['blocks_done']} blocks run, "
+                             f"the masks' epoch at {epoch}")
+    row["mask_epoch"] = epoch
+    _check_blocks("phase 18b", out, dict(
+        kind="shards", num_agents=K, local_steps=2, batch=1, seq=1024,
+        shards_per_agent=2, seed=0, corpus_tokens=65536))
+    row["combine_masked_s"] = [t["combine_s"] for t in out["timings"]]
+    params = out["state"].params
+    A_t = out["graphs"][-1].cuda()
+    block_active = torch.tensor(out["active"][-1], device="cuda")
+    del out
+    torch.cuda.empty_cache()
+    topo = make_topology("ring", K)
+    stage = make_secure_agg(K, seed=0)
+    kernel = make_mixer("pallas", topo, device="cuda")
+    partial = torch.tensor([1.0, 1.0, 0.0, 1.0, 1.0, 1.0, 0.0, 1.0],
+                           device="cuda")
+    floors = [f + 2 * 2 * K * 2.0 ** -24 * 2 * MASK_BOUND
+              for f in _sum_floors(params, 3)]
+    for name, active in (("the block's mask", block_active),
+                         ("a mask with agents 2, 6 inactive", partial)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        got = stage(params, active, A_t, 7)
+        torch.cuda.synchronize()
+        masked_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        if read_launches()["diffusion_mix"]:
+            raise AssertionError("phase 18b: the masked combination "
+                                 "launched diffusion_mix")
+        want = kernel(params, active, A_t)
+        gate = _ulp_gate(f"phase 18b: one combination through the masks, "
+                         f"{name}, against the kernel mixer",
+                         ((a, b, f) for a, b, f in zip(
+                             tree_leaves(got), tree_leaves(want), floors)))
+        # the reference's own mask-exactness gate, absolute, on a float32
+        # widening of 2^24 columns of the stack (16 mask tiles)
+        x = {"x": tree_leaves(params)[0].reshape(K, -1)[:, :1 << 24]
+             .float()}
+        gate["max_abs"] = (stage(x, active, A_t, 8)["x"]
+                           - kernel(x, active, A_t)["x"]).abs().max().item()
+        del x
+        if not gate["max_abs"] <= 5e-5:
+            raise AssertionError("phase 18b: masked combination beyond "
+                                 "5e-5 of the kernel's")
+        if not _frozen_equal(got, params, active):
+            raise AssertionError("phase 18b: inactive agents not kept "
+                                 "exactly")
+        row.setdefault("combinations", []).append(
+            {"mask": active.tolist(), "masked_s": masked_s,
+             "extra_peak_gb": peak, "mask_tiles": mask_tiles(K, M), **gate})
+        print(f"phase 18b: {name}: masked combination {masked_s:.3f}s "
+              f"({mask_tiles(K, M)} mask tiles of {K}x{K}x"
+              f"{(1 << 26) // (K * K)}; {peak:.2f} GB above the stack); "
+              f"float32, 2^24 columns: max |masked - kernel| "
+              f"{gate['max_abs']:.2e} (gate 5e-5); "
+              f"inactive agents bit-equal [{card}]")
+        del got, want
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "18b", **row}))
+    del params
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+def _private_smoke(device: str, *, secure_agg: bool, graph: tuple,
+                   blocks: int = 3) -> dict:
+    """Smoke smollm-360m, K = 4 ring, T = 2, SGD, ``--mix pallas``,
+    private at noise 0: the transform clips only (its noise multiplier
+    0), the accountant runs at sigma 1, and with ``secure_agg`` the masks
+    carry the combination.  Every draw but the masks from one host
+    generator."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.diffusion import DiffusionConfig, DiffusionEngine
+    from repro_torch.core.privacy import Privacy, PrivateGradients
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.launch.train import init_stacked
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("smollm-360m").smoke
+    K, T, B, S = 4, 2, 2, 64
+
+    def loss(p, b):
+        return tf.train_loss(p, cfg, b, remat=False)
+
+    transform = PrivateGradients(1.0, 0.0)
+    eng = DiffusionEngine(
+        DiffusionConfig(num_agents=K, local_steps=T, step_size=0.05,
+                        participation=0.9, mix="pallas", graph=graph[0],
+                        graph_kwargs=graph[1]),
+        loss, transform.update, device=device,
+        privacy=Privacy(num_agents=K, clip=1.0, noise_multiplier=1.0,
+                        delta=1e-5, secure_agg=secure_agg,
+                        steps_per_block=T))
+    key = torch.Generator().manual_seed(0)
+    params = init_stacked(key, cfg, K, device)
+    state = eng.init_state(params, transform.init(params), key=key)
+    active, graphs, eps = [], [], []
+    for _ in range(blocks):
+        batch = tree_map(lambda x: x.to(device), lm_token_batch(
+            key, (T, K, B, S), cfg.vocab_size))
+        state, m = eng.step(state, batch, key)
+        active.append(m["active"].cpu())
+        graphs.append(m["A_t"].cpu())
+        eps.append(float(m["epsilon"]))
+    with torch.no_grad():
+        losses = torch.stack([loss(tree_map(lambda x, k=k: x[k],
+                                            state.params),
+                                   tree_map(lambda x, k=k: x[0, k], batch))
+                              for k in range(K)]).cpu()
+    return {"params": tree_map(lambda x: x.cpu(), state.params),
+            "active": active, "graphs": graphs, "epsilon": eps,
+            "losses": losses}
+
+
+def phase_private_devices() -> dict:
+    """Phase 18c: at smoke size, card against CPU: private training at
+    noise 0 with and without the masks, static ring and link dropout 0.3
+    (phase 6's SGD gates, the same masks and matrices), the masked run
+    against the unmasked one within 5e-5 on each device; and the
+    Dirichlet and shards providers' blocks, bit-equal."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_block_provider
+    from repro_torch.tree import tree_leaves
+
+    def worst(a, b):
+        return max((x - y).abs().max().item()
+                   for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+    row = {}
+    for gname, graph in (("static", ("static", ())),
+                         ("link_dropout", ("link_dropout",
+                                           (("drop", 0.3),)))):
+        runs = {(dev, sa): _private_smoke(dev, secure_agg=sa, graph=graph)
+                for dev in ("cuda", "cpu") for sa in (False, True)}
+        for sa in (False, True):
+            gpu, cpu = runs[("cuda", sa)], runs[("cpu", sa)]
+            if not all(torch.equal(a, b) for a, b in
+                       zip(gpu["active"] + gpu["graphs"],
+                           cpu["active"] + cpu["graphs"])):
+                raise AssertionError("phase 18c: card and CPU realized "
+                                     "different masks or graphs")
+            loss_rel = ((gpu["losses"] - cpu["losses"]).abs()
+                        / cpu["losses"].abs()).max().item()
+            w = worst(gpu["params"], cpu["params"])
+            e = max(abs(a - b) / b for a, b in zip(gpu["epsilon"],
+                                                   cpu["epsilon"]))
+            row[f"{gname}_secure_agg_{sa}"] = {"loss_rel": loss_rel,
+                                               "params": w, "epsilon_rel": e}
+            print(f"phase 18c: {gname}, secure-agg {sa}, noise 0: card vs "
+                  f"CPU losses rel {loss_rel:.2e}, parameters max |diff| "
+                  f"{w:.2e} (gate 1e-4, 1e-4), epsilon rel {e:.1e} (2e-4)")
+            if not (loss_rel <= 1e-4 and w <= 1e-4 and e <= 2e-4):
+                raise AssertionError("phase 18c: card and CPU disagree")
+        for dev in ("cuda", "cpu"):
+            w = worst(runs[(dev, True)]["params"], runs[(dev, False)]["params"])
+            row[f"{gname}_masked_vs_unmasked_{dev}"] = w
+            print(f"phase 18c: {gname}, {dev}: masked against unmasked "
+                  f"within {w:.2e} (gate 5e-5)")
+            if not w <= 5e-5:
+                raise AssertionError("phase 18c: the masks do not cancel")
+    for arch_cfg, seq in ((get_config("smollm-360m").smoke, 64),
+                          (get_config("smollm-360m").model, 1024)):
+        for kind, kw in (("dirichlet", {"alpha": 0.3, "clusters": 4}),
+                         ("shards", {"shards_per_agent": 2})):
+            pv = {dev: make_block_provider(
+                kind, arch_cfg, num_agents=8, local_steps=2, batch=1,
+                seq=seq, device=dev, seed=3, **kw) for dev in ("cuda", "cpu")}
+            for i in (0, 1, 7, 1000):
+                a, b = pv["cuda"](i, None), pv["cpu"](i, None)
+                if not all(torch.equal(a[n].cpu(), b[n]) for n in a):
+                    raise AssertionError(f"phase 18c: {kind} block {i} "
+                                         "differs between card and CPU")
+    print("phase 18c: dirichlet and shards blocks 0, 1, 7, 1000 bit-equal "
+          "on the card and the CPU (smoke and full width)")
+    return row
+
+
+def _private_regression_engine(data, cfg, privacy, device):
+    from repro_torch.core.diffusion import DiffusionEngine
+    from repro_torch.optim import sgd
+
+    transform = privacy.wrap(sgd()) if privacy is not None else None
+    eng = DiffusionEngine(cfg, data.loss_fn(),
+                          None if transform is None else transform.update,
+                          device=device, grad_fn=data.grad_fn(),
+                          privacy=privacy)
+    return eng, (transform.init if transform is not None
+                 else (lambda p: None))
+
+
+def phase_private_regression(card: str,
+                             device: str = "cuda") -> tuple[dict, dict]:
+    """Phase 18d: the DP §VII regression (the recipe of the reference's
+    ``bench_privacy``: K = 8, M = 2, q = 0.8, ring, T = 2, mu = 0.01, 2,000
+    blocks, ``--mix pallas``): mask exactness on the static ring and under
+    link dropout; the MSD-epsilon frontier for epsilon in {2, 8, 32}
+    against the non-private floor; the realized epsilon against each
+    target; Theorem 5 with the injected DP variance at epsilon 32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import msd
+    from repro_torch.core.diffusion import DiffusionConfig, network_msd
+    from repro_torch.core.privacy import Privacy, compile_privacy
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data.synthetic import (make_block_sampler,
+                                            make_regression_problem)
+
+    K, M, q, T, mu, blocks = 8, 2, 0.8, 2, 0.01, 2000
+    data = make_regression_problem(K=K, N=100, M=M, rho=0.1, seed=11)
+    prob = data.problem()
+    qv = np.full(K, q)
+    w_o = torch.as_tensor(prob.w_opt(qv), dtype=torch.float32, device=device)
+    sampler = make_block_sampler(data, T=T, batch=1, device=device)
+    base = DiffusionConfig(num_agents=K, local_steps=T, step_size=mu,
+                           topology="ring", participation=q, mix="pallas")
+    row = {"card": card}
+
+    # (1) mask exactness: the same noise stream with and without masks
+    p0 = torch.as_tensor(np.random.default_rng(3).normal(size=(K, M)) * 0.5,
+                         dtype=torch.float32, device=device)
+    diffs = {}
+    for gname, graph in (("static", ("static", ())),
+                         ("link_dropout", ("link_dropout",
+                                           (("drop", 0.3),)))):
+        cfg = dataclasses.replace(base, graph=graph[0],
+                                  graph_kwargs=graph[1])
+        finals = []
+        for sa in (True, False):
+            eng, opt_init = _private_regression_engine(
+                data, cfg, Privacy(num_agents=K, clip=1.0,
+                                   noise_multiplier=0.8, delta=1e-5,
+                                   secure_agg=sa, steps_per_block=T),
+                device)
+            key = torch.Generator().manual_seed(5)
+            st = eng.init_state(p0.clone(), opt_init(p0), key=key)
+            for _ in range(6):
+                st, _ = eng.step(st, sampler(key), key)
+            finals.append(st.params)
+        diffs[gname] = (finals[0] - finals[1]).abs().max().item()
+    row["mask_exact"] = diffs
+    print(f"phase 18d: masked against unmasked over 6 blocks: static "
+          f"{diffs['static']:.2e}, link dropout {diffs['link_dropout']:.2e} "
+          f"(gate 5e-5)")
+    if not all(d < 5e-5 for d in diffs.values()):
+        raise AssertionError("phase 18d: the masks do not cancel")
+
+    # (2) the MSD-epsilon frontier
+    topo = make_topology("ring", K)
+
+    def steady(privacy):
+        eng, opt_init = _private_regression_engine(data, base, privacy,
+                                                   device)
+        z = torch.zeros(K, M, device=device)
+        key = torch.Generator().manual_seed(0)
+        st = eng.init_state(z, opt_init(z), key=key)
+        hist, spent = [], None
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(blocks):
+            st, m = eng.step(st, sampler(key), key)
+            hist.append(float(network_msd(st.params, w_o)))
+        us = (time.perf_counter() - t0) / blocks * 1e6
+        if privacy is not None:
+            spent = float(m["epsilon"])
+        launches = read_launches()
+        if launches != _want_mix(device, blocks):
+            raise AssertionError(f"phase 18d: launches {launches}")
+        row["launches"] = launches
+        return float(np.mean(hist[-blocks // 4:])), spent, us, eng
+
+    floor, _, us_floor, _ = steady(None)
+    frontier = {}
+    for eps in (2.0, 8.0, 32.0):
+        privacy = compile_privacy(K, qv, blocks=blocks, local_steps=T,
+                                  epsilon=eps, delta=1e-5, clip=1.0)
+        sim, spent, us, eng = steady(privacy)
+        nm = privacy.noise_multiplier
+        theory = msd.theoretical_msd(
+            prob, A=topo.A, q=qv, mu=mu, T=T,
+            injected_variance=msd.dp_injected_variance(1.0, nm))["msd"]
+        frontier[eps] = {"msd": sim, "noise_multiplier": nm,
+                         "epsilon_spent": spent, "theory": theory,
+                         "ratio": sim / theory, "us_per_block": us}
+        print(f"phase 18d: epsilon {eps:g}: sigma {nm:.4f}, steady MSD "
+              f"{sim:.4e}, Theorem 5 with the DP variance {theory:.4e} "
+              f"(ratio {sim / theory:.3f}), realized epsilon {spent:.3f} "
+              f"({us:.1f} us a block)")
+    row["floor"] = {"msd": floor, "us_per_block": us_floor}
+    row["frontier"] = frontier
+    msds = [frontier[e]["msd"] for e in (2.0, 8.0, 32.0)]
+    cal = [frontier[e]["epsilon_spent"] / e for e in (2.0, 8.0, 32.0)]
+    ratio = frontier[32.0]["ratio"]
+    print(f"phase 18d: non-private floor {floor:.4e} ({us_floor:.1f} us a "
+          f"block); frontier {msds} (falls as epsilon grows, above half "
+          f"the floor); realized/target epsilon {cal} (0.7-1.3); MSD over "
+          f"Theorem 5 at epsilon 32 {ratio:.3f} (0.25-4)")
+    if not msds[0] > msds[1] > msds[2] > 0.5 * floor:
+        raise AssertionError("phase 18d: the frontier does not fall as "
+                             "epsilon grows")
+    if not all(0.7 <= c <= 1.3 for c in cal):
+        raise AssertionError("phase 18d: realized epsilon off its target")
+    if not 0.25 <= ratio <= 4.0:
+        raise AssertionError("phase 18d: Theorem 5 misses at epsilon 32")
+    if device == "cuda":
+        privacy = compile_privacy(K, qv, blocks=blocks, local_steps=T,
+                                  epsilon=32.0, delta=1e-5, clip=1.0)
+        eng, opt_init = _private_regression_engine(data, base, privacy,
+                                                   device)
+        row["profile"] = _profile_regression(
+            data, base, 200, card, eng=eng, opt_init=opt_init,
+            label="phase 18d")
+    print(json.dumps({"phase": "18d", **row}))
+    return row["launches"], row
+
+
 def main() -> int:
     import torch
 
@@ -3703,6 +4266,12 @@ def main() -> int:
         tv_erdos_launches, _ = timed("phase 16b", phase_train_tv_erdos, card)
         timed("phase 16c", phase_graph_devices)
         regression_launches, _ = timed("phase 17", phase_regression, card)
+        private_launches, _ = timed("phase 18a", phase_train_private, card)
+        secure_agg_launches, _ = timed("phase 18b", phase_train_secure_agg,
+                                       card)
+        timed("phase 18c", phase_private_devices)
+        frontier_launches, _ = timed("phase 18d", phase_private_regression,
+                                     card)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
@@ -3721,7 +4290,10 @@ def main() -> int:
                "serve_smollm_int8": quantized_launches,
                "train_smollm_link_dropout_markov": link_drop_launches,
                "train_smollm_tv_erdos_cyclic": tv_erdos_launches,
-               "regression_paper_fig5": regression_launches}
+               "regression_paper_fig5": regression_launches,
+               "train_smollm_private_dirichlet": private_launches,
+               "train_smollm_private_secure_agg": secure_agg_launches,
+               "regression_private_frontier": frontier_launches}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
             (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),

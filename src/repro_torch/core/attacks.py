@@ -28,6 +28,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.compression import seeded_generator
 from repro_torch.optim import GradTransform, sgd
 from repro_torch.tree import tree_leaves, tree_unflatten
 
@@ -68,13 +69,6 @@ def byzantine_mask(num_agents: int, num_byzantine: int = 1,
                              f"[0, {num_agents})")
         mask[a] = 1.0
     return mask
-
-
-def _noise_generator(seed: int, t: int, device) -> torch.Generator:
-    """The generator of local step ``t``'s noise: one seed per (seed, t)."""
-    state = np.random.SeedSequence([int(seed), int(t)]).generate_state(2)
-    return torch.Generator(device=device).manual_seed(
-        int(state[0]) << 32 | int(state[1]))
 
 
 def make_attack(kind: str, num_agents: int, *, num_byzantine: int = 1,
@@ -141,8 +135,9 @@ def make_attack(kind: str, num_agents: int, *, num_byzantine: int = 1,
                 'the "noise" attack derives fresh noise from a counter in '
                 "its transform state: allocate it with make_attack(...)"
                 ".init(params)")
-        gen = _noise_generator(seed, int(state["t"]),
-                               tree_leaves(grads)[0].device)
+        # local step t's noise: one generator per (seed, t)
+        gen = seeded_generator(tree_leaves(grads)[0].device, seed,
+                               int(state["t"]))
         upd, inner_state = inner_t.update(corrupt(grads, gen),
                                           state["inner"], params)
         state["t"].add_(1)

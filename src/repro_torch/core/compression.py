@@ -41,6 +41,7 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -50,7 +51,7 @@ PyTree = Any
 __all__ = ["Compressor", "Identity", "TopK", "RandK", "Int8Stochastic",
            "GaussianMask", "ErrorFeedback", "CompressedGradients", "Draws",
            "make_compressor", "dense_wire_bytes", "device_stream",
-           "quantize_int8"]
+           "quantize_int8", "seeded_generator"]
 
 
 class Draws:
@@ -95,6 +96,15 @@ def device_stream(key: torch.Generator, device) -> torch.Generator:
     the same single draw on every device."""
     seed = int(torch.randint(0, 2 ** 62, (1,), generator=key))
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
+
+
+def seeded_generator(device, *words: int) -> torch.Generator:
+    """A generator on ``device`` seeded by the integers ``words`` (one
+    numpy ``SeedSequence`` of them): a stream of its own per tuple, the
+    same on every call."""
+    state = np.random.SeedSequence([int(w) for w in words]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) << 32 | int(state[1]))
 
 
 def _weak(c: float, t: torch.Tensor) -> torch.Tensor:

@@ -184,7 +184,8 @@ def local_update_scan(grad_fn, params: PyTree, opt_state: PyTree,
       step_mask: optional (T, K) freeze mask (:func:`local_steps_mask`): a
         frozen agent takes the identity update for both its parameters and
         its optimizer state; leaves without the (K, ...) agent axis (Adam's
-        step counter) advance as usual.
+        step counter, the privacy transform's noise counter) advance as
+        usual.
     Returns:
       (params, opt_state) after T updates; ``opt_state`` is the argument,
       advanced in place.  The update ``w - mu_k u`` is taken in the
@@ -215,13 +216,15 @@ def _frozen_slices(opt_state: PyTree, step_mask: torch.Tensor | None,
     """(leaf, (agent indices, their slices)) of the agents that local step
     ``t`` freezes, for each optimizer-state leaf with the (K, ...) agent
     axis: written back after the in-place update, they keep those agents'
-    state as it was."""
+    state as it was.  Other leaves (a shared step or noise counter, the
+    ``None`` state of a stateless inner transform) are left to advance."""
     if step_mask is None or opt_state is None or bool(step_mask[t].all()):
         return []
     idx = torch.nonzero(step_mask[t] == 0).flatten()
     K = step_mask.shape[1]
     return [(leaf, (idx, leaf[idx])) for leaf in tree_leaves(opt_state)
-            if leaf.ndim >= 1 and leaf.shape[0] == K]
+            if isinstance(leaf, torch.Tensor) and leaf.ndim >= 1
+            and leaf.shape[0] == K]
 
 
 def _sync(device: torch.device) -> None:
@@ -259,7 +262,15 @@ class DiffusionEngine:
         ``comm_gamma`` and the base matrix; stateful pipelines (error
         feedback, diff mode) carry their memory in
         ``EngineState.comm_state``.
-      privacy: not ported (ROADMAP.md item 22); only ``None`` is taken.
+      privacy: the differential-privacy tier, a
+        :class:`repro_torch.core.privacy.Privacy`, or ``None``
+        (non-private).  The engine advances its RDP accountant every block
+        at the realized participation rate after the combination
+        (``EngineState.privacy_state``; ``metrics["epsilon"]``) and routes
+        the combination through the secure-agg wire masks when the tier
+        asks for them.  The clip+noise transform itself comes in composed
+        through ``grad_transform`` (:meth:`~repro_torch.core.privacy.
+        Privacy.wrap`), as the reference's ``build`` composes it.
       graph: a :class:`~repro_torch.core.graphs.GraphProcess` or a kind
         name; defaults to ``config.graph`` with ``config.graph_kwargs``.
       grad_fn: per-agent gradients over stacked trees,
@@ -275,9 +286,6 @@ class DiffusionEngine:
                  compressor=None, graph=None, privacy=None, device=None,
                  trim: int = 1, scope: str = "global",
                  gather: str = "auto", grad_fn=None):
-        if privacy is not None:
-            raise NotImplementedError("the privacy tier is not ported yet: "
-                                      "see ROADMAP.md queue 1 item 22")
         self.config = config
         self.loss_fn = loss_fn
         self.grad_transform = grad_transform
@@ -301,9 +309,12 @@ class DiffusionEngine:
                 config.compress, ratio=config.compress_ratio,
                 error_feedback=config.error_feedback,
                 sigma=config.compress_sigma)
+        self.privacy = privacy
         self.pipeline = mixing.CommPipeline(
             self.mixer, compressor, mode=config.comm_mode,
-            gamma=config.comm_gamma, base_A=self.topology.A)
+            gamma=config.comm_gamma, base_A=self.topology.A,
+            secure_agg=(privacy.make_mask_stage() if privacy is not None
+                        else None))
         self.compressor = self.pipeline.compressor
         self.step_mask = resolve_step_mask(config, self.topology,
                                            self.device)
@@ -314,7 +325,8 @@ class DiffusionEngine:
                    key: torch.Generator | None = None) -> EngineState:
         """The initial :class:`EngineState` for :meth:`step`."""
         return init_engine_state(self.process, self.pipeline, params,
-                                 opt_state, key=key, graph=self.graph)
+                                 opt_state, key=key, graph=self.graph,
+                                 privacy=self.privacy)
 
     def step(self, state: EngineState, block_batch: PyTree,
              key: torch.Generator | None, *, active=None, comm_key=None,
@@ -335,7 +347,8 @@ class DiffusionEngine:
           part_u: the participation process's (K,) uniforms (replay).
           graph_u: the graph process's (K, K) uniforms (replay).
           comm_key: the compression stage's draws: a generator or injected
-            :class:`~repro_torch.core.compression.Draws` (replay).  Without
+            :class:`~repro_torch.core.compression.Draws` (replay; for the
+            secure-agg masks, ``Draws(noise=eta)``).  Without
             it, a pipeline that draws takes a generator on the engine's
             device seeded by one draw from ``key``, after the activation
             and graph draws.
@@ -344,11 +357,13 @@ class DiffusionEngine:
           (K,) mask, ``metrics["A_t"]`` the realized (K, K) matrix,
           ``metrics["local_s"]`` and ``metrics["combine_s"]`` the
           seconds of the local updates and of the combination (host clock
-          around work that ends in a device sync).
+          around work that ends in a device sync), and with the privacy
+          tier ``metrics["epsilon"]`` the spent epsilon (a float32 tensor).
         """
         cfg = self.config
         check_engine_state(self.process, self.pipeline, state,
-                           "engine.init_state", graph=self.graph)
+                           "engine.init_state", graph=self.graph,
+                           privacy=self.privacy)
         part_state = state.part_state
         if active is None:
             active, part_state = self.process.sample(part_state, key,
@@ -374,9 +389,13 @@ class DiffusionEngine:
         _sync(self.device)
         metrics = {"active": active, "A_t": A_t, "local_s": t1 - t0,
                    "combine_s": time.perf_counter() - t1}
+        privacy_state = state.privacy_state
+        if self.privacy is not None:
+            privacy_state = self.privacy.advance(privacy_state, active)
+            metrics["epsilon"] = self.privacy.epsilon(privacy_state)
         return EngineState(params, opt_state, part_state, comm_state,
                            graph_state, state.async_state,
-                           state.privacy_state), metrics
+                           privacy_state), metrics
 
     def run(self, params: PyTree, sampler: Callable[[torch.Generator],
                                                     PyTree],

@@ -1155,17 +1155,23 @@ class CommPipeline:
     ``torch.Generator`` or :class:`~repro_torch.core.compression.Draws`
     (for the fused int8 branch, ``Draws(u=...)`` with one (K, M_padded)
     tensor).  The combination runs under ``torch.no_grad()``.  Robust
-    mixers take the identity mode only; secure-aggregation masks name
-    ROADMAP.md item 22, and the reference's ``mesh`` (sharded int8 wire)
-    comes with item 25.
+    mixers take the identity mode only; the reference's ``mesh`` (sharded
+    int8 wire) comes with ROADMAP.md item 25.
+
+    With ``secure_agg`` (a stage from
+    :func:`repro_torch.core.privacy.make_secure_agg`) the identity-mode
+    combination runs through pairwise-canceling per-edge wire masks in
+    place of the mixer: the payloads are noise to an honest-but-curious
+    receiver and the combination stays exact up to float accumulation.
+    The pipeline then carries the block counter (the mask epoch) in
+    ``comm_state``; ``key`` may hold the realized masks
+    (``Draws(noise=eta)``, replay).  The masks presume a linear combination
+    of uncompressed payloads, so compressed modes, the null mixer and
+    robust mixers are refused.
     """
 
     def __init__(self, mixer: Mixer, compressor=None, *, mode: str = "auto",
                  gamma=None, base_A=None, secure_agg=None):
-        if secure_agg is not None:
-            raise NotImplementedError("secure-aggregation wire masks are not "
-                                      "ported yet: see ROADMAP.md queue 1 "
-                                      "item 22 (privacy)")
         self.mixer = mixer
         self.compressor = (compressor if compressor is not None
                            else comp_lib.Identity())
@@ -1194,6 +1200,25 @@ class CommPipeline:
             # the reference copy is the feedback in diff mode
             self.compressor = base
         self.mode = mode
+        self.secure_agg = secure_agg
+        if secure_agg is not None:
+            # the masks telescope to zero inside each receiver's linear
+            # weighted sum of uncompressed payloads, and nowhere else
+            if mode != "identity":
+                raise ValueError(
+                    f"secure-agg wire masks require the uncompressed "
+                    f"identity-mode pipeline; this pipeline runs {mode!r} "
+                    "mode — use compress='none' (or drop secure_agg)")
+            if isinstance(mixer, NullMixer):
+                raise ValueError(
+                    "secure-agg wire masks need a real combination step "
+                    "(K >= 2, mixing enabled) — there is no wire to mask")
+            if not mixer.linear:
+                raise ValueError(
+                    f"{type(mixer).__name__} is a robust (non-linear) "
+                    "backend; per-edge masks only cancel inside a linear "
+                    "combination — use a linear mixer kind (dense/sparse/"
+                    "pallas/gather/auto) or drop secure_agg")
         self.adaptive = (gamma == "auto" and mode == "diff"
                          and not isinstance(mixer, NullMixer))
         if gamma == "auto" and not self.adaptive:
@@ -1240,6 +1265,8 @@ class CommPipeline:
     def stateful(self) -> bool:
         if isinstance(self.mixer, NullMixer):
             return False
+        if self.secure_agg is not None:
+            return True           # the block counter (mask epoch)
         if self.mode == "diff":
             return True
         return self.mode == "direct" and self.compressor.stateful
@@ -1251,6 +1278,9 @@ class CommPipeline:
     def init_state(self, params: PyTree) -> PyTree:
         if not self.stateful:
             return ()
+        if self.secure_agg is not None:
+            # a host counter: it seeds the mask stream without a device sync
+            return {"t": torch.zeros((), dtype=torch.int64)}
         if self.mode == "diff":
             state = {"ref": tree_map(torch.zeros_like, params)}
             if self.adaptive:
@@ -1285,6 +1315,12 @@ class CommPipeline:
 
     def _apply(self, params, active, A_t, comm_state, key):
         if self.mode == "identity":
+            if self.secure_agg is not None:
+                # the combination through per-edge masked payloads
+                t = comm_state["t"]
+                eta = key.noise if isinstance(key, comp_lib.Draws) else None
+                return (self.secure_agg(params, active, A_t, t, eta=eta),
+                        {"t": t + 1})
             return self.mixer(params, active, A_t), comm_state
         if isinstance(self.mixer, NullMixer):
             return params, comm_state

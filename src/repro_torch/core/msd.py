@@ -66,7 +66,7 @@ __all__ = ["QuadraticProblem", "theoretical_msd", "theoretical_curve",
 def dp_injected_variance(clip: float, noise_multiplier: float) -> float:
     """Per-coordinate gradient-noise variance injected by the DP tier.
 
-    The reference's privacy transform (``repro.core.privacy``) adds
+    The privacy transform (:mod:`repro_torch.core.privacy`) adds
     ``N(0, (noise_multiplier * clip)^2)`` per coordinate to every agent's
     local-update gradient — i.i.d. across steps and agents, exactly the
     shape of the gradient-noise term Theorem 5 integrates through

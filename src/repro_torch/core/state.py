@@ -29,6 +29,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.tree import tree_leaves
+
 PyTree = Any
 
 __all__ = ["EngineState", "init_engine_state", "check_engine_state"]
@@ -58,13 +60,14 @@ class EngineState:
 def init_engine_state(process, pipeline, params: PyTree,
                       opt_state: PyTree = None, *,
                       key: torch.Generator | None = None,
-                      graph=None) -> EngineState:
+                      graph=None, privacy=None) -> EngineState:
     """Initial-state construction: stateful participation processes, then
     stateful graphs (the link mask of a correlated :class:`~repro_torch.
     core.graphs.LinkDropout`), draw their initial state from ``key`` (a
     host generator seeded 0 when none is given), stateful pipelines
-    allocate theirs, and absent components stay ``None``."""
-    part_state = comm_state = graph_state = None
+    allocate theirs, the privacy tier's accountant starts at zero on the
+    parameters' device, and absent components stay ``None``."""
+    part_state = comm_state = graph_state = privacy_state = None
     if key is None:
         key = torch.Generator().manual_seed(0)
     if process.stateful:
@@ -73,14 +76,17 @@ def init_engine_state(process, pipeline, params: PyTree,
         comm_state = pipeline.init_state(params)
     if graph is not None and graph.stateful:
         graph_state = graph.init_state(key)
+    if privacy is not None:
+        privacy_state = privacy.init_state(tree_leaves(params)[0].device)
     return EngineState(params, opt_state, part_state, comm_state,
-                       graph_state)
+                       graph_state, privacy_state=privacy_state)
 
 
 def check_engine_state(process, pipeline, state: EngineState,
-                       init_hint: str, graph=None) -> None:
-    """A stateful process, pipeline or graph fed a ``None`` state component
-    fails loudly, pointing at the engine's ``init_state``."""
+                       init_hint: str, graph=None, privacy=None) -> None:
+    """A stateful process, pipeline or graph, or the privacy tier, fed a
+    ``None`` state component fails loudly, pointing at the engine's
+    ``init_state``."""
     if process.stateful and state.part_state is None:
         raise ValueError(
             f"{type(process).__name__} carries participation state but "
@@ -97,3 +103,10 @@ def check_engine_state(process, pipeline, state: EngineState,
             f"{type(graph).__name__} carries graph state but "
             f"state.graph_state is None; build the state with "
             f"{init_hint}(params, opt_state, key=...)")
+    if privacy is not None and state.privacy_state is None:
+        raise ValueError(
+            "the privacy tier carries accountant state (per-order RDP + "
+            "block counter) but state.privacy_state is None; build the "
+            f"state with {init_hint}(params, ...) — a checkpoint from a "
+            "non-private run cannot resume under a PrivacySpec without a "
+            "fresh accountant")

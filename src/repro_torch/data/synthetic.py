@@ -5,9 +5,9 @@ Counterpart of ``repro.data.synthetic``.  Paper setting (eq. 80-81): K
 agents, each with N inputs u_{k,n} ~ N(m_k, R_u) with varying means m_k and
 noise variances sigma_{k,v}^2 (non-IID), outputs d_k(n) = u_{k,n}^T w* +
 v_k(n).  The dataset is made with numpy from a seed, as the reference
-makes it, so its arrays are bit-equal to the reference's; the
-Dirichlet/shard re-partition (``partition_regression_data``) waits for
-ROADMAP.md queue 1 item 23.
+makes it, so its arrays are bit-equal to the reference's, and so is its
+Dirichlet/shard/iid re-partition (:func:`partition_regression_data`,
+through :mod:`repro_torch.data.pipeline`).
 """
 from __future__ import annotations
 
@@ -20,7 +20,8 @@ from repro_torch.core.msd import QuadraticProblem
 from repro_torch.device import resolve_device
 
 __all__ = ["RegressionData", "make_regression_problem", "make_block_sampler",
-           "make_indexed_block_sampler", "lm_token_batch"]
+           "make_indexed_block_sampler", "lm_token_batch",
+           "partition_regression_data"]
 
 
 @dataclasses.dataclass
@@ -95,6 +96,64 @@ def make_regression_problem(K: int = 20, N: int = 100, M: int = 2,
     d = np.einsum("knm,km->kn", U, w_k) + v
     return RegressionData(U=U, d=d, w_star=w_star, rho=rho,
                           noise_std=noise_std)
+
+
+def partition_regression_data(data: RegressionData, K: int, *,
+                              kind: str = "dirichlet", alpha: float = 1.0,
+                              shards_per_agent: int = 1, seed: int = 0,
+                              samples_per_agent: int = 0) -> RegressionData:
+    """Re-partition the §VII pool across ``K`` agents with controlled skew.
+
+    The generator's per-origin-agent input means make the original K0
+    agents K0 latent classes: the pooled (K0 N) rows, labelled by origin,
+    are re-dealt by the federated partition protocols.  ``kind=
+    "dirichlet"`` deals each class by a Dirichlet(alpha) draw;
+    ``"shards"`` gives each agent ``shards_per_agent`` contiguous shards of
+    the class-sorted pool; ``"iid"`` shuffles the pool uniformly.  Every
+    agent is resampled (with replacement, seeded) to the same local size
+    (``samples_per_agent``, else the pool over K), and ``noise_std`` is
+    recomputed from the residuals against ``w_star``.
+    """
+    from repro_torch.data.pipeline import (contiguous_partition,
+                                           dirichlet_partition)
+
+    pool_U = data.U.reshape(-1, data.U.shape[-1])          # (K0*N, M)
+    pool_d = data.d.reshape(-1)                            # (K0*N,)
+    labels = np.repeat(np.arange(data.num_agents), data.U.shape[1])
+    n_pool = len(pool_d)
+    n_local = samples_per_agent if samples_per_agent > 0 else max(
+        1, n_pool // K)
+
+    rng = np.random.default_rng(seed)
+    if kind == "dirichlet":
+        parts = dirichlet_partition(labels, K, alpha, seed=seed)
+    elif kind == "shards":
+        S = max(1, shards_per_agent)
+        order = np.argsort(labels, kind="stable")          # class-sorted pool
+        shards = contiguous_partition(n_pool, K * S)
+        deal = rng.permutation(K * S)
+        parts = [np.concatenate([order[shards[j]]
+                                 for j in deal[k * S:(k + 1) * S]])
+                 for k in range(K)]
+    elif kind == "iid":
+        perm = rng.permutation(n_pool)
+        parts = [perm[k::K] for k in range(K)]
+    else:
+        raise ValueError(f"unknown data kind {kind!r} — valid kinds for the "
+                         "regression path: ['dirichlet', 'iid', 'shards']")
+
+    U = np.empty((K, n_local, data.U.shape[-1]), data.U.dtype)
+    d = np.empty((K, n_local), data.d.dtype)
+    for k, part in enumerate(parts):
+        if len(part) == 0:
+            raise ValueError(f"agent {k} received an empty partition")
+        agent_rng = np.random.default_rng(
+            np.random.SeedSequence([seed, 0x9A97, k]))
+        take = part[agent_rng.integers(0, len(part), size=n_local)]
+        U[k], d[k] = pool_U[take], pool_d[take]
+    resid = d - np.einsum("knm,m->kn", U, data.w_star)
+    return RegressionData(U=U, d=d, w_star=data.w_star, rho=data.rho,
+                          noise_std=resid.std(axis=1))
 
 
 def make_block_sampler(data: RegressionData, T: int, batch: int = 1,

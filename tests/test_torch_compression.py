@@ -793,8 +793,9 @@ def test_mode_resolution_gamma_and_guards():
     with pytest.raises(ValueError, match="robust"):
         mixing.make_pipeline("trimmed_mean", topo, compress="int8",
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        mixing.CommPipeline(mixing.DenseMixer(), secure_agg=object())
+    with pytest.raises(ValueError, match="identity-mode"):
+        mixing.CommPipeline(mixing.DenseMixer(), comp.Int8Stochastic(),
+                            secure_agg=object())
     with pytest.raises(ValueError, match="key"):
         mk(compress="int8")({"w": torch.zeros(8, 4)}, torch.ones(8),
                             torch.eye(8))

@@ -581,3 +581,52 @@ def test_cuda_fused_int8_pipeline_matches_cpu(monkeypatch):
         assert torch.equal(got[m == 0], tree[k][m == 0])
         assert torch.equal(outs["cuda"][1][k].cpu()[m == 0],
                            torch.zeros_like(tree[k][m == 0]))
+
+
+@pytest.mark.cuda
+def test_cuda_secure_agg_and_clip_match_the_cpu(monkeypatch):
+    """The privacy tier on the card: the masked combination (several mask
+    tiles) within 5e-5 of the kernel mixer, inactive rows bit-equal; the
+    clip at noise 0 equal to the CPU's within float32 rounding; the noise
+    drawn on the card's own generator; partitioned blocks bit-equal."""
+    _need_card()
+    from repro_torch.core import privacy as priv
+    from repro_torch.configs import get_config
+    from repro_torch.core.mixing import make_mixer
+    from repro_torch.data.pipeline import make_block_provider
+
+    monkeypatch.setattr(priv, "MASK_TILE_ELEMS", 64 * 1000)
+    K = 8
+    topo = make_topology("ring", K)
+    A = torch.as_tensor(topo.A, dtype=torch.float32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    X = {"a": torch.randn((K, 3001), generator=gen, device="cuda"),
+         "b": torch.randn((K, 7, 11), generator=gen, device="cuda")}
+    active = torch.tensor([1.0, 1, 0, 1, 1, 1, 0, 1], device="cuda")
+    before = dm.diffusion_mix.launches
+    got = priv.make_secure_agg(K, seed=2)(X, active, A, 5)
+    assert dm.diffusion_mix.launches == before
+    want = make_mixer("pallas", topo, device="cuda")(X, active, A)
+    for name in X:
+        assert (got[name] - want[name]).abs().max().item() <= 5e-5
+        dead = active == 0
+        assert torch.equal(got[name][dead], X[name][dead])
+    g = {"w": 3.0 * torch.randn((K, 5000), generator=gen, device="cuda")}
+    on_card = priv.clip_and_noise(g, None, clip=1.0, noise_multiplier=0.0)
+    on_cpu = priv.clip_and_noise({"w": g["w"].cpu()}, None, clip=1.0,
+                                 noise_multiplier=0.0)
+    torch.testing.assert_close(on_card["w"].cpu(), on_cpu["w"], atol=1e-6,
+                               rtol=1e-6)
+    noised = priv.clip_and_noise(g, priv.noise_generator(0, 0, "cuda"),
+                                 clip=1.0, noise_multiplier=1.0)
+    assert noised["w"].device.type == "cuda"
+    assert abs((noised["w"] - on_card["w"]).std().item() - 1.0) < 0.05
+    cfg = get_config("smollm-360m").smoke
+    for kind, kw in (("dirichlet", {"alpha": 0.3}),
+                     ("shards", {"shards_per_agent": 2})):
+        pv = [make_block_provider(kind, cfg, num_agents=K, local_steps=2,
+                                  batch=1, seq=64, device=d, **kw)
+              for d in ("cuda", "cpu")]
+        a, b = pv[0](3, None), pv[1](3, None)
+        assert a["tokens"].is_cuda
+        assert all(torch.equal(a[n].cpu(), b[n]) for n in a)

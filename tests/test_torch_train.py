@@ -224,7 +224,7 @@ def test_train_flag_guards_raise(flags, match):
                                         "item 16"),
     (["--checkpoint", "c.npz"], "item 16"), (["--ef-host-offload"],
                                              "item 25"),
-    (["--data=dirichlet"], "item 23"), (["--privacy"], "item 22"),
+    (["--async-rate=0.5"], "item 24"), (["--engine=async"], "item 16"),
 ])
 def test_unported_flags_name_their_roadmap_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
