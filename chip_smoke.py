@@ -60,8 +60,8 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
    s = 1024, chunk 128, B/C bf16 slices of xBC), where the kernel and the
    plain version are timed.
 8. Train mamba2-2.7b at full width: Algorithm 1 through
-   ``repro_torch.launch.train.main`` (64 layers, K=2, T=2, B=1, S=1024,
-   3 blocks, SGD, ``--mix pallas``, ``use_kernels=True``); the launch
+   ``repro_torch.launch.train.main`` (32 of its 64 layers, K=2, T=2, B=1,
+   S=1024, 3 blocks, SGD, ``--mix pallas``, ``use_kernels=True``); the launch
    counts, finite losses and parameters, block times, peak memory, a
    profiled block, and one local step's loss and gradients with the SSD
    kernel against the plain SSD, held against two witnesses: two plain
@@ -90,8 +90,10 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     route, launch shape and achieved bytes/s; the ``ptxas`` summary.
     Tolerance: max |kernel - plain| <= 1e-5 * max(1, |plain|); inactive
     rows bit-equal.
-11. Train smollm-360m at full width through ``train.main`` at K=12 (ring,
-    T=2, q=0.9, B=1, S=1024, SGD mu=0.05, ``use_kernels=True``): (a) the
+11. Train smollm-360m at full width, cut to 16 of its 32 layers
+    (``CUT_LAYERS``, as in phases 14, 16 and 18), through ``train.main``
+    at K=12 (ring, T=2, q=0.9, B=1, S=1024, SGD mu=0.05,
+    ``use_kernels=True``): (a) the
     reference's Byzantine preset (3 sign-flip adversaries of scale 3,
     per-neighborhood trimmed mean, ``--robust-gather fused``), 3 blocks,
     a profiled block, then one more combination of the trained stack with
@@ -124,7 +126,8 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     and 240 (M = 2^22, operations-bound), passes route against scalar
     route (no slower).  The ``ptxas`` summary (no spill) and the SASS memory
     instructions (a 16-byte evict-first store required).
-14. Train smollm-360m at full width through ``train.main`` at K=8 (q=0.9,
+14. Train smollm-360m at full width (16 layers) through ``train.main`` at
+    K=8 (q=0.9,
     B=1, S=1024, SGD mu=0.05, ``--mix pallas``, ``use_kernels=True``):
     (a) the reference's compressed_fedavg preset (FedAvg, int8, error
     feedback, T=2), 3 blocks through ``diffusion_mix_int8``, a profiled
@@ -152,7 +155,7 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     against the stored stack's consensus below the reference's 1e-3, two
     runs bit-equal, prefill and 32 greedy steps.
 16. Time-varying graphs and stateful availability: smollm-360m at full
-    width through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
+    width (16 layers) through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
     mu=0.05, 2 blocks, ``use_kernels=True``): (a) ``--mix pallas --graph
     link_dropout --link-drop 0.3 --participation-process markov
     --markov-corr 0.5``: exact launch counts (``diffusion_mix`` one per
@@ -183,7 +186,7 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     ratios are printed, and 200 more Fig. 5 blocks are profiled (the
     device's busy share).
 18. The privacy tier and the partitioned data: smollm-360m at full width
-    through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
+    (16 layers) through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
     mu=0.05, ``use_kernels=True``): (a) ``--mix pallas --privacy
     --privacy-epsilon 8 --privacy-delta 1e-5 --privacy-clip 1.0 --data
     dirichlet --data-alpha 0.3 --data-clusters 4``, 3 blocks unless the
@@ -212,12 +215,35 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     the MSD at epsilon 32 within 0.25-4 of Theorem 5 with the injected DP
     variance; microseconds a block and 200 profiled blocks (the device's
     busy share).
+19. The experiment API and the async engine: (a) smollm-360m at full
+    width, all 32 layers, through ``train.main`` (K=8 ring, q=0.9, T=2,
+    SGD mu=0.05, B=1, S=1024, 3 blocks, ``use_kernels=True``) with
+    ``--engine async`` (lognormal rates, sigma 0.5, seed 0, tau_max 4,
+    exp discount 0.1, ``--mix auto``) and ``--checkpoint``: each block's
+    non-fired agents bit-equal, slot ages exact, combination rows summing
+    to 1 within 1e-6; the clocks equal the fires times the delays (rtol
+    1e-5); a block with 0 < fires < K; ``flash_attention`` launches only
+    (the buffer's combination is a plain batched product); block times,
+    tokens/s, peak memory, the checkpoint's size and write time; (b) that
+    checkpoint through ``serve.main`` with no spec flag, twice: the
+    engine rebuilt from the stored spec, the freshness-weighted consensus
+    within one bf16 ulp plus the float32 summation bound of a float64 sum
+    over the loaded stack, the same greedy tokens; (c) each of the 13
+    presets at smoke size through ``--preset`` (K=8, ``--mix pallas``
+    overlaid on all but the robust one): exact launch counts, bit-equal
+    to the same run in hand-written flags, card against CPU under phase
+    6's gates (the compressed presets block by block with injected draws,
+    the private one at noise 0); ``--engine auto`` says it built the
+    stacked engine for the sharded one and ``--engine sharded`` raises
+    naming item 25; (d) exact diffusion on the recipe of the reference's
+    test (K=8 ring, mu 0.01, 1,200 blocks, mean over the last 600): closer
+    to w° than vanilla diffusion, card against CPU within 1e-5 relative.
 
 The kernel mixers run over a column-tiled flatten, one launch per tile
 (``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14, 15,
-16 and 18 count tiles.  Each path's launch counts (all six kernels) are
+16, 18 and 19 count tiles.  Each path's launch counts (all six kernels) are
 set to 0 just before its first run and read just after it (phases 3, 5, 8,
-9, 11, 12, 14, 15, 16, 17 and 18).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
+9, 11, 12, 14, 15, 16, 17, 18 and 19).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
@@ -454,12 +480,18 @@ def kernel_wrappers() -> dict:
             "diffusion_mix_int8": dmi.diffusion_mix_int8}
 
 
-def full_width_M(arch: str = "smollm-360m") -> int:
+def full_width_M(arch: str = "smollm-360m", layers: int | None = None) -> int:
+    """One agent's parameter count at full width (``layers`` cuts the
+    depth)."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
     from repro_torch.tree import tree_leaves
 
     cfg = get_config(arch).model
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     return sum(t.numel() for t in tree_leaves(tf.param_specs(cfg)))
 
 
@@ -1371,8 +1403,9 @@ def phase_ssd(card: str) -> dict:
 
 
 def phase_train_mamba(card: str) -> tuple[dict, dict]:
-    """Phase 8: Algorithm 1 on full-width mamba2-2.7b through train.main,
-    with the SSD kernel in every layer and the mix kernel once a block."""
+    """Phase 8: Algorithm 1 on full-width mamba2-2.7b, cut to
+    ``MAMBA_CUT_LAYERS`` of its 64 layers, through train.main, with the
+    SSD kernel in every layer and the mix kernel once a block."""
     import torch
 
     from repro_torch.launch import train
@@ -1386,17 +1419,17 @@ def phase_train_mamba(card: str) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    out = train.main(argv, use_kernels=True)
+    out = train.main(argv, use_kernels=True, num_layers=MAMBA_CUT_LAYERS)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = out["cfg"]
     # one launch per layer per agent per local step, plus the logging
     # forward of every agent after each block
+    M = full_width_M("mamba2-2.7b", layers=MAMBA_CUT_LAYERS)
     want = {"ssd_intra_chunk": cfg.num_layers * K * (T * blocks
                                                      + len(out["losses"])),
-            "diffusion_mix": num_tiles(K, full_width_M("mamba2-2.7b"))
-            * blocks, "flash_attention": 0, "gather_mix": 0,
+            "diffusion_mix": num_tiles(K, M) * blocks, "flash_attention": 0, "gather_mix": 0,
             "gather_robust_mix": 0, "diffusion_mix_int8": 0}
     if launches != want:
         raise AssertionError(f"launches on the mamba2 training path "
@@ -1417,9 +1450,10 @@ def phase_train_mamba(card: str) -> tuple[dict, dict]:
     steady_s = min(t["block_s"] for t in out["timings"][1:])
     profile = _profile_block(state, cfg, K, T, B, S, steady_s, card,
                              optimizer="sgd", mu=mu, label="phase 8")
-    row = {"phase": "train", "arch": "mamba2-2.7b", "agents": K,
-           "local_steps": T, "batch": B, "seq": S, "blocks": blocks,
-           "optimizer": "sgd", "step_size": mu, "mix": "pallas",
+    row = {"phase": "train", "arch": "mamba2-2.7b",
+           "layers": cfg.num_layers, "agents": K, "local_steps": T,
+           "batch": B, "seq": S, "blocks": blocks, "optimizer": "sgd",
+           "step_size": mu, "mix": "pallas",
            "timings": out["timings"], "tokens_per_s": out["tokens_per_s"],
            "losses": out["losses"], "launches": launches,
            "peak_mem_gb": peak_gb, "profile": profile, "card": card}
@@ -1927,6 +1961,16 @@ def _ulp_gate(label: str, pairs) -> dict:
     return {"beyond_ulp": n_ulp, "beyond_gate": n_bad, "max_ulps": max_ulps}
 
 
+#: the depth of the full-width smollm-360m training phases 11a, 11b, 14a,
+#: 14b, 16a, 16b, 18a and 18b: 16 of its 32 layers at its full width (the
+#: cut that keeps the whole script within its time; phases 5 and 19a train
+#: all 32)
+CUT_LAYERS = 16
+
+#: the depth of phase 8's full-width mamba2-2.7b: 32 of its 64 layers
+#: (K M still past 2^31 at K = 2)
+MAMBA_CUT_LAYERS = 32
+
 #: elements per slice of the bf16 checks (a stacked layer leaf at K = 12
 #: is 1.9e9 elements; the check's float32 temporaries stay near 2 GB)
 CHECK_SLICE = 1 << 26
@@ -1964,13 +2008,14 @@ def _frozen_equal(got, params, active) -> bool:
 
 
 def _train_full(card: str, label: str, flags: list, blocks: int,
-                want_fn, K: int = 12, T: int = 2) -> tuple[dict, dict]:
+                want_fn, K: int = 12, T: int = 2,
+                layers: int | None = None) -> tuple[dict, dict]:
     """Algorithm 1 on full-width smollm-360m at K agents (12 unless given)
     through train.main (ring unless ``flags`` say otherwise, T local steps,
-    q = 0.9, B = 1, S = 1024, SGD mu = 0.05, ``use_kernels=True``) with
-    ``flags``; the launch counts against ``want_fn(cfg, n_logged)``, finite
-    honest losses and parameters, the block split, tokens/s and peak
-    memory."""
+    q = 0.9, B = 1, S = 1024, SGD mu = 0.05, ``use_kernels=True``; the
+    depth cut to ``layers`` when given) with ``flags``; the launch counts
+    against ``want_fn(cfg, n_logged)``, finite honest losses and
+    parameters, the block split, tokens/s and peak memory."""
     import torch
 
     from repro_torch.core.attacks import byzantine_mask
@@ -1985,7 +2030,7 @@ def _train_full(card: str, label: str, flags: list, blocks: int,
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    out = train.main(argv, use_kernels=True)
+    out = train.main(argv, use_kernels=True, num_layers=layers)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2011,8 +2056,9 @@ def _train_full(card: str, label: str, flags: list, blocks: int,
     print(f"{label}: launches {launches}; losses {out['losses']}; peak "
           f"device memory {peak_gb:.2f} GB; train.main took {wall:.1f}s "
           f"[{card}]")
-    row = {"arch": "smollm-360m", "agents": K, "local_steps": T, "batch": B,
-           "seq": S, "blocks": blocks, "optimizer": "sgd", "step_size": mu,
+    row = {"arch": "smollm-360m", "layers": cfg.num_layers, "agents": K,
+           "local_steps": T, "batch": B, "seq": S, "blocks": blocks,
+           "optimizer": "sgd", "step_size": mu,
            "flags": flags, "timings": out["timings"],
            "tokens_per_s": out["tokens_per_s"], "losses": out["losses"],
            "active": out["active"], "launches": launches,
@@ -2032,7 +2078,7 @@ def phase_train_robust(card: str) -> tuple[dict, dict]:
     from repro_torch.core.topology import make_topology
 
     K, blocks = 12, 3
-    M = full_width_M()
+    M = full_width_M(layers=CUT_LAYERS)
 
     def want(cfg, n_logged):
         return {"gather_robust_mix": num_tiles(K, M) * blocks,
@@ -2043,7 +2089,7 @@ def phase_train_robust(card: str) -> tuple[dict, dict]:
 
     out, row = _train_full(card, "phase 11a",
                            BYZANTINE_FLAGS + ["--robust-gather", "fused"],
-                           blocks, want)
+                           blocks, want, layers=CUT_LAYERS)
     state, cfg = out["state"], out["cfg"]
     steady_s = min(t["block_s"] for t in out["timings"][1:])
     row["profile"] = _profile_block(
@@ -2103,7 +2149,7 @@ def phase_train_gather(card: str) -> tuple[dict, dict]:
     from repro_torch.tree import tree_leaves
 
     K, blocks = 12, 2
-    M = full_width_M()
+    M = full_width_M(layers=CUT_LAYERS)
 
     def want(cfg, n_logged):
         return {"gather_mix": num_tiles(K, M) * blocks,
@@ -2114,7 +2160,7 @@ def phase_train_gather(card: str) -> tuple[dict, dict]:
 
     out, row = _train_full(card, "phase 11b",
                            ["--mix", "gather", "--attack", "none"], blocks,
-                           want)
+                           want, layers=CUT_LAYERS)
     params = out["state"].params
     del out
     torch.cuda.empty_cache()
@@ -2716,7 +2762,7 @@ def phase_train_int8(card: str) -> tuple[dict, dict]:
     from repro_torch.tree import tree_leaves, tree_map
 
     K, blocks = 8, 3
-    M = full_width_M()
+    M = full_width_M(layers=CUT_LAYERS)
     tiles = num_tiles(K, M, int8=True)
 
     def want(cfg, n_logged):
@@ -2728,7 +2774,7 @@ def phase_train_int8(card: str) -> tuple[dict, dict]:
 
     out, row = _train_full(card, "phase 14a", ["--mix", "pallas",
                                                *COMPRESSED_FEDAVG_FLAGS],
-                           blocks, want, K=K)
+                           blocks, want, K=K, layers=CUT_LAYERS)
     state, cfg = out["state"], out["cfg"]
     row["comm"] = out["comm"]
     steady_s = min(t["block_s"] for t in out["timings"][1:])
@@ -2866,7 +2912,7 @@ def phase_train_diff(card: str) -> tuple[dict, dict]:
     from repro_torch.tree import tree_leaves
 
     K, blocks = 8, 2
-    M = full_width_M()
+    M = full_width_M(layers=CUT_LAYERS)
 
     def want(cfg, n_logged):
         return {"diffusion_mix": num_tiles(K, M) * blocks,
@@ -2876,7 +2922,7 @@ def phase_train_diff(card: str) -> tuple[dict, dict]:
 
     out, row = _train_full(card, "phase 14b", ["--mix", "pallas",
                                                *COMPRESSED_DIFFUSION_FLAGS],
-                           blocks, want, K=K, T=1)
+                           blocks, want, K=K, T=1, layers=CUT_LAYERS)
     row["comm"] = out["comm"]
     if (out["comm"]["mode"], out["comm"]["gamma"]) != ("diff", 0.5):
         raise AssertionError(f"phase 14b: pipeline {out['comm']}")
@@ -3049,12 +3095,14 @@ def _threshold_flips(kind, card_calls, cpu_calls, sizes, ratio, tol):
 
 def _lockstep_compressed(name: str, preset: dict, K: int = 8,
                          blocks: int = 3, T: int = 2, mu: float = 0.05,
-                         tol: float = 1e-4) -> dict:
+                         tol: float = 1e-4, spec=None) -> dict:
     """One compressed preset at smoke size, card against CPU, block by
     block from the CPU's state: the engine as train.main builds it (SGD,
-    q = 0.9, ``use_kernels=True``, --mix pallas), every block's batch and
-    mask from one host generator, the fused path's rounding uniforms drawn
-    on the host from a second one and injected into both.
+    q = 0.9, ``use_kernels=True``, --mix pallas; or, given ``spec``, the
+    engine ``repro_torch.api.build`` makes of it, with its K, T and mu),
+    every block's batch and mask from one host generator, the fused path's
+    rounding uniforms drawn on the host from a second one and injected
+    into both.
 
     Both devices' compressor calls are recorded and every threshold flip
     accounted for (:func:`_threshold_flips`).  Gate, phase 6's: every
@@ -3080,6 +3128,10 @@ def _lockstep_compressed(name: str, preset: dict, K: int = 8,
 
     cfg = dataclasses.replace(get_config("smollm-360m").smoke,
                               use_kernels=True)
+    if spec is not None:
+        K, T = spec.run.num_agents, spec.run.local_steps
+        preset = {"compress": spec.compression.kind,
+                  "compress_ratio": spec.compression.ratio}
     kind = preset["compress"]
 
     def loss(p, b):
@@ -3091,10 +3143,15 @@ def _lockstep_compressed(name: str, preset: dict, K: int = 8,
                          tree_map(lambda x, k=k: x[0, k], batch)).item()
                     for k in range(K)]
 
-    dcfg = DiffusionConfig(num_agents=K, local_steps=T, step_size=mu,
-                           participation=0.9, mix="pallas", **preset)
-    eng = {dev: DiffusionEngine(dcfg, loss, device=dev)
-           for dev in ("cpu", "cuda")}
+    if spec is None:
+        dcfg = DiffusionConfig(num_agents=K, local_steps=T, step_size=mu,
+                               participation=0.9, mix="pallas", **preset)
+        eng = {dev: DiffusionEngine(dcfg, loss, device=dev)
+               for dev in ("cpu", "cuda")}
+    else:
+        from repro_torch.api import build
+        eng = {dev: build(spec, loss, engine="stacked", device=dev)
+               for dev in ("cpu", "cuda")}
     gamma = eng["cpu"].pipeline.gamma
     sup = ((torch.as_tensor(eng["cpu"].topology.A) != 0)
            | torch.eye(K, dtype=torch.bool)).double()
@@ -3330,9 +3387,10 @@ def phase_train_link_dropout(card: str) -> tuple[dict, dict]:
     from repro_torch.tree import tree_leaves
 
     K, blocks = 8, 2
-    M = full_width_M()
+    M = full_width_M(layers=CUT_LAYERS)
     out, row = _train_full(card, "phase 16a", LINK_DROPOUT_MARKOV_FLAGS,
-                           blocks, _graph_launches(K, M, blocks), K=K)
+                           blocks, _graph_launches(K, M, blocks), K=K,
+                           layers=CUT_LAYERS)
     row["profile"] = _profile_block(
         out["state"], out["cfg"], K, 2, 1, 1024,
         min(t["block_s"] for t in out["timings"][1:]), card,
@@ -3403,9 +3461,10 @@ def phase_train_tv_erdos(card: str) -> tuple[dict, dict]:
     import torch
 
     K, blocks = 8, 2
-    M = full_width_M()
+    M = full_width_M(layers=CUT_LAYERS)
     out, row = _train_full(card, "phase 16b", TV_ERDOS_CYCLIC_FLAGS, blocks,
-                           _graph_launches(K, M, blocks), K=K)
+                           _graph_launches(K, M, blocks), K=K,
+                           layers=CUT_LAYERS)
     _check_graphs("phase 16b", out["graphs"])
     groups = [[float(k % 2 == g) for k in range(K)] for g in (0, 1)]
     want = [groups[i % 2] for i in range(blocks)]
@@ -3802,9 +3861,10 @@ def phase_train_private(card: str) -> tuple[dict, dict]:
     from repro_torch.tree import tree_leaves, tree_map
 
     K, blocks = 8, 3
-    M = full_width_M()
+    M = full_width_M(layers=CUT_LAYERS)
     out, row = _train_full(card, "phase 18a", PRIVATE_DIRICHLET_FLAGS, blocks,
-                           _private_launches(K, M, True), K=K)
+                           _private_launches(K, M, True), K=K,
+                           layers=CUT_LAYERS)
     row["privacy"] = _check_accountant("phase 18a", out, blocks)
     _check_blocks("phase 18a", out, dict(
         kind="dirichlet", num_agents=K, local_steps=2, batch=1, seq=1024,
@@ -3871,9 +3931,10 @@ def phase_train_secure_agg(card: str) -> tuple[dict, dict]:
     # participation projects the second within the budget (over 2 it would
     # not), so the masks' epoch is carried past block 0 at full width
     K, blocks = 8, 3
-    M = full_width_M()
+    M = full_width_M(layers=CUT_LAYERS)
     out, row = _train_full(card, "phase 18b", PRIVATE_SECURE_AGG_FLAGS,
-                           blocks, _private_launches(K, M, False), K=K)
+                           blocks, _private_launches(K, M, False), K=K,
+                           layers=CUT_LAYERS)
     row["privacy"] = _check_accountant("phase 18b", out, blocks)
     epoch = int(out["state"].comm_state["t"])
     if out["blocks_done"] < 2 or epoch != out["blocks_done"]:
@@ -4204,6 +4265,553 @@ def phase_private_regression(card: str,
     return row["launches"], row
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the experiment API and the async engine
+# ---------------------------------------------------------------------------
+
+#: phase 19a's run: the event-driven engine at full width
+ASYNC_FLAGS = ["--engine", "async", "--async-rate-dist", "lognormal",
+               "--async-rate-sigma", "0.5", "--async-rate-seed", "0",
+               "--async-tau-max", "4", "--async-discount", "exp",
+               "--async-discount-rate", "0.1", "--mix", "auto"]
+
+
+class _Tee:
+    """Copy what is printed into a buffer while still printing it."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_train_async(card: str, scratch: Path) -> tuple[dict, dict, str]:
+    """Phase 19a: full-width smollm-360m (32 layers), K = 8 ring, q = 0.9,
+    T = 2, SGD mu = 0.05, B = 1 x 1024, 3 blocks through ``train.main``
+    with ``--engine async`` (lognormal rates, sigma 0.5, seed 0; tau_max
+    4; exp discount 0.1; ``--mix auto``) and ``--checkpoint``.  Each block:
+    non-fired agents bit-equal, every slot's age reset on a fired source
+    and one older otherwise, every combination row summing to 1 within
+    1e-6; then the clocks equal the fires times the delays (rtol 1e-5), a
+    block with 0 < fires < K, the launch counts (``flash_attention`` only:
+    the staleness-buffer combination is a plain batched product)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.topology import make_topology
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    K, T, B, S, blocks, mu = 8, 2, 1, 1024, 3, 0.05
+    path = str(scratch / "async_k8.npz")
+    argv = ["--full", "--agents", str(K), "--local-steps", str(T),
+            "--batch", str(B), "--seq", str(S), "--blocks", str(blocks),
+            "--optimizer", "sgd", "--step-size", str(mu), "--participation",
+            "0.9", *ASYNC_FLAGS, "--checkpoint", path]
+    idx = torch.as_tensor(make_topology("ring", K).neighbor_table()[0],
+                          dtype=torch.long, device="cuda")
+    checks = []
+
+    def on_block(i, before, after, metrics):
+        fire = metrics["active"]
+        dead = fire == 0
+        kept = all(torch.equal(a[dead], b[dead]) for a, b in
+                   zip(tree_leaves(after.params), tree_leaves(before.params)))
+        want_ages = torch.where(fire[idx] > 0, 0,
+                                before.async_state["ages"] + 1).int()
+        ages = torch.equal(after.async_state["ages"], want_ages)
+        row_err = (metrics["weights"].double().sum(1) - 1.0).abs().max()
+        checks.append({"fires": int(fire.sum()), "kept": kept,
+                       "ages": ages, "row_sum_err": row_err.item()})
+        if not (kept and ages and row_err.item() <= 1e-6):
+            raise AssertionError(f"phase 19a: block {i}: {checks[-1]}")
+
+    saved = {}
+    save = train.save_experiment
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        saved["s"] = time.perf_counter() - t0
+
+    free_gb = shutil.disk_usage(scratch).free / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    train.save_experiment = timed_save
+    try:
+        t0 = time.perf_counter()
+        out = train.main(argv, use_kernels=True, on_block=on_block)
+        wall = time.perf_counter() - t0
+    finally:
+        train.save_experiment = save
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg, eng, state = out["cfg"], out["engine"], out["state"]
+    n_logged = len(out["losses"])
+    want = {"flash_attention": cfg.num_layers * K * (T * blocks + n_logged),
+            "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
+            "ssd_intra_chunk": 0, "diffusion_mix_int8": 0}
+    if launches != want:
+        raise AssertionError(f"phase 19a: launches {launches}, expected "
+                             f"{want}")
+    if eng.engine_kind != "async" or len(checks) != blocks:
+        raise AssertionError("phase 19a: the async engine did not run "
+                             "every block")
+    fires = np.sum(out["active"], axis=0)
+    t_local = state.async_state["t_local"].double().cpu().numpy()
+    if not np.allclose(t_local, fires * eng.delays, rtol=1e-5, atol=0):
+        raise AssertionError(f"phase 19a: clocks {t_local} != fires "
+                             f"{fires} x delays {eng.delays}")
+    mixed = [0 < sum(a) < K for a in out["active"]]
+    print(f"phase 19a: rates {np.round(eng.rates, 4).tolist()} (delays "
+          f"{np.round(eng.delays, 4).tolist()} s); realized fire masks "
+          f"{out['active']}")
+    if not any(mixed):
+        raise AssertionError("phase 19a: no block with 0 < fires < K at "
+                             "this seed: raise K or the blocks")
+    losses = torch.tensor(out["losses"])
+    if not torch.isfinite(losses).all() or not all(
+            torch.isfinite(x).all() for x in tree_leaves(state.params)):
+        raise AssertionError("phase 19a: non-finite losses or parameters")
+    for i, (t, tps) in enumerate(zip(out["timings"], out["tokens_per_s"])):
+        print(f"phase 19a: block {i}: {t['block_s']:.3f}s (local updates "
+              f"{t['local_s']:.3f}s, receive + combination "
+              f"{t['combine_s']:.3f}s), {tps:.0f} tokens/s, fires "
+              f"{checks[i]['fires']}/{K}, row sums within "
+              f"{checks[i]['row_sum_err']:.1e} of 1 [{card}]")
+    buf_gb = sum(x.numel() * x.element_size() for x in
+                 tree_leaves(state.async_state["buffer"])) / 1e9
+    size_gb = os.path.getsize(path) / 1e9
+    print(f"phase 19a: non-fired agents bit-equal and ages exact in every "
+          f"block; clocks = fires x delays; launches {launches}; peak "
+          f"device memory {peak_gb:.2f} GB (the staleness buffer "
+          f"{buf_gb:.2f} GB); checkpoint {size_gb:.2f} GB written in "
+          f"{saved['s']:.1f}s ({free_gb:.0f} GB free before); train.main "
+          f"took {wall:.1f}s [{card}]")
+    row = {"arch": "smollm-360m", "layers": cfg.num_layers, "agents": K,
+           "local_steps": T, "batch": B, "seq": S, "blocks": blocks,
+           "flags": ASYNC_FLAGS, "timings": out["timings"],
+           "tokens_per_s": out["tokens_per_s"], "losses": out["losses"],
+           "fire_masks": out["active"], "rates": eng.rates.tolist(),
+           "t_wall": out["t_wall"], "checks": checks, "launches": launches,
+           "peak_mem_gb": peak_gb, "buffer_gb": buf_gb,
+           "checkpoint_gb": size_gb, "save_s": saved["s"], "card": card}
+    print(json.dumps({"phase": "19a", **row}))
+    del out, state, eng
+    torch.cuda.empty_cache()
+    return launches, row, path
+
+
+def phase_serve_async(path: str, card: str) -> tuple[dict, dict]:
+    """Phase 19b: 19a's checkpoint through ``serve.main`` with no spec
+    flag: the engine rebuilt from the stored spec, the freshness-weighted
+    consensus (held against a float64 sum over the loaded stack within one
+    bf16 ulp plus the float32 summation bound), prefill of 4 prompts of
+    128 and 32 greedy steps, twice (the same tokens)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.api import EngineState
+    from repro_torch.checkpoint import load_experiment, load_spec
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    argv = ["--checkpoint", path, "--batch", "4", "--prompt-len", "128",
+            "--decode", "32", "--temperature", "0"]
+    tee = _Tee(sys.stdout)
+    reset_launches()
+    with contextlib.redirect_stdout(tee):
+        first = serve.main(argv)
+    launches = read_launches()
+    second = serve.main(argv)
+    printed = "".join(tee.text)
+    if "async checkpoint: freshness-weighted consensus" not in printed:
+        raise AssertionError("phase 19b: serve did not weight the "
+                             "consensus by freshness")
+    if any(launches.values()):
+        raise AssertionError(f"phase 19b: launches {launches}: the "
+                             "weighted consensus is a plain product")
+    if not torch.equal(first["tokens"], second["tokens"]):
+        raise AssertionError("phase 19b: two greedy runs differ")
+    spec = load_spec(path)
+    K, bundle = spec.run.num_agents, get_config(spec.model.arch)
+    cfg = bundle.smoke if spec.model.smoke else bundle.model
+    toks = first["tokens"]
+    if (tuple(toks.shape) != (4, 32) or toks.min() < 0
+            or toks.max() >= cfg.vocab_size):
+        raise AssertionError(f"phase 19b: tokens out of range {toks}")
+    stack, _ = load_experiment(path, EngineState(tf.param_specs(
+        cfg, num_agents=K)), device="cuda")
+    w = first["weights"].double()
+    w = w / w.sum()
+
+    def exact():
+        # float64 sum_k w_k x_k / sum_k w_k in column slices of each leaf
+        width = CHECK_SLICE // K
+        for got, x, floor in zip(tree_leaves(first["params"]),
+                                 tree_leaves(stack.params),
+                                 _sum_floors(stack.params, 2 * K)):
+            got, x = got.reshape(-1), x.reshape(K, -1)
+            for a in range(0, x.shape[1], width):
+                want = torch.tensordot(w, x[:, a:a + width].double(), dims=1)
+                yield got[a:a + width], want, floor
+
+    gate = _ulp_gate("phase 19b: freshness-weighted consensus vs float64",
+                     exact())
+    t = first["timings"]
+    weights = [round(x, 5) for x in first["weights"].tolist()]
+    print(f"phase 19b: weights {weights}; load {t['load_s']:.2f}s, "
+          f"consensus {t['consensus_s']:.3f}s, prefill {t['prefill_s']:.3f}s, decode {t['decode_s']:.3f}s "
+          f"({first['tokens_per_s']:.1f} tokens/s); second run: load "
+          f"{second['timings']['load_s']:.2f}s, consensus "
+          f"{second['timings']['consensus_s']:.3f}s; greedy tokens repeat "
+          f"[{card}]")
+    row = {"weights": first["weights"].tolist(), "first_run": t,
+           "second_run": second["timings"],
+           "tokens_per_s": [first["tokens_per_s"], second["tokens_per_s"]],
+           "consensus_vs_float64": gate, "launches": launches, "card": card}
+    print(json.dumps({"phase": "19b", **row}))
+    del first, second, stack
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+#: phase 19c: shared flags of every preset's smoke run (K = 8)
+PRESET_COMMON = ["--agents", "8", "--local-steps", "2", "--step-size",
+                 "0.05", "--participation", "0.9", "--blocks", "3",
+                 "--batch", "2", "--seq", "64"]
+
+#: each preset written out in hand-written flags over PRESET_COMMON: the
+#: same ExperimentSpec (``--optimizer sgd --compress-ratio 1.0`` restore
+#: the presets' defaults where the bare flags' differ)
+PRESET_FLAGS = {
+    "fedavg_full": ["--topology", "fedavg", "--participation", "1.0"],
+    "fedavg_partial_uniform": ["--topology", "fedavg"],
+    "vanilla_diffusion": ["--local-steps", "1", "--participation", "1.0"],
+    "asynchronous_diffusion": ["--local-steps", "1"],
+    "decentralized_fedavg": ["--participation", "1.0"],
+    "cyclic_fedavg": ["--topology", "fedavg", "--participation-process",
+                      "cyclic", "--num-groups", "2", "--participation",
+                      "0.5"],
+    "markov_asynchronous_diffusion": ["--local-steps", "1",
+                                      "--participation-process", "markov",
+                                      "--markov-corr", "0.5"],
+    "link_dropout_diffusion": ["--graph", "link_dropout", "--link-drop",
+                               "0.3", "--graph-corr", "0.0"],
+    "compressed_diffusion": ["--compress", "topk", "--compress-ratio", "0.1",
+                             "--error-feedback"],
+    "compressed_fedavg": ["--topology", "fedavg", "--compress", "int8",
+                          "--error-feedback"],
+    "byzantine_robust_diffusion": ["--mix", "trimmed_mean", "--trim", "1",
+                                   "--robust-scope", "neighborhood",
+                                   "--attack", "sign_flip", "--attack-num",
+                                   "1", "--attack-scale", "3.0"],
+    "private_diffusion": ["--privacy", "--privacy-epsilon", "8",
+                          "--privacy-delta", "1e-5", "--privacy-clip", "1.0",
+                          "--privacy-secure-agg"],
+    "heterogeneous_diffusion": ["--topology", "scale_free",
+                                "--local-steps-mode", "degree", "--data",
+                                "dirichlet", "--data-alpha", "0.1",
+                                "--data-clusters", "4"],
+}
+
+
+def preset_argvs(name: str) -> tuple[list, list]:
+    """(``--preset`` argv, hand-written argv) of one preset's phase-19c
+    run: ``--mix pallas`` overlaid on every preset but the robust one,
+    which keeps its trimmed mean."""
+    mix = [] if name == "byzantine_robust_diffusion" else ["--mix", "pallas"]
+    by_flags = [*PRESET_COMMON, "--optimizer", "sgd", "--compress-ratio",
+                "1.0", *PRESET_FLAGS[name], *mix]
+    return ["--preset", name, *PRESET_COMMON, *mix], by_flags
+
+
+def _preset_launches(spec, cfg, out) -> dict:
+    """The launch counts a preset's smoke run must make."""
+    from repro_torch.tree import tree_leaves
+
+    K, T = spec.run.num_agents, spec.run.local_steps
+    n, logged = out["blocks_done"], len(out["losses"])
+    M = sum(x[0].numel() for x in tree_leaves(out["state"].params))
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want["flash_attention"] = cfg.num_layers * K * (T * n + logged)
+    if (spec.mixer.kind in ("trimmed_mean", "median")
+            and spec.mixer.scope == "neighborhood"):
+        # the neighborhood trimmed mean and median fuse on CUDA ("auto")
+        want["gather_robust_mix"] = num_tiles(K, M) * n
+    elif spec.privacy.enabled and spec.privacy.secure_agg:
+        pass                      # the wire masks carry the combination
+    elif spec.compression.kind == "int8":
+        want["diffusion_mix_int8"] = num_tiles(K, M, int8=True) * n
+    elif spec.mixer.kind == "pallas":
+        want["diffusion_mix"] = num_tiles(K, M) * n
+    return want
+
+
+def _card_vs_cpu(label: str, card_out: dict, cpu_out: dict) -> dict:
+    """Phase 6's SGD gates: the same masks and realized matrices, losses
+    within 1e-4 relative, parameters within 1e-4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    if card_out["active"] != cpu_out["active"]:
+        raise AssertionError(f"{label}: card and CPU realized different "
+                             "masks")
+    if not all(torch.equal(a, b) for a, b in zip(card_out["graphs"],
+                                                 cpu_out["graphs"])):
+        raise AssertionError(f"{label}: card and CPU realized different "
+                             "graphs")
+    loss_rel = float(np.max(np.abs(np.subtract(card_out["losses"],
+                                               cpu_out["losses"]))
+                            / np.abs(cpu_out["losses"])))
+    worst = max((a.cpu().float() - b.float()).abs().max().item()
+                for a, b in zip(tree_leaves(card_out["state"].params),
+                                tree_leaves(cpu_out["state"].params)))
+    if not (loss_rel <= 1e-4 and worst <= 1e-4):
+        raise AssertionError(f"{label}: card vs CPU losses {loss_rel:.2e}, "
+                             f"parameters {worst:.2e} (gates 1e-4)")
+    return {"loss_rel": loss_rel, "param_max_abs": worst}
+
+
+class _ClipOnly:
+    """Within it, the privacy tier's clip-and-noise transform clips only
+    (noise multiplier 0) while the accountant keeps its calibrated sigma:
+    the card and the CPU draw their noise from their own device streams,
+    so they are compared at noise 0, as phase 18c does."""
+
+    def __enter__(self):
+        from repro_torch.core import privacy
+
+        self.wrap = privacy.Privacy.wrap
+
+        def clip_only(tier, inner):
+            return privacy.PrivateGradients(
+                tier.clip, 0.0, seed=tier.seed, inner=inner).as_transform()
+
+        privacy.Privacy.wrap = clip_only
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import privacy
+
+        privacy.Privacy.wrap = self.wrap
+        return False
+
+
+def phase_presets(card: str) -> dict:
+    """Phase 19c: each of the 13 presets through ``train.main(["--preset",
+    name, ...])`` at smoke size (K = 8, T = 2 unless the preset fixes it,
+    q = 0.9, B = 2, S = 64, 3 blocks, SGD mu = 0.05; ``--mix pallas``
+    overlaid on all but the robust one): its exact launch counts; the same
+    run through the hand-written flags of :data:`PRESET_FLAGS` (the same
+    spec JSON) bit-equal in parameters; and the card against the CPU under
+    phase 6's gates (the compressed presets block by block with injected
+    draws, :func:`_lockstep_compressed`; the private one at noise 0,
+    :class:`_ClipOnly`).  Then ``--engine auto`` on a transformer spec
+    prints the stacked-for-sharded line and ``--engine sharded`` raises
+    naming item 25."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch.api.cli import spec_from_args
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    rows, totals = {}, dict.fromkeys(kernel_wrappers(), 0)
+    for name in sorted(PRESET_FLAGS):
+        by_preset, by_flags = preset_argvs(name)
+        ap = train._parser()
+        spec = spec_from_args(ap.parse_args(by_preset))
+        if spec.to_json() != spec_from_args(ap.parse_args(
+                by_flags)).to_json():
+            raise AssertionError(f"phase 19c: {name}: the hand-written "
+                                 "flags denote another spec")
+        reset_launches()
+        t0 = time.perf_counter()
+        a = train.main(by_preset, use_kernels=True)
+        preset_s = time.perf_counter() - t0
+        launches = read_launches()
+        want = _preset_launches(spec, a["cfg"], a)
+        if launches != want:
+            raise AssertionError(f"phase 19c: {name}: launches {launches}, "
+                                 f"expected {want}")
+        b = train.main(by_flags, use_kernels=True)
+        if a["active"] != b["active"] or not all(
+                torch.equal(x, y) for x, y in zip(
+                    tree_leaves(a["state"].params),
+                    tree_leaves(b["state"].params))):
+            raise AssertionError(f"phase 19c: {name}: --preset and the "
+                                 "hand-written flags differ")
+        if spec.compression.kind != "none":
+            r = _lockstep_compressed(name, None, spec=a["spec"])
+            gate = {"lockstep": r}
+        elif spec.privacy.enabled:
+            with _ClipOnly():
+                on_card = train.main(by_preset, use_kernels=True)
+                on_cpu = train.main(by_preset + ["--device", "cpu"],
+                                    use_kernels=True)
+            gate = _card_vs_cpu(f"phase 19c: {name} (noise 0)", on_card,
+                                on_cpu)
+            eps_rel = max(abs(x - y) / y for x, y in zip(
+                on_card["epsilon"], on_cpu["epsilon"]))
+            if not eps_rel <= 1e-6:
+                raise AssertionError(f"phase 19c: {name}: epsilon card vs "
+                                     f"CPU {eps_rel:.2e}")
+            gate["epsilon_rel"] = eps_rel
+        else:
+            gate = _card_vs_cpu(f"phase 19c: {name}", a, train.main(
+                by_preset + ["--device", "cpu"], use_kernels=True))
+        for k, v in launches.items():
+            totals[k] += v
+        rows[name] = {"launches": launches, "blocks_done": a["blocks_done"],
+                      "preset_s": preset_s, "card_vs_cpu": gate}
+        print(f"phase 19c: {name}: {a['blocks_done']} blocks in "
+              f"{preset_s:.2f}s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }; --preset == "
+              f"hand-written flags (bit-equal); card vs CPU {gate} [{card}]")
+        del a, b
+    buf = io.StringIO()
+    argv = ["--agents", "2", "--blocks", "1", "--batch", "1", "--seq", "16"]
+    with contextlib.redirect_stdout(buf):
+        out = train.main(argv, use_kernels=True)
+    if (out["engine"].auto_substituted != "sharded"
+            or "builds the stacked engine" not in buf.getvalue()
+            or "item 25" not in buf.getvalue()):
+        raise AssertionError("phase 19c: --engine auto did not say it built "
+                             "the stacked engine for the sharded one")
+    try:
+        train.main(argv + ["--engine", "sharded"], use_kernels=True)
+    except NotImplementedError as e:
+        if "item 25" not in str(e):
+            raise
+    else:
+        raise AssertionError("phase 19c: --engine sharded did not raise")
+    print(f"phase 19c: all 13 presets passed; --engine auto prints the "
+          f"stacked-for-sharded line, --engine sharded raises naming item "
+          f"25; launches over the presets {totals} [{card}]")
+    print(json.dumps({"phase": "19c", "presets": rows, "card": card},
+                     default=str))
+    return totals
+
+
+def _exact_diffusion_means(device: str, dtype: str = "float32",
+                           blocks: int = 1200, tail: int = 600) -> dict:
+    """The recipe of the reference's tests/test_extensions.py: K = 8 ring,
+    heterogeneous regression, mu 0.01, batches of 8 from one host
+    generator; vanilla diffusion through the engine and exact diffusion
+    through ``ExactDiffusionEngine``, in ``dtype``, each's network mean
+    averaged over the last ``tail`` blocks, and microseconds a block."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import variants
+    from repro_torch.core.diffusion import DiffusionEngine
+    from repro_torch.data.synthetic import (make_block_sampler,
+                                            make_regression_problem)
+
+    K = 8
+    data = make_regression_problem(K=K, N=100, M=2, rho=0.1, seed=5,
+                                   mean_scale=1.5, noise_low=0.01,
+                                   noise_high=0.05, w_star_spread=0.5)
+    spec = variants.vanilla_diffusion(K, mu=0.01, topology="ring")
+    draw = make_block_sampler(data, T=1, batch=8, device=device)
+    dt = getattr(torch, dtype)
+
+    def sampler(key):
+        return tuple(x.to(dt) for x in draw(key))
+
+    std = DiffusionEngine(spec.to_diffusion_config(), data.loss_fn(),
+                          device=device, grad_fn=data.grad_fn())
+    ed = variants.ExactDiffusionEngine(spec, data.loss_fn(), device=device,
+                                       grad_fn=data.grad_fn())
+    out = {"w_opt": data.problem().w_opt(None)}
+    t0 = time.perf_counter()
+    key = torch.Generator().manual_seed(0)
+    state = std.init_state(torch.zeros((K, 2), dtype=dt, device=device),
+                           key=key)
+    acc = torch.zeros(2, dtype=torch.float64, device=device)
+    for i in range(blocks):
+        state, _ = std.step(state, sampler(key), key)
+        if i >= blocks - tail:
+            acc += state.params.double().mean(0)
+    out["std"] = (acc / tail).cpu().numpy()
+    t1 = time.perf_counter()
+    key = torch.Generator().manual_seed(0)
+    w = psi = torch.zeros((K, 2), dtype=dt, device=device)
+    acc = torch.zeros(2, dtype=torch.float64, device=device)
+    for i in range(blocks):
+        w, psi = ed.step(w, psi, tuple(x[0] for x in sampler(key)))
+        if i >= blocks - tail:
+            acc += w.double().mean(0)
+    out["exact"] = (acc / tail).cpu().numpy()
+    t2 = time.perf_counter()
+    out["us_std"] = (t1 - t0) / blocks * 1e6
+    out["us_exact"] = (t2 - t1) / blocks * 1e6
+    for k in ("std", "exact"):
+        out[f"d_{k}"] = float(np.linalg.norm(out[k] - out["w_opt"]))
+    return out
+
+
+def phase_exact_diffusion(card: str) -> dict:
+    """Phase 19d: exact diffusion on the card: its time-averaged network
+    mean lies closer to w° than vanilla diffusion's (the reference's gate,
+    d_ed < d_std, in float32); the same runs in float64 agree with the
+    CPU's within 1e-5 relative.  In float32 the two devices drift apart
+    along exact diffusion's network mean, which its correction step does
+    not contract: the float32 card-vs-CPU difference is printed beside the
+    CPU's own float32-vs-float64 difference (a witness of that drift)."""
+    import numpy as np
+
+    def rel(a, b):
+        return max(float(np.max(np.abs(a[k] - b[k]) / np.abs(b[k])))
+                   for k in ("std", "exact"))
+
+    reset_launches()
+    gpu = _exact_diffusion_means("cuda")
+    launches = read_launches()
+    cpu = _exact_diffusion_means("cpu")
+    gpu64 = _exact_diffusion_means("cuda", "float64")
+    cpu64 = _exact_diffusion_means("cpu", "float64")
+    row = {"d_exact": gpu["d_exact"], "d_std": gpu["d_std"],
+           "card_vs_cpu_rel_f64": rel(gpu64, cpu64),
+           "card_vs_cpu_rel_f32": rel(gpu, cpu),
+           "cpu_f32_vs_f64_rel": rel(cpu, cpu64),
+           "us_exact": gpu["us_exact"], "us_std": gpu["us_std"],
+           "cpu_us_exact": cpu["us_exact"], "cpu_us_std": cpu["us_std"],
+           "card": card}
+    print(f"phase 19d: distance to w°: exact diffusion {gpu['d_exact']:.4e}, "
+          f"vanilla {gpu['d_std']:.4e} (gate: exact closer); card vs CPU "
+          f"means in float64 within {row['card_vs_cpu_rel_f64']:.2e} "
+          f"relative (gate 1e-5); in float32 "
+          f"{row['card_vs_cpu_rel_f32']:.2e} (the CPU's float32 vs float64: "
+          f"{row['cpu_f32_vs_f64_rel']:.2e}); {gpu['us_exact']:.0f} µs an "
+          f"exact block, {gpu['us_std']:.0f} µs a vanilla one (CPU "
+          f"{cpu['us_exact']:.0f}, {cpu['us_std']:.0f}) [{card}]")
+    if not gpu["d_exact"] < gpu["d_std"]:
+        raise AssertionError("phase 19d: exact diffusion is not closer to "
+                             "w° than vanilla diffusion")
+    if not row["card_vs_cpu_rel_f64"] <= 1e-5:
+        raise AssertionError("phase 19d: card and CPU disagree")
+    if any(launches.values()):
+        raise AssertionError(f"phase 19d: launches {launches}")
+    print(json.dumps({"phase": "19d", **row}))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4261,6 +4869,7 @@ def main() -> int:
         timed("phase 14c", phase_compressed_devices)
         quantized_launches = timed("phase 15", phase_consensus_int8,
                                    stack_path, card)
+        Path(stack_path).unlink()       # phase 19a's checkpoint needs room
         link_drop_launches, _ = timed("phase 16a", phase_train_link_dropout,
                                       card)
         tv_erdos_launches, _ = timed("phase 16b", phase_train_tv_erdos, card)
@@ -4272,6 +4881,13 @@ def main() -> int:
         timed("phase 18c", phase_private_devices)
         frontier_launches, _ = timed("phase 18d", phase_private_regression,
                                      card)
+        async_launches, _, async_path = timed("phase 19a", phase_train_async,
+                                              card, scratch)
+        async_serve_launches, _ = timed("phase 19b", phase_serve_async,
+                                        async_path, card)
+        Path(async_path).unlink()
+        preset_launches = timed("phase 19c", phase_presets, card)
+        exact_launches = timed("phase 19d", phase_exact_diffusion, card)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
@@ -4293,7 +4909,11 @@ def main() -> int:
                "regression_paper_fig5": regression_launches,
                "train_smollm_private_dirichlet": private_launches,
                "train_smollm_private_secure_agg": secure_agg_launches,
-               "regression_private_frontier": frontier_launches}
+               "regression_private_frontier": frontier_launches,
+               "train_smollm_async": async_launches,
+               "serve_smollm_async": async_serve_launches,
+               "presets_smoke": preset_launches,
+               "regression_exact_diffusion": exact_launches}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
             (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),

@@ -9,11 +9,19 @@ reference writes them, and read back by viewing the bytes as ``int16`` and
 then as ``torch.bfloat16`` — no ``ml_dtypes`` needed.  The two packages
 load each other's archives bit for bit.
 
-Checkpoints with an embedded ExperimentSpec (``save_experiment``) come with
-the API slice (ROADMAP.md queue 1 item 16).
+Experiment checkpoints (:func:`save_experiment`) store the whole
+:class:`repro_torch.core.state.EngineState` as one tree (params, optimizer
+state, participation, communication, graph, async and privacy state; the
+absent ``None`` components and ``None`` leaves are skipped, as JAX skips
+them) under the reference's key paths (``params/...``,
+``async_state/buffer/...``), with the
+:class:`repro_torch.api.ExperimentSpec` JSON in the metadata under
+``"spec"``: :func:`load_spec` + :func:`repro_torch.api.build` rebuild the
+exact engine, :func:`load_experiment` restores the state into it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any
@@ -27,7 +35,8 @@ from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 
 PyTree = Any
 
-__all__ = ["save_checkpoint", "load_checkpoint", "load_meta"]
+__all__ = ["save_checkpoint", "load_checkpoint", "load_meta",
+           "save_experiment", "load_spec", "load_experiment"]
 
 
 def _path_str(path) -> str:
@@ -39,6 +48,8 @@ def save_checkpoint(path: str, tree: PyTree, step: int = 0,
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     arrays, dtypes = {}, {}
     for p, v in tree_flatten_with_path(tree):
+        if v is None:                # JAX's convention: an empty subtree
+            continue
         key = _path_str(p)
         if isinstance(v, torch.Tensor):
             arr = to_numpy(v)
@@ -71,7 +82,8 @@ def load_checkpoint(path: str, like: PyTree, *,
     ``like``'s leaves only need ``.shape``: ``meta``-device tensors
     (:func:`repro_torch.models.transformer.param_specs`) describe a
     full-width agent stack without allocating it.  Leaves are moved to the
-    device one at a time, so the host holds one leaf at a time.
+    device one at a time, so the host holds one leaf at a time.  ``None``
+    leaves of ``like`` stay ``None``.
     """
     dev = resolve_device(device)
     if not path.endswith(".npz"):
@@ -81,6 +93,9 @@ def load_checkpoint(path: str, like: PyTree, *,
         meta = json.loads(str(z["__meta__"]))
         dtypes = meta.get("dtypes", {})
         for p, v in tree_flatten_with_path(like):
+            if v is None:
+                leaves.append(None)
+                continue
             key = _path_str(p)
             if key not in z:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
@@ -98,3 +113,51 @@ def load_meta(path: str) -> dict:
         path = path + ".npz"
     with np.load(path, allow_pickle=False) as z:
         return json.loads(str(z["__meta__"]))
+
+
+# ---------------------------------------------------------------------------
+# experiment checkpoints: EngineState as one tree + the spec alongside
+# ---------------------------------------------------------------------------
+
+def _state_tree(state) -> dict:
+    """An :class:`EngineState` as the dict of its present components, in
+    field order (the reference's ``GetAttrKey`` paths)."""
+    return {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(state)
+            if getattr(state, f.name) is not None}
+
+
+def save_experiment(path: str, state, *, spec=None, step: int = 0,
+                    metadata: dict | None = None) -> None:
+    """Save a whole :class:`~repro_torch.core.state.EngineState` as one
+    tree, with ``spec`` (an :class:`repro_torch.api.ExperimentSpec`)
+    embedded as JSON under the reserved ``"spec"`` key of the metadata."""
+    meta = dict(metadata or {})
+    if spec is not None:
+        meta["spec"] = spec.to_json(indent=None)
+    save_checkpoint(path, _state_tree(state), step=step, metadata=meta)
+
+
+def load_spec(path: str):
+    """The :class:`repro_torch.api.ExperimentSpec` embedded in a
+    checkpoint, or None for a spec-less (plain-tree) checkpoint."""
+    meta = load_meta(path)
+    if "spec" not in meta:
+        return None
+    from repro_torch.api.spec import ExperimentSpec   # lazy: store <-> api
+    return ExperimentSpec.from_json(meta["spec"])
+
+
+def load_experiment(path: str, like_state, *,
+                    device=None) -> tuple[Any, dict]:
+    """Restore an :class:`EngineState` checkpoint into ``like_state`` on
+    ``device`` (``None`` means CUDA).
+
+    ``like_state`` decides which components are restored: a template with
+    ``opt_state=None`` restores only the params (and the other components
+    it carries) even if the archive holds more; serving needs just the
+    iterate (and, for an async run, the clocks).
+    """
+    tree, meta = load_checkpoint(path, _state_tree(like_state),
+                                 device=device)
+    return dataclasses.replace(like_state, **tree), meta

@@ -101,6 +101,16 @@ class DiffusionConfig:
         return topo_lib.make_topology(
             self.topology, self.num_agents, **dict(self.topology_kwargs))
 
+    def make_graph(self, topology: topo_lib.Topology | None = None, *,
+                   device=None):
+        """The :class:`repro_torch.core.graphs.GraphProcess` this config
+        denotes (the static wrapper of the base topology by default),
+        returning its matrices on ``device``."""
+        topo = topology if topology is not None else self.make_topology()
+        return graph_lib.make_graph_process(
+            self.graph, topo, num_agents=self.num_agents, device=device,
+            **dict(self.graph_kwargs))
+
 
 def _bshape(v: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     """Reshape a (K,) vector for broadcasting against a (K, ...) leaf."""

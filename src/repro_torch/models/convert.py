@@ -25,7 +25,9 @@ __all__ = ["params_from_jax", "stacked_params_from_jax", "to_numpy",
 
 def from_numpy(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """One numpy leaf to a tensor on ``device`` (bfloat16 bit-exact)."""
-    arr = np.ascontiguousarray(arr)
+    # ascontiguousarray returns at least 1-d: keep a 0-d leaf (a step
+    # counter) 0-d
+    arr = np.ascontiguousarray(arr).reshape(np.shape(arr))
     if not arr.flags.writeable:          # e.g. jax.device_get's buffers
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":

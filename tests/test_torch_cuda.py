@@ -630,3 +630,73 @@ def test_cuda_secure_agg_and_clip_match_the_cpu(monkeypatch):
         a, b = pv[0](3, None), pv[1](3, None)
         assert a["tokens"].is_cuda
         assert all(torch.equal(a[n].cpu(), b[n]) for n in a)
+
+
+_ASYNC_ARGV = ["--agents", "4", "--blocks", "2", "--batch", "1", "--seq",
+               "32", "--optimizer", "sgd", "--step-size", "0.05",
+               "--engine", "async", "--async-rate-dist", "lognormal",
+               "--async-rate-sigma", "0.5", "--async-tau-max", "4",
+               "--mix", "auto"]
+
+
+@pytest.mark.cuda
+def test_cuda_async_training_matches_the_cpu():
+    """The event-driven engine at smoke size through train.main on the card
+    (flash_attention in the local updates) and on the CPU from one seed:
+    the same fire masks, losses within 1e-4 relative, parameters and the
+    staleness buffer within 1e-4 (phase 6's SGD gates)."""
+    _need_card()
+    from repro_torch.launch import train
+
+    before = fa.flash_attention.launches
+    gpu = train.main(_ASYNC_ARGV, use_kernels=True)
+    assert fa.flash_attention.launches > before
+    cpu = train.main(_ASYNC_ARGV + ["--device", "cpu"], use_kernels=True)
+    assert gpu["active"] == cpu["active"]
+    rel = np.max(np.abs(np.subtract(gpu["losses"], cpu["losses"]))
+                 / np.abs(cpu["losses"]))
+    assert rel <= 1e-4
+    for tree in ("params", "buffer"):
+        a = (gpu["state"].params if tree == "params"
+             else gpu["state"].async_state["buffer"])
+        b = (cpu["state"].params if tree == "params"
+             else cpu["state"].async_state["buffer"])
+        for x, y in zip(_leaves(a), _leaves(b)):
+            assert (x.cpu().float() - y.float()).abs().max().item() <= 1e-4
+    assert torch.equal(gpu["state"].async_state["ages"].cpu(),
+                       cpu["state"].async_state["ages"])
+
+
+@pytest.mark.cuda
+def test_cuda_spec_checkpoint_serves_on_the_cpu(tmp_path):
+    """A spec checkpoint of an async run saved on the card serves on the
+    CPU with no other spec flag: the freshness-weighted consensus of the
+    stored stack, equal to the card's within 1e-5, and greedy tokens that
+    repeat."""
+    _need_card()
+    from repro_torch.launch import serve, train
+
+    path = str(tmp_path / "async.npz")
+    out = train.main(_ASYNC_ARGV + ["--checkpoint", path], use_kernels=True)
+    argv = ["--checkpoint", path, "--batch", "2", "--prompt-len", "8",
+            "--decode", "4", "--temperature", "0"]
+    on_cpu = serve.main(argv + ["--device", "cpu"])
+    on_card = serve.main(argv)
+    state = out["state"]
+    w = on_cpu["weights"].double()
+    w = w / w.sum()
+    for got, x in zip(_leaves(on_cpu["params"]), _leaves(state.params)):
+        want = torch.tensordot(w, x.cpu().double(), dims=1)
+        assert (got.double() - want).abs().max().item() <= 1e-5 * (
+            1 + want.abs().max().item())
+    for a, b in zip(_leaves(on_card["params"]), _leaves(on_cpu["params"])):
+        assert (a.cpu().float() - b.float()).abs().max().item() <= 1e-5
+    assert torch.equal(serve.main(argv + ["--device", "cpu"])["tokens"],
+                       on_cpu["tokens"])
+    toks = on_card["tokens"]
+    assert int(toks.min()) >= 0 and int(toks.max()) < out["cfg"].vocab_size
+
+
+def _leaves(tree):
+    from repro_torch.tree import tree_leaves
+    return tree_leaves(tree)

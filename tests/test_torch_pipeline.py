@@ -304,7 +304,7 @@ def test_data_flags_parse_as_the_reference():
     add_spec_args(ap)
     ref = vars(ap.parse_args([]))
     args = train._parser().parse_args([])
-    train.check_data_flags(args)
-    for dest in list(train._DATA_FLAGS) + ["data", "data_seed"]:
+    for dest in ("data", "data_alpha", "data_clusters", "data_shards",
+                 "data_seed", "data_corpus_tokens"):
         assert getattr(args, dest) == ref[dest], dest
     assert tuple(pipe.DATA_KINDS) == ("iid", "dirichlet", "shards")

@@ -681,7 +681,8 @@ def test_privacy_flags_parse_as_the_reference():
     add_spec_args(ap)
     ref = vars(ap.parse_args([]))
     args = train._parser().parse_args([])
-    train.check_privacy_flags(args)
-    for dest in train._PRIVACY_FLAGS:
+    for dest in ("privacy_epsilon", "privacy_delta", "privacy_clip",
+                 "privacy_noise", "privacy_secure_agg",
+                 "privacy_allow_gauss"):
         assert getattr(args, dest) == ref[dest], dest
     assert args.privacy is ref["privacy"] is False

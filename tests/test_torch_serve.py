@@ -105,14 +105,21 @@ def test_serve_loops_agree_at_temperature_zero(ref_stack_ckpt):
     assert torch.equal(fused["tokens"], py["tokens"])
 
 
-def test_serve_without_checkpoint_and_pending_paths(tmp_path):
+def test_serve_without_checkpoint_and_pending_paths(tmp_path, capsys):
     out = serve.main(["--device", "cpu", "--batch", "1", "--prompt-len",
                       "4", "--decode", "2"])
     assert tuple(out["tokens"].shape) == (1, 2)
+    # a spec checkpoint of an external model holds nothing to serve: serve
+    # falls back to the flag path, as the reference does, and the flag
+    # path finds no model leaves in the archive
     path = str(tmp_path / "spec.npz")
     save_checkpoint(path, {"w": torch.zeros(2)}, metadata={"spec": "{}"})
-    with pytest.raises(NotImplementedError, match="API slice"):
+    with pytest.raises(KeyError, match="missing leaf"):
         serve.main(["--device", "cpu", "--checkpoint", path])
+    assert "model kind 'external'" in capsys.readouterr().out
+    # --watch needs ServeLoop (ROADMAP.md queue 1 item 26)
+    with pytest.raises(SystemExit):
+        serve.main(["--device", "cpu", "--watch", str(tmp_path)])
 
 
 def test_entry_points_without_device_refuse_the_cpu(tmp_path):
@@ -140,6 +147,10 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
         " or n == 'repro' or n.startswith('repro.')]\n"
         "assert not bad, bad\n"
+        "need = {'repro_torch.api', 'repro_torch.api.spec', "
+        "'repro_torch.api.build', 'repro_torch.api.cli', "
+        "'repro_torch.core.async_engine', 'repro_torch.core.variants'}\n"
+        "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, cwd=ROOT,

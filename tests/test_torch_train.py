@@ -220,15 +220,15 @@ def test_train_flag_guards_raise(flags, match):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--spec", "x.json"], "item 16"), (["--preset", "fedavg_full"],
-                                        "item 16"),
-    (["--checkpoint", "c.npz"], "item 16"), (["--ef-host-offload"],
-                                             "item 25"),
-    (["--async-rate=0.5"], "item 24"), (["--engine=async"], "item 16"),
+    (["--ef-host-offload"], "item 25"), (["--engine", "sharded"], "item 25"),
+    (["--engine=sharded", "--mix", "pallas"], "item 25"),
+    (["--ef-host-offload", "--engine", "async"], "item 25"),
+    (["--arch", "qwen3-32b"], "item 15"),
+    (["--arch", "granite-moe-1b-a400m"], "item 17"),
 ])
 def test_unported_flags_name_their_roadmap_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
-        train.main(["--device", "cpu"] + flag)
+        train.main(["--device", "cpu", "--blocks", "1"] + flag)
 
 
 def test_entry_points_without_device_refuse_the_cpu():
