@@ -101,7 +101,9 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     inactive agents bit-equal; (b) ``--mix gather``, 2 blocks, then one
     combination against the dense mixer within one bf16 ulp; (c) the
     preset at smoke size on the card and on the CPU (phase 6's gates).
-12. Robust and gather consensus at full width: phase 3's K=8 stack through
+12. Robust and gather consensus at full width: phase 3's K=8 stack (read
+    from disk once by phase 3's first serving run and kept in pinned host
+    memory for phases 3, 12 and 15: ``SharedStack``) through
     ``serve.main`` with the neighborhood trimmed mean (kernel), the global
     median (plain) and the gather mixer (kernel), each within one bf16 ulp
     of a plain consensus, then prefill and 32 greedy decode steps.
@@ -233,17 +235,36 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     overlaid on all but the robust one): exact launch counts, bit-equal
     to the same run in hand-written flags, card against CPU under phase
     6's gates (the compressed presets block by block with injected draws,
-    the private one at noise 0); ``--engine auto`` says it built the
-    stacked engine for the sharded one and ``--engine sharded`` raises
-    naming item 25; (d) exact diffusion on the recipe of the reference's
-    test (K=8 ring, mu 0.01, 1,200 blocks, mean over the last 600): closer
-    to w° than vanilla diffusion, card against CPU within 1e-5 relative.
+    the private one at noise 0); ``--engine auto`` builds the sharded
+    engine, bit-equal to ``--engine sharded``; (d) exact diffusion on the
+    recipe of the reference's test (K=8 ring, mu 0.01, 1,200 blocks, mean
+    over the last 600): closer to w° than vanilla diffusion, card against
+    CPU within 1e-5 relative.
+20. The sharded engine, the reference's default training path (every
+    ``train.main`` phase above runs it at world 1 too): (a) smollm-360m at
+    full width, all 32 layers, through ``train.main`` with ``--engine
+    auto`` and no process group (K=8 ring, q=0.9, T=2, SGD mu=0.05, B=1,
+    S=1024, ``--mix pallas``, 3 blocks): the engine built is the sharded
+    one, the launch counts exact, and one stacked-engine step from block
+    0's input state with its realized mask and batch gives parameters
+    bit-equal to the sharded block; (c) the compressed_fedavg run (int8 +
+    EF, the fused int8 path) at 16 layers, 2 blocks, ``--engine
+    sharded`` without and with ``--ef-host-offload``: parameters
+    bit-equal, the pipeline memory pinned CPU tensors between blocks, the
+    peak device memory lower by at least three quarters of it, the block
+    time the copies cost; (b) that run with the offload on two ranks of a
+    gloo group on the one card (two spawned processes, a ``file://``
+    rendezvous in the scratch directory, four agents a rank): the
+    gathered parameters bit-equal to (c)'s (sha256 of every leaf), the
+    bytes each combination's gathers moved (int8 codes and float32
+    scales, exactly) against the float32 stack's, each rank's launches,
+    peak memory and block seconds.
 
 The kernel mixers run over a column-tiled flatten, one launch per tile
 (``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14, 15,
-16, 18 and 19 count tiles.  Each path's launch counts (all six kernels) are
+16, 18, 19 and 20 count tiles.  Each path's launch counts (all six kernels) are
 set to 0 just before its first run and read just after it (phases 3, 5, 8,
-9, 11, 12, 14, 15, 16, 17, 18 and 19).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
+9, 11, 12, 14, 15, 16, 17, 18, 19 and 20; 20b counts in each rank).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
@@ -1085,6 +1106,53 @@ def _stack_agents(cfg, K: int, seed: int):
     return tree_map(lambda *xs: torch.stack(xs), *agents)
 
 
+class SharedStack:
+    """Phase 3's K = 8 stack, read from its checkpoint once and shared by
+    the serving runs of phases 3, 12 and 15.  Inside ``with
+    SharedStack():`` the serving driver's ``load_checkpoint`` reads a path
+    from disk the first time (the load every earlier script timed) and
+    keeps the leaves in pinned host memory; later loads of that path copy
+    them to the card (``load_s`` is then that copy).  ``clear()`` frees
+    the host copy."""
+
+    cache: dict = {}
+
+    def __enter__(self):
+        from repro_torch.checkpoint import store
+        from repro_torch.launch import serve
+
+        self._serve, self._real = serve, serve.load_checkpoint
+        serve.load_checkpoint = self.load
+        self._store_load = store.load_checkpoint
+        return self
+
+    def __exit__(self, *exc):
+        self._serve.load_checkpoint = self._real
+        return False
+
+    def load(self, path, like, *, device=None):
+        import torch
+
+        from repro_torch.tree import tree_map
+
+        key = str(path)
+        if key not in self.cache:
+            tree, meta = self._store_load(path, like, device=device)
+            self.cache[key] = (tree_map(lambda t: torch.empty(
+                t.shape, dtype=t.dtype, pin_memory=True).copy_(t), tree),
+                meta)
+            return tree, meta
+        host, meta = self.cache[key]
+        tree = tree_map(lambda t: t.to(device or "cuda", non_blocking=True),
+                        host)
+        torch.cuda.synchronize()
+        return tree, dict(meta)
+
+    @classmethod
+    def clear(cls) -> None:
+        cls.cache.clear()
+
+
 def phase_small(scratch: Path) -> None:
     import torch
 
@@ -1166,18 +1234,20 @@ def phase_full(scratch: Path, card: str) -> tuple[dict, dict, str]:
 
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    first = serve.main(argv + ["--mix", "pallas"])
-    launches = read_launches()
-    # one combination of the (K, M) stack: one launch per column tile
-    tiles = num_tiles(K, full_width_M())
-    if launches["diffusion_mix"] != tiles:
-        raise AssertionError(f"the serving path launched diffusion_mix "
-                             f"{launches['diffusion_mix']}x, expected one "
-                             f"launch per tile, {tiles}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    second = serve.main(argv + ["--mix", "pallas"])
-    dense = serve.main(argv + ["--mix", "dense"])
+    with SharedStack():
+        # the first run reads the checkpoint from disk; the others, and
+        # phases 12 and 15, copy the stack it kept in pinned host memory
+        first = serve.main(argv + ["--mix", "pallas"])
+        launches = read_launches()
+        # one combination of the (K, M) stack: one launch per column tile
+        tiles = num_tiles(K, full_width_M())
+        if launches["diffusion_mix"] != tiles:
+            raise AssertionError(f"the serving path launched diffusion_mix "
+                                 f"{launches['diffusion_mix']}x, expected "
+                                 f"one launch per tile, {tiles}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        second = serve.main(argv + ["--mix", "pallas"])
+        dense = serve.main(argv + ["--mix", "dense"])
     if not torch.equal(first["tokens"], second["tokens"]):
         raise AssertionError("two greedy runs gave different tokens")
     n_ulp = n_bad = 0
@@ -2009,13 +2079,15 @@ def _frozen_equal(got, params, active) -> bool:
 
 def _train_full(card: str, label: str, flags: list, blocks: int,
                 want_fn, K: int = 12, T: int = 2,
-                layers: int | None = None) -> tuple[dict, dict]:
+                layers: int | None = None,
+                on_block=None) -> tuple[dict, dict]:
     """Algorithm 1 on full-width smollm-360m at K agents (12 unless given)
     through train.main (ring unless ``flags`` say otherwise, T local steps,
     q = 0.9, B = 1, S = 1024, SGD mu = 0.05, ``use_kernels=True``; the
     depth cut to ``layers`` when given) with ``flags``; the launch counts
     against ``want_fn(cfg, n_logged)``, finite honest losses and
-    parameters, the block split, tokens/s and peak memory."""
+    parameters, the block split, tokens/s and peak memory.  ``on_block``
+    goes to train.main."""
     import torch
 
     from repro_torch.core.attacks import byzantine_mask
@@ -2030,7 +2102,8 @@ def _train_full(card: str, label: str, flags: list, blocks: int,
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    out = train.main(argv, use_kernels=True, num_layers=layers)
+    out = train.main(argv, use_kernels=True, num_layers=layers,
+                     on_block=on_block)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2205,7 +2278,6 @@ def phase_consensus_robust(path: str, card: str) -> dict:
     then prefill and greedy decode from each."""
     import torch
 
-    from repro_torch.checkpoint import load_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.core.mixing import make_mixer
     from repro_torch.core.serving import consensus_from_stacked
@@ -2219,7 +2291,8 @@ def phase_consensus_robust(path: str, card: str) -> dict:
     argv = ["--arch", "smollm-360m", "--full", "--agents", str(K),
             "--checkpoint", path, "--batch", "4", "--prompt-len", "128",
             "--decode", "32", "--temperature", "0"]
-    stack, _ = load_checkpoint(path, tf.param_specs(cfg, num_agents=K),
+    with SharedStack() as shared:
+        stack, _ = shared.load(path, tf.param_specs(cfg, num_agents=K),
                                device="cuda")
     floors = _sum_floors(stack, K)
     fedavg = make_topology("fedavg", K)
@@ -2242,7 +2315,8 @@ def phase_consensus_robust(path: str, card: str) -> dict:
     rows = {}
     for mix, (flags, kernel, plain) in runs.items():
         reset_launches()
-        res = serve.main(argv + flags)
+        with SharedStack():
+            res = serve.main(argv + flags)
         launches = read_launches()
         want = {n: 0 for n in launches}
         if kernel:
@@ -3286,16 +3360,17 @@ def phase_consensus_int8(path: str, card: str) -> dict:
     argv = ["--arch", "smollm-360m", "--full", "--agents", str(K),
             "--checkpoint", path, "--batch", "4", "--prompt-len", "128",
             "--decode", "32", "--temperature", "0", "--mix", "pallas"]
-    plain = serve.main(argv)
-    reset_launches()
-    first = serve.main(argv + ["--consensus-quantize", "int8"])
-    launches = read_launches()
-    want = {n: 0 for n in launches}
-    want["diffusion_mix"] = num_tiles(K, M)
-    if launches != want:
-        raise AssertionError(f"phase 15: launches {launches}, expected "
-                             f"{want}")
-    second = serve.main(argv + ["--consensus-quantize", "int8"])
+    with SharedStack():
+        plain = serve.main(argv)
+        reset_launches()
+        first = serve.main(argv + ["--consensus-quantize", "int8"])
+        launches = read_launches()
+        want = {n: 0 for n in launches}
+        want["diffusion_mix"] = num_tiles(K, M)
+        if launches != want:
+            raise AssertionError(f"phase 15: launches {launches}, expected "
+                                 f"{want}")
+        second = serve.main(argv + ["--consensus-quantize", "int8"])
     if not all(torch.equal(a, b) for a, b in
                zip(tree_leaves(first["params"]),
                    tree_leaves(second["params"]))):
@@ -4620,8 +4695,8 @@ def phase_presets(card: str) -> dict:
     phase 6's gates (the compressed presets block by block with injected
     draws, :func:`_lockstep_compressed`; the private one at noise 0,
     :class:`_ClipOnly`).  Then ``--engine auto`` on a transformer spec
-    prints the stacked-for-sharded line and ``--engine sharded`` raises
-    naming item 25."""
+    builds the sharded engine, as the reference's does, and ``--engine
+    sharded`` trains."""
     import contextlib
     import io
 
@@ -4684,25 +4759,21 @@ def phase_presets(card: str) -> dict:
               f"{ {k: v for k, v in launches.items() if v} }; --preset == "
               f"hand-written flags (bit-equal); card vs CPU {gate} [{card}]")
         del a, b
-    buf = io.StringIO()
     argv = ["--agents", "2", "--blocks", "1", "--batch", "1", "--seq", "16"]
-    with contextlib.redirect_stdout(buf):
-        out = train.main(argv, use_kernels=True)
-    if (out["engine"].auto_substituted != "sharded"
-            or "builds the stacked engine" not in buf.getvalue()
-            or "item 25" not in buf.getvalue()):
-        raise AssertionError("phase 19c: --engine auto did not say it built "
-                             "the stacked engine for the sharded one")
-    try:
-        train.main(argv + ["--engine", "sharded"], use_kernels=True)
-    except NotImplementedError as e:
-        if "item 25" not in str(e):
-            raise
-    else:
-        raise AssertionError("phase 19c: --engine sharded did not raise")
-    print(f"phase 19c: all 13 presets passed; --engine auto prints the "
-          f"stacked-for-sharded line, --engine sharded raises naming item "
-          f"25; launches over the presets {totals} [{card}]")
+    with contextlib.redirect_stdout(io.StringIO()):
+        auto = train.main(argv, use_kernels=True)
+        sharded = train.main(argv + ["--engine", "sharded"],
+                             use_kernels=True)
+    if (auto["engine"].engine_kind != "sharded"
+            or sharded["engine"].engine_kind != "sharded"
+            or not all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(auto["state"].params),
+                tree_leaves(sharded["state"].params)))):
+        raise AssertionError("phase 19c: --engine auto did not build the "
+                             "sharded engine --engine sharded builds")
+    print(f"phase 19c: all 13 presets passed; --engine auto builds the "
+          f"sharded engine (== --engine sharded, bit-equal); launches over "
+          f"the presets {totals} [{card}]")
     print(json.dumps({"phase": "19c", "presets": rows, "card": card},
                      default=str))
     return totals
@@ -4812,6 +4883,305 @@ def phase_exact_diffusion(card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the sharded engine (the reference's default training path)
+# ---------------------------------------------------------------------------
+
+#: phase 20b/20c's run: the compressed_fedavg preset (int8 + EF through the
+#: fused int8 path) on the sharded engine, 16 layers, 2 blocks
+SHARDED_INT8_FLAGS = ["--mix", "pallas", *COMPRESSED_FEDAVG_FLAGS,
+                      "--engine", "sharded"]
+#: the seconds phase 20b waits for its two ranks
+RANK_TIMEOUT_S = 420
+
+
+def _digests(tree) -> list:
+    """sha256 of every leaf's bytes (bit-equality across processes)."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    out = []
+    for x in tree_leaves(tree):
+        h = hashlib.sha256()
+        flat = x.detach().reshape(-1)
+        if x.dtype == torch.bfloat16:
+            flat = flat.view(torch.int16)
+        for i in range(0, flat.numel(), 1 << 27):
+            h.update(flat[i:i + (1 << 27)].cpu().numpy().tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def phase_train_sharded(card: str) -> tuple[dict, dict]:
+    """Phase 20a: the reference's default training path, world 1:
+    ``train.main`` with ``--engine auto`` (no process group) builds the
+    sharded engine for the transformer spec; K = 8 ring, q 0.9, T = 2, SGD
+    mu 0.05, B = 1 x 1024, ``--mix pallas``, all 32 layers, 3 blocks.
+    Gate: one stacked-engine step from block 0's input state, with block
+    0's realized mask and batch (the static ring draws no graph), gives
+    parameters bit-equal to the sharded block."""
+    import torch
+
+    from repro_torch.api import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    K, blocks = 8, 3
+    tiles = num_tiles(K, full_width_M())
+    keep = {}
+
+    def on_block(i, before, after, metrics):
+        if i == 0:
+            keep.update(before=before.params, after=after.params,
+                        active=metrics["active"], batch=metrics["batch"])
+
+    def want(cfg, n_logged):
+        return {"diffusion_mix": tiles * blocks,
+                "flash_attention": cfg.num_layers * K * (2 * blocks
+                                                         + n_logged),
+                "diffusion_mix_int8": 0, "gather_mix": 0,
+                "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+
+    out, row = _train_full(card, "phase 20a", ["--engine", "auto", "--mix",
+                                               "pallas"], blocks, want, K=K,
+                           on_block=on_block)
+    eng = out["engine"]
+    if eng.engine_kind != "sharded" or eng.shard is not None:
+        raise AssertionError(f"phase 20a: --engine auto built "
+                             f"{eng.engine_kind} (shard {eng.shard})")
+    cfg, spec = out["cfg"], out["spec"]
+    del out
+    torch.cuda.empty_cache()
+
+    def loss(p, b):
+        return tf.train_loss(p, cfg, b, remat=False)
+
+    stacked = build(spec, loss, engine="stacked", device="cuda")
+    state, _ = stacked.step(stacked.init_state(keep["before"]),
+                            keep["batch"], None, active=keep["active"])
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(state.params), tree_leaves(keep["after"])))
+    if not equal:
+        raise AssertionError("phase 20a: the sharded block != one stacked "
+                             "step from its input state")
+    row["stacked_bit_equal"] = True
+    print(f"phase 20a: engine sharded (auto, world 1); block 0 bit-equal "
+          f"to one stacked-engine step from its input state with its mask "
+          f"{keep['active'].int().tolist()} [{card}]")
+    print(json.dumps({"phase": "20a", **row}))
+    del keep, state
+    torch.cuda.empty_cache()
+    return row["launches"], row
+
+
+def _int8_launches(K: int, M: int, blocks: int, agents: int | None = None):
+    """Launches of phase 20b/20c's run (``agents``: the rank's rows)."""
+    def want(cfg, n_logged):
+        return {"diffusion_mix_int8": num_tiles(K, M, int8=True) * blocks,
+                "flash_attention": cfg.num_layers * (agents or K)
+                * (2 * blocks + n_logged),
+                "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
+                "ssd_intra_chunk": 0}
+    return want
+
+
+def phase_offload(card: str) -> tuple[dict, dict]:
+    """Phase 20c: the compressed_fedavg run on the sharded engine at world
+    1 (16 layers, 2 blocks), without and with ``--ef-host-offload``.
+    Gates: parameters bit-equal; between blocks the pipeline memory's
+    leaves are pinned CPU tensors; the peak device memory falls by at
+    least three quarters of the pipeline memory (the EF residual, in the
+    leaves' bf16: the step fetches it after the local updates, where the
+    block peaks).  Prints the block-time cost of the copies."""
+    import torch
+
+    from repro_torch.tree import tree_leaves
+
+    K, blocks = 8, 2
+    M = full_width_M(layers=CUT_LAYERS)
+    want = _int8_launches(K, M, blocks)
+    pinned = []
+
+    def on_block(i, before, after, metrics):
+        pinned.append([(x.device.type, x.is_pinned())
+                       for x in tree_leaves(after.comm_state)])
+
+    off, row_off = _train_full(card, "phase 20c (no offload)",
+                               SHARDED_INT8_FLAGS, blocks, want, K=K,
+                               layers=CUT_LAYERS)
+    # the run's parameters wait on the host, off the second run's peak
+    params = [x.cpu() for x in tree_leaves(off["state"].params)]
+    resid = off["state"].comm_state
+    resid_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(resid))
+    dtypes = sorted({str(x.dtype) for x in tree_leaves(resid)})
+    del off, resid
+    torch.cuda.empty_cache()
+    on, row_on = _train_full(card, "phase 20c (--ef-host-offload)",
+                             SHARDED_INT8_FLAGS + ["--ef-host-offload"],
+                             blocks, want, K=K, layers=CUT_LAYERS,
+                             on_block=on_block)
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(
+            params, tree_leaves(on["state"].params))):
+        raise AssertionError("phase 20c: parameters differ with the offload")
+    if not pinned or not all(all(d == "cpu" and p for d, p in leaves)
+                             for leaves in pinned):
+        raise AssertionError(f"phase 20c: offloaded leaves not pinned CPU "
+                             f"tensors: {pinned[:1]}")
+    drop_gb = row_off["peak_mem_gb"] - row_on["peak_mem_gb"]
+    if not drop_gb >= 0.75 * resid_bytes / 1e9:
+        raise AssertionError(f"phase 20c: peak fell {drop_gb:.2f} GB, the "
+                             f"pipeline memory is {resid_bytes / 1e9:.2f} GB")
+    cost = [b["block_s"] - a["block_s"] for a, b in
+            zip(row_off["timings"], row_on["timings"])]
+    digests = _digests(params)
+    row = {"off": row_off, "on": row_on, "resid_gb": resid_bytes / 1e9,
+           "resid_dtypes": dtypes, "peak_drop_gb": drop_gb,
+           "block_cost_s": cost, "card": card}
+    print(f"phase 20c: offload on == off (bit-equal); offloaded leaves "
+          f"pinned CPU tensors after every block; pipeline memory "
+          f"{resid_bytes / 1e9:.3f} GB {dtypes}; peak device memory "
+          f"{row_off['peak_mem_gb']:.2f} -> {row_on['peak_mem_gb']:.2f} GB "
+          f"({drop_gb:.2f} GB); block time with the copies minus without "
+          f"{[round(c, 3) for c in cost]} s [{card}]")
+    print(json.dumps({"phase": "20c", **row}))
+    del on, params
+    torch.cuda.empty_cache()
+    return row_on["launches"], row, digests
+
+
+def _sharded_rank(rank: int, world: int, store: str, out: str, argv: list,
+                  layers: int) -> None:
+    """One rank of phase 20b (a spawned process on the same card): join the
+    gloo group, train through ``train.main``, and write this rank's
+    launches, peak memory, timings, the bytes its gathers moved by dtype
+    and (rank 0) the digests of the gathered parameters."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import train
+
+    mesh_lib.init_agent_group("gloo", init_method=f"file://{store}",
+                              rank=rank, world_size=world, timeout_s=300)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train.main(argv, use_kernels=True, num_layers=layers)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shard = res["engine"].shard
+    wire = dict(shard.wire)
+    row = {"rank": rank, "launches": launches, "peak_mem_gb": peak_gb,
+           "timings": res["timings"], "wall_s": wall, "wire": wire,
+           "n_logged": len(res["losses"]),
+           "rows": [shard.rows.start, shard.rows.stop],
+           "backend": shard.backend, "comm": res["comm"]}
+    whole = shard.gather_tree(res["state"].params)
+    if rank == 0:
+        row["digests"] = _digests(whole)
+    del whole
+    Path(out, f"rank{rank}.json").write_text(json.dumps(row, default=str))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_train_two_ranks(card: str, scratch: Path,
+                          world1_digests: list) -> tuple[dict, dict]:
+    """Phase 20b: phase 20c's run with ``--ef-host-offload`` on two ranks
+    of a gloo group, both on ``cuda:0`` (spawned processes, a ``file://``
+    rendezvous under the scratch directory): four agents a rank, each
+    combination's tiles gathered as int8 codes and float32 scales.  Gate:
+    the gathered parameters are bit-equal to 20c's world 1.  Prints the
+    bytes each combination's gathers moved against the float32 stack's,
+    the launches, peak memory and block seconds of each rank."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.core.mixing import int8_layout
+
+    K, blocks, world = 8, 2, 2
+    M = full_width_M(layers=CUT_LAYERS)
+    run_dir = scratch / "phase20b"
+    run_dir.mkdir(parents=True, exist_ok=True)
+    argv = ["--full", "--agents", str(K), "--local-steps", "2", "--batch",
+            "1", "--seq", "1024", "--blocks", str(blocks), "--optimizer",
+            "sgd", "--step-size", "0.05", "--participation", "0.9",
+            *SHARDED_INT8_FLAGS, "--ef-host-offload"]
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(
+        _sharded_rank, args=(world, str(run_dir / "store"), str(run_dir),
+                             argv, CUT_LAYERS),
+        nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=2.0):
+            if time.perf_counter() - t0 > RANK_TIMEOUT_S:
+                raise AssertionError(f"phase 20b: the ranks did not finish "
+                                     f"in {RANK_TIMEOUT_S}s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((run_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    if ranks[0]["digests"] != world1_digests:
+        raise AssertionError("phase 20b: world 2's gathered parameters != "
+                             "world 1's (phase 20c)")
+    tile, width, _ = int8_layout(K, M)
+    float32_bytes = K * M * 4
+    for r in ranks:
+        want = _int8_launches(K, M, blocks, agents=K // world)(
+            type("C", (), {"num_layers": CUT_LAYERS}), r["n_logged"])
+        if r["launches"] != want:
+            raise AssertionError(f"phase 20b: rank {r['rank']} launches "
+                                 f"{r['launches']}, expected {want}")
+        # per block: the int8 codes and float32 scales of every tile, and
+        # the K agents' float32 losses of the logged block
+        want_wire = {"int8": blocks * K * width,
+                     "float32": blocks * K * (width // tile) * 4
+                     + r["n_logged"] * K * 4}
+        if r["wire"] != want_wire:
+            raise AssertionError(f"phase 20b: rank {r['rank']} gathered "
+                                 f"{r['wire']}, expected {want_wire}")
+    per_comb = {"int8": K * width, "float32": K * (width // tile) * 4}
+    moved = per_comb["int8"] + per_comb["float32"]
+    print(f"phase 20b: world 2 over gloo on one card == world 1 (phase 20c) "
+          f"bit for bit; each combination's gathers moved {moved:,} bytes "
+          f"(int8 codes {per_comb['int8']:,} + float32 scales "
+          f"{per_comb['float32']:,}) against {float32_bytes:,} for the "
+          f"float32 stack ({moved / float32_bytes:.4f}) [{card}]")
+    for r in ranks:
+        print(f"phase 20b: rank {r['rank']} (agents {r['rows']}, "
+              f"{r['backend']}): launches "
+              f"{ {k: v for k, v in r['launches'].items() if v} }; peak "
+              f"device memory {r['peak_mem_gb']:.2f} GB; blocks "
+              f"{[round(t['block_s'], 3) for t in r['timings']]} s "
+              f"(combination "
+              f"{[round(t['combine_s'], 3) for t in r['timings']]} s); "
+              f"train.main {r['wall_s']:.1f} s [{card}]")
+    row = {"ranks": ranks, "wire_per_combination": per_comb,
+           "float32_bytes": float32_bytes, "wire_ratio": moved / float32_bytes,
+           "wall_s": wall, "card": card}
+    for r in ranks:
+        r.pop("digests", None)
+    print(json.dumps({"phase": "20b", **row}, default=str))
+    shutil.rmtree(run_dir, ignore_errors=True)
+    totals = dict.fromkeys(kernel_wrappers(), 0)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            totals[k] += v
+    return totals, row
+
+
 def main() -> int:
     import torch
 
@@ -4870,6 +5240,7 @@ def main() -> int:
         quantized_launches = timed("phase 15", phase_consensus_int8,
                                    stack_path, card)
         Path(stack_path).unlink()       # phase 19a's checkpoint needs room
+        SharedStack.clear()
         link_drop_launches, _ = timed("phase 16a", phase_train_link_dropout,
                                       card)
         tv_erdos_launches, _ = timed("phase 16b", phase_train_tv_erdos, card)
@@ -4888,6 +5259,10 @@ def main() -> int:
         Path(async_path).unlink()
         preset_launches = timed("phase 19c", phase_presets, card)
         exact_launches = timed("phase 19d", phase_exact_diffusion, card)
+        sharded_launches, _ = timed("phase 20a", phase_train_sharded, card)
+        offload_launches, _, world1 = timed("phase 20c", phase_offload, card)
+        ranks_launches, _ = timed("phase 20b", phase_train_two_ranks, card,
+                                  scratch, world1)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
@@ -4913,7 +5288,10 @@ def main() -> int:
                "train_smollm_async": async_launches,
                "serve_smollm_async": async_serve_launches,
                "presets_smoke": preset_launches,
-               "regression_exact_diffusion": exact_launches}
+               "regression_exact_diffusion": exact_launches,
+               "train_smollm_sharded_default": sharded_launches,
+               "train_smollm_sharded_offload": offload_launches,
+               "train_smollm_sharded_two_ranks": ranks_launches}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
             (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),

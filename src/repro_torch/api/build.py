@@ -13,17 +13,16 @@ The engines come back with one surface:
     state, metrics = engine.step(state, block_batch, key)
 
 ``engine="stacked"`` returns the exact-paper
-:class:`repro_torch.core.diffusion.DiffusionEngine`; ``engine="async"`` the
-event-driven :class:`repro_torch.core.async_engine.AsyncEngine`.
-``engine="sharded"`` (the reference's torch.distributed agent-axis
-engine) is ROADMAP.md queue 1 item 25 and raises ``NotImplementedError``.
-``engine="auto"`` resolves as the reference's does: async when
+:class:`repro_torch.core.diffusion.DiffusionEngine`; ``engine="sharded"``
+the agent-sharded :class:`repro_torch.core.sharded.ShardedEngine` (one
+device without a mesh; the agent rows split over a ``torch.distributed``
+mesh with one); ``engine="async"`` the event-driven
+:class:`repro_torch.core.async_engine.AsyncEngine`.  ``engine="auto"``
+resolves as the reference's does (:func:`resolve_engine`): async when
 ``spec.asynchrony.enabled``, else sharded for a self-contained model
-(``kind="transformer"``) and stacked for an external loss.  Where that
-gives sharded, the port builds the stacked engine, which on one device
-computes the same function (the transformer loss ignores its rng), and
-says so on the engine: ``engine_kind == "stacked"``, ``auto_substituted
-== "sharded"``.
+(``kind="transformer"``) and stacked for an external loss.  The sharded
+engine takes the 3-arg loss ``loss_fn(params, batch, rng)``: the model
+bundle's ``loss_rng``, or the caller's ``loss_fn``.
 
 The registries' builders take the reference's arguments plus the device
 where a component holds tensors: ``GRAPHS`` and ``MIXERS`` take
@@ -48,6 +47,7 @@ from repro_torch.core import schedules
 from repro_torch.core import topology as topo_lib
 from repro_torch.core.async_engine import AsyncEngine
 from repro_torch.core.diffusion import DiffusionEngine
+from repro_torch.core.sharded import ShardedEngine
 from repro_torch.device import resolve_device
 from repro_torch.optim import adam, momentum, sgd
 from repro_torch.tree import tree_map
@@ -56,6 +56,7 @@ PyTree = Any
 
 __all__ = [
     "build",
+    "resolve_engine",
     "ModelBundle",
     "train_block_struct",
     "make_block_provider",
@@ -81,10 +82,8 @@ OPTIMIZERS = Registry("optimizer")       # (OptimizerSpec,) -> GradTransform
 MODELS = Registry("model")               # (ModelSpec,) -> ModelBundle | None
 DATASETS = Registry("dataset")           # (DataSpec, spec, cfg, device)
 
-#: the engines ``build`` returns; "sharded" is still to be ported
+#: the engines ``build`` returns
 ENGINES = ("stacked", "sharded", "async")
-#: the ROADMAP.md queue-1 item that brings the sharded engine
-SHARDED_ITEM = 25
 
 
 # -- topologies (delegate to core/topology.make_topology) -------------------
@@ -198,12 +197,15 @@ for _kind, _factory in (("sgd", sgd), ("momentum", momentum), ("adam", adam)):
 
 class ModelBundle(NamedTuple):
     """Self-contained model half of an experiment: the configuration, the
-    2-arg per-agent loss, and single-agent initialization from a
-    ``torch.Generator``."""
+    2-arg per-agent loss, single-agent initialization from a
+    ``torch.Generator``, and the 3-arg loss the sharded engine calls
+    (``loss_rng(params, batch, rng)``)."""
 
     cfg: Any
     loss: Callable[[PyTree, Any], torch.Tensor]
     init_params: Callable[[torch.Generator], PyTree]
+    loss_rng: Callable[[PyTree, Any, torch.Generator], torch.Tensor] | None \
+        = None
 
 
 @MODELS.register("external")
@@ -223,8 +225,13 @@ def _transformer(spec: ModelSpec):
     def loss(p, b):
         return tf.train_loss(p, cfg, b, remat=False)
 
+    def loss_rng(p, b, rng):
+        del rng                   # deterministic loss (the reference's)
+        return loss(p, b)
+
     return ModelBundle(cfg=cfg, loss=loss,
-                       init_params=lambda key: tf.init_params(key, cfg))
+                       init_params=lambda key: tf.init_params(key, cfg),
+                       loss_rng=loss_rng)
 
 
 # -- datasets (per-agent block providers) -----------------------------------
@@ -289,35 +296,52 @@ def _need_loss(loss_fn, model):
     return loss
 
 
+def resolve_engine(spec: ExperimentSpec, engine: str = "auto") -> str:
+    """The engine ``build`` makes for ``engine``: "auto" is async when
+    ``spec.asynchrony.enabled``, else sharded for a self-contained model
+    and stacked for an external loss (the reference's rule)."""
+    if engine == "auto":
+        if spec.asynchrony.enabled:
+            return "async"
+        return "sharded" if spec.model.kind != "external" else "stacked"
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} "
+                         "(expected stacked|sharded|async|auto)")
+    return engine
+
+
 def build(spec: ExperimentSpec, loss_fn=None, *, engine: str = "auto",
-          grad_transform=None, device=None, grad_fn=None):
+          grad_transform=None, device=None, grad_fn=None, mesh=None):
     """Materialize an engine from a declarative spec.
 
     Args:
       spec: the experiment description.
       loss_fn: required when ``spec.model.kind == "external"``: the
-        per-agent 2-arg loss.  Overrides the model bundle's loss when both
-        exist (the train driver hands in its kernel-path loss this way).
-      engine: "stacked" | "async" | "auto" (async iff
-        ``spec.asynchrony.enabled``, else the reference's choice, with the
-        stacked engine in place of the sharded one); "sharded" raises
-        ``NotImplementedError`` (ROADMAP.md queue 1 item 25).
+        per-agent loss, 2-arg for the stacked and async engines and 3-arg
+        ``(params, batch, rng)`` for the sharded one.  Overrides the model
+        bundle's loss when both exist (the train driver hands in its
+        kernel-path loss this way).
+      engine: "stacked" | "sharded" | "async" | "auto" (:func:`resolve_
+        engine`).
       grad_transform: explicit gradient-transform override; defaults to the
         optimizer spec ("sgd" means None: exact Algorithm 1).
       device: where the engine and its state live (``None`` means CUDA).
       grad_fn: per-agent gradients over stacked trees, handed to the
         engine (the §VII regression's closed form).
+      mesh: the sharded engine's ``torch.distributed`` mesh
+        (:func:`repro_torch.launch.mesh.make_production_mesh`), whose
+        ``data`` axis splits the agent rows; ``None`` runs on one device.
 
     Returns:
-      A :class:`~repro_torch.core.diffusion.DiffusionEngine` or
+      A :class:`~repro_torch.core.diffusion.DiffusionEngine`,
+      :class:`~repro_torch.core.sharded.ShardedEngine` or
       :class:`~repro_torch.core.async_engine.AsyncEngine`, decorated with
       ``.spec``, ``.optimizer`` (the composed GradTransform), ``.model``
       (the :class:`ModelBundle` or None), ``.engine_kind`` (what was
-      built), ``.auto_substituted`` ("sharded" when ``auto`` resolved to
-      the sharded engine and the stacked one was built, else None) and,
-      for a self-contained model, ``.init_params(key)`` (the stacked (K,
-      ...) parameters, agent after agent from one generator) and
-      ``.data`` (the block provider).
+      built) and, for a self-contained model, ``.init_params(key)`` (the
+      stacked (K, ...) parameters, agent after agent from one generator;
+      this rank's rows under a mesh) and ``.data`` (the block provider,
+      whole (T, K, ...) blocks).
     """
     dev = resolve_device(device)
     K = spec.run.num_agents
@@ -369,30 +393,19 @@ def build(spec: ExperimentSpec, loss_fn=None, *, engine: str = "auto",
         optimizer = ATTACKS.get(spec.attack.kind)(spec.attack, K, optimizer)
     model = MODELS.get(spec.model.kind)(spec.model)
 
-    requested = engine
-    if engine == "auto":
-        if spec.asynchrony.enabled:
-            engine = "async"
-        else:
-            engine = "sharded" if model is not None else "stacked"
-    if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r} "
-                         "(expected stacked|sharded|async|auto)")
-    substituted = None
-    if engine == "sharded":
-        if requested != "auto":
-            raise NotImplementedError(
-                "engine='sharded' (torch.distributed agent-axis sharding) "
-                "is not ported yet: see ROADMAP.md queue 1 item "
-                f"{SHARDED_ITEM}; on one device engine='stacked' computes "
-                "the same function")
-        engine, substituted = "stacked", "sharded"
-    if spec.compression.ef_host_offload:
-        raise NotImplementedError(
-            "CompressionSpec.ef_host_offload (--ef-host-offload) parks the "
-            "sharded engine's between-block pipeline memory in host RAM; "
-            "the sharded engine is not ported yet: see ROADMAP.md queue 1 "
-            f"item {SHARDED_ITEM}")
+    engine = resolve_engine(spec, engine)
+    if spec.compression.ef_host_offload and engine != "sharded":
+        # the stacked/async engines have no between-block comm memory to
+        # park on the host; silently ignoring the flag would report a
+        # memory optimization that never ran
+        raise ValueError(
+            "CompressionSpec.ef_host_offload parks the sharded engine's "
+            f"between-block pipeline memory in host RAM; engine={engine!r} "
+            "has no such residency to move — use engine='sharded' or drop "
+            "the flag")
+    if mesh is not None and engine != "sharded":
+        raise ValueError(f"a mesh splits the sharded engine's agent rows; "
+                         f"engine={engine!r} runs on one device")
     if engine != "async" and spec.asynchrony.enabled:
         raise ValueError(
             f"spec.asynchrony.enabled is set but engine={engine!r} was "
@@ -403,6 +416,20 @@ def build(spec: ExperimentSpec, loss_fn=None, *, engine: str = "auto",
                                    or privacy is not None):
         grad_transform = optimizer.update
 
+    if engine == "sharded":
+        loss = loss_fn if loss_fn is not None else (model.loss_rng if model
+                                                    else None)
+        if loss is None:
+            raise ValueError('model kind "external" needs an explicit '
+                             "3-arg loss_fn for the sharded engine")
+        eng = ShardedEngine(
+            loss, cfg, topology=topology, mix=mixer, participation=process,
+            compress=compressor, graph=graph, grad_transform=grad_transform,
+            privacy=privacy, mesh=mesh, device=dev,
+            ef_host_offload=spec.compression.ef_host_offload,
+            grad_fn=(None if grad_fn is None else
+                     lambda p, b, rngs, _g=grad_fn: _g(p, b)))
+        return _decorate(eng, spec, optimizer, model, engine, dev)
     loss = _need_loss(loss_fn, model)
     if engine == "async":
         if privacy is not None and privacy.secure_agg:
@@ -421,15 +448,30 @@ def build(spec: ExperimentSpec, loss_fn=None, *, engine: str = "auto",
                               graph=graph, privacy=privacy, device=dev,
                               grad_fn=grad_fn)
 
+    return _decorate(eng, spec, optimizer, model, engine, dev)
+
+
+def _decorate(eng, spec: ExperimentSpec, optimizer, model, engine: str,
+              dev):
     eng.spec = spec
     eng.optimizer = optimizer
     eng.model = model
     eng.engine_kind = engine
-    eng.auto_substituted = substituted
     if model is not None:
-        def init_params(key, _init=model.init_params, _K=K, _dev=dev):
-            agents = [tree_map(lambda x: x.to(_dev), _init(key))
-                      for _ in range(_K)]
+        shard = getattr(eng, "shard", None)
+        rows = (range(spec.run.num_agents) if shard is None
+                else shard.local_agents)
+
+        def init_params(key, _init=model.init_params, _K=spec.run.num_agents,
+                        _dev=dev, _rows=rows):
+            # every agent is drawn (the generator advances as at world 1);
+            # only this rank's rows go to the device
+            agents = []
+            for k in range(_K):
+                p = _init(key)
+                if k in _rows:
+                    agents.append(tree_map(lambda x: x.to(_dev), p))
+                del p
             return tree_map(lambda *xs: torch.stack(xs), *agents)
         eng.init_params = init_params
         eng.data = make_block_provider(spec, model.cfg, dev)

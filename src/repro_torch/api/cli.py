@@ -28,9 +28,7 @@ Three ways to an :class:`ExperimentSpec`, in precedence order:
 One guard is stricter than the reference's: ``--trim``/``--robust-scope``/
 ``--robust-gather`` with ``--mix gather`` raise, as with every other
 non-robust builtin mixer (the gather mixer reads none of them; the
-reference lets them pass unused).  ``--ef-host-offload`` and ``--engine
-sharded`` parse, and :func:`repro_torch.api.build` refuses them (ROADMAP.md
-queue 1 item 25).
+reference lets them pass unused).
 """
 from __future__ import annotations
 
@@ -233,8 +231,9 @@ def add_spec_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--ef-host-offload", action=_TrackTrue, default=False,
                    help="park the between-block pipeline memory (EF "
                         "residual / diff-mode reference) in pinned host "
-                        "RAM (CompressionSpec.ef_host_offload; the sharded "
-                        "engine, not ported yet: ROADMAP.md item 25)")
+                        "RAM (CompressionSpec.ef_host_offload; sharded "
+                        "engine; the identity on the CPU, which has no "
+                        "pinned host space of its own)")
     g.add_argument("--comm-gamma", type=_gamma_arg, default=None,
                    action=_Track,
                    help="consensus step of the compressed exchange "
@@ -247,11 +246,12 @@ def add_spec_args(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     g.add_argument("--engine", default="auto", action=_Track,
                    choices=["auto", "stacked", "sharded", "async"],
                    help="execution engine (repro_torch.api.build): stacked "
-                        "(exact Algorithm 1), sharded (not ported yet: "
-                        "ROADMAP.md item 25), async (event-driven "
+                        "(exact Algorithm 1), sharded (agent rows split "
+                        "over a torch.distributed group under torchrun; "
+                        "one device without one), async (event-driven "
                         "per-agent clocks + staleness buffer; sets "
                         "AsyncSpec.enabled), auto (async for an async "
-                        "spec, else stacked)")
+                        "spec, else sharded for a transformer spec)")
     g.add_argument("--async-rate-dist", default="uniform", action=_Track,
                    choices=["uniform", "lognormal"],
                    help="per-agent event-rate model (AsyncSpec.rate_dist): "

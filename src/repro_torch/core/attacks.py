@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.core.compression import seeded_generator
 from repro_torch.optim import GradTransform, sgd
+from repro_torch.sharding.agents import current_shard
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 PyTree = Any
@@ -104,17 +105,22 @@ def make_attack(kind: str, num_agents: int, *, num_byzantine: int = 1,
     scale = float(scale)
 
     def corrupt(grads: PyTree, gen: torch.Generator | None) -> PyTree:
+        # agent-sharded local updates see their rows: the mask's rows, and
+        # the noise drawn for all K rows and sliced (world 1's numbers)
+        shard = current_shard()
+        rows = shard.rows if shard is not None else slice(None)
         out = []
         for g in tree_leaves(grads):
-            m = torch.as_tensor(mask_np, device=g.device).to(g.dtype).reshape(
-                (g.shape[0],) + (1,) * (g.ndim - 1))
+            m = torch.as_tensor(mask_np[rows], device=g.device).to(
+                g.dtype).reshape((g.shape[0],) + (1,) * (g.ndim - 1))
             if kind == "sign_flip":
                 bad = -scale * g
             elif kind == "shift":
                 bad = g + torch.tensor(scale, dtype=g.dtype, device=g.device)
             else:  # noise
-                bad = scale * torch.randn(g.shape, generator=gen,
-                                          device=g.device).to(g.dtype)
+                full = (num_agents,) + tuple(g.shape[1:])
+                bad = scale * torch.randn(full, generator=gen,
+                                          device=g.device)[rows].to(g.dtype)
             out.append((1.0 - m) * g + m * bad)
         return tree_unflatten(grads, out)
 

@@ -157,9 +157,11 @@ def resolve_step_mask(config: DiffusionConfig, topology,
 def stacked_grad(loss_fn: LossFn):
     """Per-agent gradients over a stacked tree, without ``vmap``:
     ``grad_fn(params, batch)`` with leaves (K, ...) returns the (K, ...)
-    tree whose slice k is the gradient of ``loss_fn(params[k], batch[k])``.
+    tree whose slice k is the gradient of ``loss_fn(params[k], batch[k])``;
+    ``grad_fn(params, batch, rngs)``, with one ``torch.Generator`` per
+    agent, that of the 3-arg ``loss_fn(params[k], batch[k], rngs[k])``.
     """
-    def grad_fn(params: PyTree, batch: PyTree) -> PyTree:
+    def grad_fn(params: PyTree, batch: PyTree, rngs=None) -> PyTree:
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         K = leaves[0].shape[0]
         # one unbind per leaf: its backward stacks the K slices' gradients
@@ -167,7 +169,8 @@ def stacked_grad(loss_fn: LossFn):
         with torch.enable_grad():
             total = sum(
                 loss_fn(tree_unflatten(params, [s[k] for s in slices]),
-                        tree_map(lambda x, k=k: x[k], batch))
+                        tree_map(lambda x, k=k: x[k], batch),
+                        *(() if rngs is None else (rngs[k],)))
                 for k in range(K))
             grads = torch.autograd.grad(total, leaves, allow_unused=True)
         return tree_unflatten(params, [
@@ -179,12 +182,14 @@ def stacked_grad(loss_fn: LossFn):
 def local_update_scan(grad_fn, params: PyTree, opt_state: PyTree,
                       mus: torch.Tensor, block_batch: PyTree, *,
                       local_steps: int, grad_transform=None,
-                      step_mask: torch.Tensor | None = None):
+                      step_mask: torch.Tensor | None = None,
+                      loss_key: int | None = None, agents=None):
     """The T local stochastic-gradient updates of Algorithm 1 (eq. 17).
 
     Args:
-      grad_fn: per-agent gradient ``grad_fn(params, batch_t)`` over stacked
-        trees (:func:`stacked_grad`).
+      grad_fn: per-agent gradient over stacked trees (:func:`stacked_grad`):
+        ``grad_fn(params, batch_t)`` when ``loss_key`` is None, else
+        ``grad_fn(params, batch_t, rngs)`` with one generator per agent.
       params / opt_state: stacked (K, ...) trees.
       mus: (K,) realized per-agent step sizes (already activation-masked).
       block_batch: tree with leaves (T, K, ...).
@@ -196,15 +201,31 @@ def local_update_scan(grad_fn, params: PyTree, opt_state: PyTree,
         its optimizer state; leaves without the (K, ...) agent axis (Adam's
         step counter, the privacy transform's noise counter) advance as
         usual.
+      loss_key: an integer seed that enables the 3-arg convention: at
+        local step t agent k's generator is
+        ``seeded_generator(device, loss_key, t, k)`` (the counterpart of
+        the reference's ``split(fold_in(loss_key, t), K)[k]``), on the
+        parameters' device.
+      agents: the global indices of the stack's rows (default ``range(K)``;
+        an agent-sharded stack passes its local rows, so each agent draws
+        the stream it draws at world 1).
     Returns:
       (params, opt_state) after T updates; ``opt_state`` is the argument,
       advanced in place.  The update ``w - mu_k u`` is taken in the
       parameter's dtype, under ``torch.no_grad()``.
     """
     p, s = params, opt_state
+    if loss_key is not None:
+        lead = tree_leaves(params)[0]
+        agents = range(lead.shape[0]) if agents is None else agents
     for t in range(local_steps):
         batch_t = tree_map(lambda x: x[t], block_batch)
-        grads = grad_fn(p, batch_t)
+        if loss_key is None:
+            grads = grad_fn(p, batch_t)
+        else:
+            grads = grad_fn(p, batch_t, [
+                compression.seeded_generator(lead.device, loss_key, t, k)
+                for k in agents])
         with torch.no_grad():
             if grad_transform is None:
                 updates = grads

@@ -58,8 +58,19 @@ combination's device time by stage.
 ``make_mixer("auto")`` resolves to the fused kernel on CUDA, as the
 reference's TPU branch does, and follows the reference's non-TPU policy
 elsewhere; the neighborhood-robust backends take the fused gather-sort
-kernel on CUDA the same way.  The reference's agent-axis sharding hooks
-come with ROADMAP.md item 25.
+kernel on CUDA the same way.
+
+Agent-axis sharding (the reference's ``shard_agent_axis`` hooks).
+:meth:`Mixer.shard_agent_axis` puts a mixer on the row split of
+:class:`repro_torch.sharding.agents.AgentShard`: its operand then holds
+only this rank's rows ``[r K/W, (r+1) K/W)`` of the (K, ...) stack, while
+the mask and the realized matrix stay whole on every rank.  Each column
+tile of the tiled flatten is all-gathered into the full (K, tile) buffer,
+mixed by the same kernel (or plain version), and cut back to the local
+rows; the per-leaf mixers gather a leaf at a time the same way.  So every
+rank recomputes all K rows of each tile (W times the kernel's work) and
+the result is bit-equal to world 1.  The int8 combinations gather the
+int8 codes and their float32 scales, never the dequantized values.
 """
 from __future__ import annotations
 
@@ -235,7 +246,8 @@ def int8_layout(K: int, M: int) -> tuple[int, int, int]:
 
 
 def tiled_apply(leaves: list,
-                fn: Callable[[torch.Tensor], torch.Tensor]) -> list:
+                fn: Callable[[torch.Tensor], torch.Tensor],
+                shard=None) -> list:
     """``unflatten(fn(flatten(leaves)))``, one column tile at a time.
 
     ``leaves`` are (K, ...) tensors on one device; ``fn`` maps a
@@ -247,12 +259,34 @@ def tiled_apply(leaves: list,
     (``copy_`` rounds float32 to the leaf's dtype, as ``.to`` does).  When
     ``fn`` is column-wise, as the kernels are, the result does not depend
     on the tile size.
+
+    With an agent ``shard`` (:class:`repro_torch.sharding.agents.
+    AgentShard`), ``leaves`` hold this rank's rows: each tile is gathered
+    to all K rows before ``fn`` and cut back to the local rows after it,
+    and the tiles are as wide as world 1's.
     """
     K = leaves[0].shape[0]
     M = sum(int(np.prod(leaf.shape[1:], dtype=np.int64)) for leaf in leaves)
+    if _sharded(shard):
+        K = shard.num_agents
+        return _tiled(leaves, lambda tile, start: (
+            shard.local(fn(shard.gather(tile))),),
+            cols=min(tile_columns(K), max(M, 1)), width=M, outputs=1)[0]
     return _tiled(leaves, lambda tile, start: (fn(tile),),
                   cols=min(tile_columns(K), max(M, 1)), width=M,
                   outputs=1)[0]
+
+
+def _sharded(shard) -> bool:
+    return shard is not None and shard.sharded
+
+
+def _tiled_rows(leaves: list, fn, shard) -> list:
+    """:func:`tiled_apply` over ``shard``'s rows, or over the whole stack
+    when ``shard`` is None."""
+    if shard is None:
+        return tiled_apply(leaves, fn)
+    return tiled_apply(leaves, fn, shard)
 
 
 def _tiled(leaves: list, fn, *, cols: int, width: int,
@@ -312,13 +346,57 @@ class Mixer:
     name = "base"
     linear = True
     uses_matrix = True
+    _shard = None             # the agent row split (shard_agent_axis)
 
     def __call__(self, params: PyTree, active: torch.Tensor,
                  A_t: torch.Tensor) -> PyTree:
+        if _sharded(self._shard):
+            return self._mix_sharded(params, active, A_t, self._shard)
+        return self._mix(params, active, A_t)
+
+    def mix_full(self, params: PyTree, active: torch.Tensor,
+                 A_t: torch.Tensor) -> PyTree:
+        """The combination of a whole (K, ...) stack, sharded or not (the
+        int8 wire gathers its codes and hands the dequantized stack
+        here)."""
+        return self._mix(params, active, A_t)
+
+    def _mix(self, params: PyTree, active: torch.Tensor,
+             A_t: torch.Tensor) -> PyTree:
         raise NotImplementedError
+
+    def _mix_sharded(self, params: PyTree, active: torch.Tensor,
+                     A_t: torch.Tensor, shard) -> PyTree:
+        """Local rows in, local rows out: a leaf at a time, gathered to all
+        K rows, combined, and cut back (the per-leaf backends)."""
+        return tree_map(lambda leaf: shard.local(self._mix(
+            shard.gather(leaf), active, A_t)), params)
+
+    def shard_agent_axis(self, mesh, axis: str = "data",
+                         num_agents: int | None = None) -> None:
+        """Request agent-axis sharding: the operand holds this rank's rows
+        of the (K, ...) stack on axis ``axis`` of ``mesh``
+        (:func:`repro_torch.sharding.rules.agent_stack_pspec`; a K the
+        axis does not divide stays replicated).  ``num_agents`` is K
+        (default: the mixer's own ``num_agents``)."""
+        from repro_torch.sharding.agents import AgentShard
+
+        K = num_agents if num_agents is not None else getattr(
+            self, "num_agents", None)
+        if K is None:
+            raise ValueError(f"{type(self).__name__}.shard_agent_axis needs "
+                             "num_agents (K of the full stack)")
+        self._shard = AgentShard(mesh, str(axis), K)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return f"{type(self).__name__}()"
+
+
+def _constrain_agent_stack(tree: PyTree, shard) -> PyTree:
+    """This rank's rows of a full (K, ...) tree: the port's counterpart of
+    the reference's sharding constraint on the agent axis (a K that the
+    axis does not divide keeps every row)."""
+    return tree if shard is None else shard.local(tree)
 
 
 class NullMixer(Mixer):
@@ -327,8 +405,11 @@ class NullMixer(Mixer):
     name = "none"
     uses_matrix = False
 
-    def __call__(self, params: PyTree, active: torch.Tensor,
-                 A_t: torch.Tensor | None = None) -> PyTree:
+    def _mix(self, params: PyTree, active: torch.Tensor,
+             A_t: torch.Tensor | None = None) -> PyTree:
+        return params
+
+    def _mix_sharded(self, params, active, A_t, shard):
         return params
 
 
@@ -337,8 +418,8 @@ class DenseMixer(Mixer):
 
     name = "dense"
 
-    def __call__(self, params: PyTree, active: torch.Tensor,
-                 A_t: torch.Tensor) -> PyTree:
+    def _mix(self, params: PyTree, active: torch.Tensor,
+             A_t: torch.Tensor) -> PyTree:
         A_eff = part.masked_combination(A_t, active)
         return mix_dense(A_eff, params)
 
@@ -362,8 +443,8 @@ class SparseCirculantMixer(Mixer):
         self.skip_dead = skip_dead
         self._skip_dead_auto = skip_dead is None
 
-    def __call__(self, params: PyTree, active: torch.Tensor,
-                 A_t: torch.Tensor) -> PyTree:
+    def _mix(self, params: PyTree, active: torch.Tensor,
+             A_t: torch.Tensor) -> PyTree:
         A_eff = part.masked_combination(A_t, active)
         return mix_sparse(A_eff, params, self.offsets,
                           skip_dead=bool(self.skip_dead))
@@ -395,13 +476,17 @@ class PallasFusedMixer(Mixer):
 
     name = "pallas"
 
-    def __call__(self, params: PyTree, active: torch.Tensor,
-                 A_t: torch.Tensor) -> PyTree:
+    def _mix(self, params: PyTree, active: torch.Tensor,
+             A_t: torch.Tensor, shard=None) -> PyTree:
         from repro_torch.kernels.diffusion_mix import diffusion_mix
 
         A = A_t.float()
-        return tree_unflatten(params, tiled_apply(
-            tree_leaves(params), lambda tile: diffusion_mix(A, active, tile)))
+        return tree_unflatten(params, _tiled_rows(
+            tree_leaves(params), lambda tile: diffusion_mix(A, active, tile),
+            shard))
+
+    def _mix_sharded(self, params, active, A_t, shard):
+        return self._mix(params, active, A_t, shard)
 
     def mix_int8(self, params: PyTree, active: torch.Tensor,
                  A_t: torch.Tensor, key=None, *, want_messages: bool = False,
@@ -423,11 +508,19 @@ class PallasFusedMixer(Mixer):
         drawn from the generator ``key`` column tile by column tile.  The
         column tiles are cut at multiples of the int8 tile, so with ``u``
         the result does not depend on the cut.
+
+        Agent-sharded (:meth:`shard_agent_axis`), ``params`` hold this
+        rank's rows: each tile's uniforms are drawn (or taken) for all K
+        rows and sliced, the local rows are quantized, their int8 codes and
+        float32 scales are all-gathered, and the kernel's delta is cut back
+        to the local rows; the messages stay local.
         """
         from repro_torch.kernels.diffusion_mix_int8 import diffusion_mix_int8
 
+        shard = self._shard if _sharded(self._shard) else None
         leaves = tree_leaves(params)
-        K = leaves[0].shape[0]
+        Kl = leaves[0].shape[0]
+        K = shard.num_agents if shard is not None else Kl
         M = sum(leaf[0].numel() for leaf in leaves)
         tile, width, cols = int8_layout(K, M)
         if u is not None:
@@ -439,31 +532,36 @@ class PallasFusedMixer(Mixer):
 
         def fn(x, start):
             w = x.shape[1]
-            x3 = x.view(K, w // tile, tile)
+            x3 = x.view(Kl, w // tile, tile)
+            full = (K, w // tile, tile)
             with record_function("mix_int8.draw"):
                 if u is None:
-                    uu = torch.rand(x3.shape, generator=key,
+                    uu = torch.rand(full, generator=key,
                                     device=key.device).to(x.device)
                 else:
                     uu = u[:, start:start + w].to(
-                        device=x.device,
-                        dtype=torch.float32).reshape(x3.shape)
+                        device=x.device, dtype=torch.float32).reshape(full)
+                uu = _constrain_agent_stack(uu, shard)
             with record_function("mix_int8.quantize"):
                 q, scale = comp_lib.quantize_int8(x3, axis=2, u=uu)
             del uu
             with record_function("mix_int8.cast"):
-                wq = q.to(torch.int8).view(K, w)
+                wq = q.to(torch.int8).view(Kl, w)
                 sc = scale[:, :, 0].contiguous()
+            if shard is not None:
+                with record_function("mix_int8.gather"):
+                    wq, sc = shard.gather(wq), shard.gather(sc)
             with record_function("mix_int8.kernel"):
                 delta = diffusion_mix_int8(A, active, wq, sc, tile_m=tile,
                                            subtract_identity=True)
             del wq, sc
+            delta = _constrain_agent_stack(delta, shard)
             if not want_messages:
                 return (delta,)
             # the integer-valued float32 q times its scale: exactly the
             # values the kernel dequantizes
             with record_function("mix_int8.messages"):
-                return delta, q.mul_(scale).view(K, w)
+                return delta, q.mul_(scale).view(Kl, w)
 
         outs = _tiled(leaves, fn, cols=cols, width=width,
                       outputs=2 if want_messages else 1)
@@ -534,22 +632,31 @@ class NeighborGatherMixer(Mixer):
         self.max_degree = topology.max_degree
         self.fused = fused
 
-    def __call__(self, params: PyTree, active: torch.Tensor,
-                 A_t: torch.Tensor) -> PyTree:
+    def _fused(self, params: PyTree) -> bool:
+        return (tree_leaves(params)[0].device.type == "cuda"
+                if self.fused is None else bool(self.fused))
+
+    def _mix(self, params: PyTree, active: torch.Tensor,
+             A_t: torch.Tensor, shard=None) -> PyTree:
         A_eff = part.masked_combination(A_t.float(), active)
         idx, valid = self.table.on(A_eff.device)
-        leaves = tree_leaves(params)
-        fused = (leaves[0].device.type == "cuda" if self.fused is None
-                 else bool(self.fused))
-        if not fused:
+        if not self._fused(params):
             return mix_gather(A_eff, params, idx, valid)
         from repro_torch.kernels.gather_mix import gather_mix
 
         gw = _gather_weights(A_eff, idx, valid)
         plan = (self.table.plan(idx.device) if idx.device.type == "cuda"
                 else None)
-        return tree_unflatten(params, tiled_apply(
-            leaves, lambda tile: gather_mix(idx, gw, tile, plan)))
+        return tree_unflatten(params, _tiled_rows(
+            tree_leaves(params), lambda tile: gather_mix(idx, gw, tile, plan),
+            shard))
+
+    def _mix_sharded(self, params, active, A_t, shard):
+        # the (K, D) table stays whole: every rank combines all K rows of
+        # each gathered tile and keeps its own
+        if self._fused(params):
+            return self._mix(params, active, A_t, shard)
+        return super()._mix_sharded(params, active, A_t, shard)
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"NeighborGatherMixer(K={self.num_agents}, "
@@ -660,8 +767,8 @@ class _SortedRobustMixer(Mixer):
         S = S.to(torch.float32).unsqueeze(-1)
         return S, torch.arange(n, dtype=torch.float32, device=S.device)
 
-    def __call__(self, params: PyTree, active: torch.Tensor,
-                 A_t: torch.Tensor | None = None) -> PyTree:
+    def _mix(self, params: PyTree, active: torch.Tensor,
+             A_t: torch.Tensor | None = None) -> PyTree:
         if self.scope == "neighborhood":
             if A_t is None:
                 raise ValueError(
@@ -950,11 +1057,21 @@ class FusedNeighborhoodMixer(Mixer):
         self.use_kernel = use_kernel
         self._use_kernel_auto = use_kernel is None
 
-    def __call__(self, params: PyTree, active: torch.Tensor,
-                 A_t: torch.Tensor) -> PyTree:
+    def shard_agent_axis(self, mesh, axis: str = "data",
+                         num_agents: int | None = None) -> None:
+        super().shard_agent_axis(mesh, axis, num_agents)
+        self.inner.shard_agent_axis(mesh, axis, num_agents)
+
+    def _mix_sharded(self, params, active, A_t, shard):
+        return self._mix(params, active, A_t, shard)
+
+    def _mix(self, params: PyTree, active: torch.Tensor,
+             A_t: torch.Tensor, shard=None) -> PyTree:
         use = True if self.use_kernel is None else bool(self.use_kernel)
         if not use or self.inner._table is None:
-            return self.inner(params, active, A_t)
+            # the inner mixer gathers for itself when sharded
+            return (self.inner(params, active, A_t) if shard is not None
+                    else self.inner.mix_full(params, active, A_t))
         from repro_torch.kernels.gather_robust_mix import (gather_robust_mix,
                                                            share_sorts)
 
@@ -966,9 +1083,9 @@ class FusedNeighborhoodMixer(Mixer):
                 else None)
         # the kernel's inactive branch returns the agent's own float32 row;
         # the round trip is exact for bf16/f16/f32 leaves
-        return tree_unflatten(params, tiled_apply(
+        return tree_unflatten(params, _tiled_rows(
             tree_leaves(params), lambda tile: gather_robust_mix(
-                idx, member, wslot, act, tile, plan)))
+                idx, member, wslot, act, tile, plan), shard))
 
     def __repr__(self) -> str:  # pragma: no cover - debugging aid
         return (f"FusedNeighborhoodMixer({self.inner!r}, "
@@ -1099,9 +1216,11 @@ def make_mixer(name: str | Mixer, topology: topo_lib.Topology | None = None,
                      "adaptive_trim)")
 
 
-def _tree_sq_norm(tree: PyTree) -> torch.Tensor:
-    """Sum of squares over every leaf (float32 scalar)."""
-    return sum(torch.sum(torch.square(leaf.float()))
+def _tree_sq_norm(tree: PyTree, shard=None) -> torch.Tensor:
+    """Sum of squares over every leaf (float32 scalar); agent-sharded, over
+    each leaf gathered to all K rows, so every rank sums as world 1."""
+    gather = shard.gather if _sharded(shard) else (lambda t: t)
+    return sum(torch.sum(torch.square(gather(leaf).float()))
                for leaf in tree_leaves(tree))
 
 
@@ -1155,8 +1274,18 @@ class CommPipeline:
     ``torch.Generator`` or :class:`~repro_torch.core.compression.Draws`
     (for the fused int8 branch, ``Draws(u=...)`` with one (K, M_padded)
     tensor).  The combination runs under ``torch.no_grad()``.  Robust
-    mixers take the identity mode only; the reference's ``mesh`` (sharded
-    int8 wire) comes with ROADMAP.md item 25.
+    mixers take the identity mode only.
+
+    Agent sharding (the reference's ``mesh`` argument and sharded int8
+    wire): a mixer put on a row split (:meth:`Mixer.shard_agent_axis`)
+    makes the pipeline sharded too; ``params`` and ``comm_state`` then
+    hold this rank's rows while ``active`` and ``A_t`` stay whole.  Every
+    compression draw is made for all K rows and sliced
+    (:class:`repro_torch.sharding.agents.RowDraws`), the inactive-agent
+    selects take the local rows of the mask, and the direct int8 branch
+    all-gathers the int8 codes and float32 scales (never the dequantized
+    float32) before the mixer combines the whole stack, so world W is
+    bit-equal to world 1.
 
     With ``secure_agg`` (a stage from
     :func:`repro_torch.core.privacy.make_secure_agg`) the identity-mode
@@ -1275,6 +1404,18 @@ class CommPipeline:
     def needs_key(self) -> bool:
         return self.compressor.needs_key
 
+    @property
+    def streams_residual(self) -> bool:
+        """The fused int8 path with error feedback reads its residual where
+        it lies: a residual parked in host memory (the sharded engine's EF
+        offload) comes onto the card a leaf at a time, for the target, and
+        its inactive rows for the select, so the combination never holds
+        it whole.  Every other stateful mode needs its memory on the
+        card."""
+        return (self.mode == "direct" and self._ef()
+                and isinstance(self._base(), comp_lib.Int8Stochastic)
+                and isinstance(self.mixer, PallasFusedMixer))
+
     def init_state(self, params: PyTree) -> PyTree:
         if not self.stateful:
             return ()
@@ -1313,13 +1454,21 @@ class CommPipeline:
         with torch.no_grad():
             return self._apply(params, active, A_t, comm_state, key)
 
+    @property
+    def shard(self):
+        """The mixer's agent row split when it shards, else None."""
+        shard = self.mixer._shard
+        return shard if _sharded(shard) else None
+
     def _apply(self, params, active, A_t, comm_state, key):
+        shard = self.shard
         if self.mode == "identity":
             if self.secure_agg is not None:
                 # the combination through per-edge masked payloads
                 t = comm_state["t"]
                 eta = key.noise if isinstance(key, comp_lib.Draws) else None
-                return (self.secure_agg(params, active, A_t, t, eta=eta),
+                return (self.secure_agg(params, active, A_t, t, eta=eta,
+                                        shard=shard),
                         {"t": t + 1})
             return self.mixer(params, active, A_t), comm_state
         if isinstance(self.mixer, NullMixer):
@@ -1329,7 +1478,9 @@ class CommPipeline:
         if comp.needs_key and key is None:
             raise ValueError(f"{comp!r} needs a generator or Draws; pass "
                              "key=")
-        keep = active > 0
+        keep = _constrain_agent_stack(active > 0, shard)
+        act_local = _constrain_agent_stack(active, shard)
+        ckey = key if shard is None else shard.draws(key)
 
         def masked(new, old):
             """Active agents take ``new``; inactive ones keep ``old``
@@ -1342,17 +1493,17 @@ class CommPipeline:
         if self.mode == "diff":
             ref_prev = comm_state["ref"]
             diff = tree_map(lambda p, r: p - r.to(p.dtype), params, ref_prev)
-            c = base.encode_contractive(diff, key)
+            c = base.encode_contractive(diff, ckey)
             ref = masked(tree_map(lambda r, ci: r + ci.to(r.dtype),
                                   ref_prev, c), ref_prev)
             del c
             mixed = self.mixer(ref, active, A_t)
             if self.adaptive:
                 def act(tree):
-                    return tree_map(lambda l: l * _bcast(active, l), tree)
-                pre = _tree_sq_norm(act(diff))
+                    return tree_map(lambda l: l * _bcast(act_local, l), tree)
+                pre = _tree_sq_norm(act(diff), shard)
                 post = _tree_sq_norm(act(tree_map(
-                    lambda p, r: p - r.to(p.dtype), params, ref)))
+                    lambda p, r: p - r.to(p.dtype), params, ref)), shard)
                 delta_obs = torch.clamp(
                     1.0 - torch.sqrt(post / torch.clamp(pre, min=1e-30)),
                     0.0, 1.0)
@@ -1375,8 +1526,11 @@ class CommPipeline:
         ef = self._ef()
         if (isinstance(base, comp_lib.Int8Stochastic)
                 and isinstance(self.mixer, PallasFusedMixer)):
-            target = (tree_map(lambda p, e: p + e.to(p.dtype), params,
-                               comm_state) if ef else params)
+            # a residual in host memory streams in a leaf at a time
+            # (``streams_residual``); on the card ``.to`` is the identity
+            target = (tree_map(lambda p, e: p + e.to(
+                p.device, non_blocking=True).to(p.dtype), params,
+                comm_state) if ef else params)
             u = key.u if isinstance(key, comp_lib.Draws) else None
             delta, msgs = self.mixer.mix_int8(
                 target, active, A_t, None if u is not None else key,
@@ -1389,16 +1543,36 @@ class CommPipeline:
                 for t, m, e in zip(tree_leaves(target), tree_leaves(msgs),
                                    tree_leaves(comm_state)):
                     m.sub_(t).neg_()            # t - m: negation is exact
-                    m[dead] = e[dead]           # inactive agents keep theirs
+                    # inactive agents keep theirs (from the host: their rows
+                    # only)
+                    m[dead] = e[dead.to(e.device)].to(m.device)
                 comm_state = msgs
             del target, msgs
             for p, d in zip(tree_leaves(params), tree_leaves(delta)):
                 d.mul_(_weak(g, d)).add_(p)     # p + g d, rounded as p's dtype
             return delta, comm_state
-        msgs, new_state = comp.encode(params, comm_state, key)
-        if ef:
-            new_state = masked(new_state, comm_state)
-        mixed = self.mixer(msgs, active, A_t)
+        if shard is not None and isinstance(base, comp_lib.Int8Stochastic):
+            # the sharded s8 wire: quantize the local rows (the scales are
+            # per agent row), gather the int8 codes and float32 scales, and
+            # combine the dequantized whole stack
+            target = (tree_map(lambda p, e: p + e.to(p.dtype), params,
+                               comm_state) if ef else params)
+            q, scales = base.encode_quantized(target, ckey)
+            msgs = base.dequantize(q, scales, target)
+            new_state = (masked(tree_map(lambda t, m: t - m, target, msgs),
+                                comm_state) if ef else comm_state)
+            like = tree_map(lambda t: torch.empty(
+                (shard.num_agents,) + tuple(t.shape[1:]), dtype=t.dtype,
+                device="meta"), target)
+            whole = base.dequantize(shard.gather_tree(q),
+                                    shard.gather_tree(scales), like)
+            mixed = shard.local(self.mixer.mix_full(whole, active, A_t))
+            del whole
+        else:
+            msgs, new_state = comp.encode(params, comm_state, ckey)
+            if ef:
+                new_state = masked(new_state, comm_state)
+            mixed = self.mixer(msgs, active, A_t)
         out = tree_map(lambda p, mx, m: p + _weak(g, p) * (mx - m),
                        params, mixed, msgs)
         return out, new_state
@@ -1413,7 +1587,8 @@ def make_pipeline(mix: str | Mixer, topology: topo_lib.Topology | None = None,
                   error_feedback: bool = False, sigma: float = 0.0,
                   mode: str = "auto", gamma=None, A=None,
                   offsets: Sequence[int] | None = None,
-                  num_agents: int | None = None, trim: int = 1, scope: str = "global", gather: str = "auto",
+                  num_agents: int | None = None, trim: int = 1,
+                  scope: str = "global", gather: str = "auto",
                   device: str | torch.device | None = None) -> CommPipeline:
     """The full combination pipeline: ``make_mixer`` with the mixer
     arguments, ``make_compressor`` with the compression ones, and

@@ -56,6 +56,7 @@ from repro_torch.core import compression as comp_lib
 from repro_torch.core import participation as part
 from repro_torch.device import resolve_device
 from repro_torch.optim import GradTransform, sgd
+from repro_torch.sharding.agents import current_shard
 from repro_torch.tree import tree_leaves, tree_unflatten
 
 PyTree = Any
@@ -250,6 +251,10 @@ class PrivateGradients:
         t = int(state["t"])
         key = (self.noise(t) if self.noise is not None else
                noise_generator(self.seed, t, tree_leaves(grads)[0].device))
+        shard = current_shard()
+        if shard is not None:
+            # agent-sharded local updates: the noise of all K rows, sliced
+            key = shard.draws(key)
         noised = clip_and_noise(grads, key, clip=self.clip,
                                 noise_multiplier=self.noise_multiplier)
         updates, inner_state = self.inner.update(noised, state["inner"],
@@ -318,6 +323,10 @@ def make_secure_agg(num_agents: int, *, seed: int = 0,
     standard normals instead, one (K, K, M) tensor over the flattened stack
     (the reference's per-leaf draws concatenated along the last axis), or
     :class:`~repro_torch.core.compression.Draws` holding it as ``noise``.
+    ``shard``: an agent row split (:class:`repro_torch.sharding.agents.
+    AgentShard`) when ``params`` hold one rank's rows; each tile is
+    gathered to all K rows, masked and combined as on one rank, and cut
+    back to the local rows.
     """
     if num_agents < 2:
         raise ValueError("secure-agg masks need num_agents >= 2 (a single "
@@ -329,7 +338,7 @@ def make_secure_agg(num_agents: int, *, seed: int = 0,
     cols = max(1, MASK_TILE_ELEMS // (K * K))
 
     def stage(params: PyTree, active: torch.Tensor, A_t: torch.Tensor,
-              t, *, eta=None) -> PyTree:
+              t, *, eta=None, shard=None) -> PyTree:
         if isinstance(eta, comp_lib.Draws):
             eta = eta.noise
         leaves = tree_leaves(params)
@@ -345,6 +354,9 @@ def make_secure_agg(num_agents: int, *, seed: int = 0,
         M = sum(leaf[0].numel() for leaf in leaves)
 
         def fn(x, start):
+            if shard is not None:
+                # agent-sharded: the local rows of the tile, gathered
+                x = shard.gather(x)
             w = x.shape[1]
             if eta is None:
                 e = torch.randn((K, K, w), generator=gen, device=device)
@@ -360,7 +372,8 @@ def make_secure_agg(num_agents: int, *, seed: int = 0,
             payload = W[:, :, None] * x[None, :, :]
             payload.add_(e)
             del e
-            return (payload.sum(dim=1),)
+            out = payload.sum(dim=1)
+            return (out if shard is None else shard.local(out),)
 
         return tree_unflatten(params, _tiled(leaves, fn, cols=min(cols, M),
                                              width=M, outputs=1)[0])

@@ -55,7 +55,6 @@ from repro_torch.checkpoint.store import (load_checkpoint, load_experiment,
 from repro_torch.configs import get_config
 from repro_torch.core.serving import CONSENSUS_QUANTIZE, consensus_from_stacked
 from repro_torch.device import resolve_device
-from repro_torch.launch.train import engine_banner
 from repro_torch.models import transformer as tf
 
 __all__ = ["consensus_from_stacked", "load_params", "main"]
@@ -76,7 +75,6 @@ def _load_spec_checkpoint(args, spec, device: torch.device, timings: dict):
             "precedence — the --spec/--preset flags are ignored for "
             "serving", stacklevel=3)
     eng = build(spec, device=device)
-    engine_banner(eng)
     K = spec.run.num_agents
     cfg = eng.model.cfg
     # meta tensors: the template gives shapes only, no K random models

@@ -58,12 +58,23 @@ embedded (:func:`repro_torch.checkpoint.save_experiment`), so ``serve
 --checkpoint`` rebuilds the engine with no other flag.
 
 ``--engine auto`` (the default) resolves as the reference's: the sharded
-engine for a transformer spec.  That engine (torch.distributed agent-axis
-sharding) is ROADMAP.md queue 1 item 25; until it lands the port builds
-the stacked engine in its place, which computes the same function on one
-device, and prints a line saying so.  ``--engine sharded`` and
-``--ef-host-offload`` raise ``NotImplementedError`` naming item 25.
-``--device`` defaults to CUDA and never falls back to the CPU by itself.
+engine (:class:`~repro_torch.core.sharded.ShardedEngine`) for a
+transformer spec.  Without a process group it runs on one device.  Under
+``torchrun --nproc-per-node W`` (or with a group already initialized by
+the caller) the agent rows split over the W ranks
+(:func:`repro_torch.launch.mesh.init_agent_group` picks NCCL when each rank
+has its own card and gloo when ranks share one or run on the CPU): every
+rank draws the same weights, masks and blocks from the one seeded
+generator and keeps its rows, rank 0 alone prints, and ``--checkpoint``
+gathers the rows to rank 0, which writes the one file world 1 writes.
+``--ef-host-offload`` parks the pipeline memory (the EF residual or the
+diff-mode reference) in pinned host memory on a card, outside each
+block's combination; on the CPU it is the identity.  ``--device`` defaults to CUDA and never falls
+back to the CPU by itself.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --agents 8 --blocks 2 --engine sharded --compress int8 \
+      --error-feedback --topology fedavg --mix pallas
 
 Every random draw (initial weights, batches, activation masks, graphs,
 clock ticks) comes from one host generator seeded with ``--seed``, so the
@@ -76,23 +87,28 @@ intra-chunk kernel in mamba layers.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
 from repro_torch.api import build
+from repro_torch.api.build import resolve_engine
 from repro_torch.api.cli import add_spec_args, spec_from_args
 from repro_torch.checkpoint import save_experiment
 from repro_torch.configs import get_config
 from repro_torch.core.compression import dense_wire_bytes
 from repro_torch.core.privacy import epsilon_from_rdp_np, rdp_increment_np
+from repro_torch.core.sharded import ef_host_sharding
 from repro_torch.device import resolve_device
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as tf
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
-__all__ = ["main", "init_stacked", "engine_banner"]
+__all__ = ["main", "init_stacked", "gather_state"]
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -107,28 +123,48 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def init_stacked(key: torch.Generator, cfg, num_agents: int,
-                 device: torch.device):
+                 device: torch.device, rows=None):
     """K agents initialized one after another from ``key`` and stacked on a
-    leading axis on ``device``."""
-    agents = [tree_map(lambda x: x.to(device), tf.init_params(key, cfg))
-              for _ in range(num_agents)]
+    leading axis on ``device``; with ``rows`` (an agent-sharded rank's
+    agents) every agent is still drawn, so the generator advances as at
+    world 1, and only those rows are kept."""
+    rows = range(num_agents) if rows is None else rows
+    agents = []
+    for k in range(num_agents):
+        p = tf.init_params(key, cfg)
+        if k in rows:
+            agents.append(tree_map(lambda x: x.to(device), p))
+        del p
     return tree_map(lambda *xs: torch.stack(xs), *agents)
 
 
-def engine_banner(eng) -> None:
-    """The line that says ``engine="auto"`` resolved to the sharded engine
-    and the stacked one was built in its place (ROADMAP.md item 25)."""
-    if getattr(eng, "auto_substituted", None) == "sharded":
-        print("engine: auto resolves to the sharded engine for a "
-              "transformer spec; the port builds the stacked engine in its "
-              "place, which computes the same function on one device "
-              "(sharded: ROADMAP.md queue 1 item 25)")
+def gather_state(state, shard):
+    """The whole state of an agent-sharded run on every rank: the leaves
+    of ``params``, ``opt_state`` and ``comm_state`` with the local (K/W,
+    ...) agent axis are all-gathered; the rest (the whole masks, graph and
+    accountant states, shared counters) is the same on every rank."""
+    if shard is None or not shard.sharded:
+        return state
+    n = shard.rows.stop - shard.rows.start
+
+    def whole(tree):
+        if tree is None:
+            return tree
+        return tree_unflatten(tree, [
+            shard.gather(x) if (isinstance(x, torch.Tensor) and x.ndim >= 1
+                                and x.shape[0] == n) else x
+            for x in tree_leaves(tree)])
+
+    return state.replace(params=whole(state.params),
+                         opt_state=whole(state.opt_state),
+                         comm_state=whole(state.comm_state))
 
 
 def _comm_banner(pipeline, params, spec) -> dict | None:
     """The reference's ``comm:`` line: the compressor that runs, its mode
     and gamma, and the payload bytes per combination against dense
-    float32.  Returns them, or None without compression."""
+    float32 (``params``: the whole stack, or its meta template).  Returns
+    them, or None without compression."""
     if spec.compression.kind == "none":
         return None
     wire = pipeline.wire_bytes(params)
@@ -171,11 +207,29 @@ def _async_banner(eng, spec) -> None:
 
 def main(argv=None, *, use_kernels: bool = False,
          num_layers: int | None = None, on_block=None) -> dict:
+    """Train (see :func:`_main`).  Under a process group of several ranks,
+    every rank but 0 runs with its standard output silenced.  torchrun's
+    ranks join their group here (gloo when ``--device cpu``)."""
+    device = _parser().parse_known_args(argv)[0].device
+    mesh_lib.init_agent_group(
+        "gloo" if device is not None and torch.device(device).type == "cpu"
+        else None)
+    import torch.distributed as dist
+
+    quiet = dist.is_initialized() and dist.get_rank() != 0
+    with (contextlib.redirect_stdout(open(os.devnull, "w")) if quiet
+          else contextlib.nullcontext()):
+        return _main(argv, use_kernels=use_kernels, num_layers=num_layers,
+                     on_block=on_block)
+
+
+def _main(argv=None, *, use_kernels: bool = False,
+          num_layers: int | None = None, on_block=None) -> dict:
     """Train.  ``num_layers`` cuts the arch's depth, keeping its widths (a
     smoke run's knob; ``None`` keeps the config's depth); ``on_block(i,
     before, after, metrics)`` is called after each block with the states
     around it (``before``'s optimizer state and async buffer are advanced
-    in place by the step).
+    in place by the step; ``metrics["batch"]`` is the block as fed).
 
     Returns the final ``EngineState`` (``state``), the spec (``spec``),
     the engine (``engine``), the config (``cfg``), and per logged block the
@@ -209,8 +263,18 @@ def main(argv=None, *, use_kernels: bool = False,
     def loss(p, b):
         return tf.train_loss(p, cfg, b, remat=False)
 
-    eng = build(spec, loss, engine=args.engine, device=device)
-    engine_banner(eng)
+    def loss_rng(p, b, rng):
+        del rng                   # deterministic loss (the reference's)
+        return loss(p, b)
+
+    kind = resolve_engine(spec, args.engine)
+    mesh = mesh_lib.make_production_mesh() if kind == "sharded" else None
+    eng = build(spec, loss_rng if kind == "sharded" else loss, engine=kind,
+                device=device, mesh=mesh)
+    shard = getattr(eng, "shard", None)
+    if shard is not None:
+        print(f"engine: sharded over {shard.world} ranks "
+              f"({shard.backend}), {len(shard.local_agents)} agents a rank")
     run = spec.run
     K, T = run.num_agents, run.local_steps
     is_async = eng.engine_kind == "async"
@@ -225,10 +289,21 @@ def main(argv=None, *, use_kernels: bool = False,
     if is_async:
         _async_banner(eng, spec)
     key = torch.Generator().manual_seed(run.seed)
-    params = init_stacked(key, cfg, K, device)
+    params = init_stacked(key, cfg, K, device,
+                          None if shard is None else shard.local_agents)
     state = eng.init_state(params, eng.optimizer.init(params), key=key)
-    comm = None if is_async else _comm_banner(eng.pipeline, params, spec)
+    comm = None if is_async else _comm_banner(
+        eng.pipeline, tf.param_specs(cfg, num_agents=K), spec)
     del params
+    fetch = getattr(eng, "fetch", lambda s: s)
+    if getattr(eng, "ef_host_offload", False):
+        # parked once here; each step fetches it for its combination only
+        print("comm: the pipeline memory parks in pinned host memory "
+              "outside the combination" if ef_host_sharding(device)
+              is not None else
+              "comm: --ef-host-offload requested, but the CPU has no "
+              "pinned host space of its own: the offload is the identity")
+        state = eng.offload(state)
     if eng.step_mask is not None:
         t_k = eng.step_mask.sum(dim=0).long()
         print(f"local steps: degree-aware T_k in [{int(t_k.min())}, "
@@ -274,10 +349,10 @@ def main(argv=None, *, use_kernels: bool = False,
         batch = provider(i, key)
         t0 = time.perf_counter()
         before = state
-        state, metrics = eng.step(state, batch, key)
+        state, metrics = eng.step(before, batch, key)
         block_s = time.perf_counter() - t0
         if on_block is not None:
-            on_block(i, before, state, metrics)
+            on_block(i, before, state, {**metrics, "batch": batch})
         del before
         out["blocks_done"] = i + 1
         out["timings"].append({"block_s": block_s,
@@ -295,11 +370,15 @@ def main(argv=None, *, use_kernels: bool = False,
                                             privacy.orders)
         if log_block:
             active = metrics["active"]
+            rows = (range(K) if shard is None else shard.local_agents)
             with torch.no_grad():
                 losses = torch.stack([
-                    loss(tree_map(lambda x, k=k: x[k], state.params),
+                    loss(tree_map(lambda x, j=j: x[j], state.params),
                          tree_map(lambda x, k=k: x[0, k], batch))
-                    for k in range(K)]).cpu()
+                    for j, k in enumerate(rows)])
+            if shard is not None:
+                losses = shard.gather(losses)
+            losses = losses.cpu()
             out["losses"].append(losses.tolist())
             out["active"].append(active.cpu().tolist())
             wall = (f"  sim_wall={float(metrics['t_wall']):.1f}s"
@@ -318,17 +397,27 @@ def main(argv=None, *, use_kernels: bool = False,
             break
     out["state"] = state
     if args.checkpoint:
-        metadata = {"arch": spec.model.arch}
-        if privacy is not None:
-            # the guarantee the saved iterate carries; serve --checkpoint
-            # reports it next to the model
-            metadata["epsilon_spent"] = privacy.epsilon_np(
-                state.privacy_state)
-            metadata["privacy_delta"] = spec.privacy.delta
-        save_experiment(args.checkpoint, state, spec=spec,
-                        step=out["blocks_done"], metadata=metadata)
-        print("saved", args.checkpoint)
+        import torch.distributed as dist
+
+        whole = gather_state(fetch(state), shard)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            _save(args.checkpoint, whole, spec, privacy, out["blocks_done"])
+        del whole
     return out
+
+
+def _save(path, state, spec, privacy, blocks_done: int) -> None:
+    """Write the whole state with the spec embedded (one file)."""
+    metadata = {"arch": spec.model.arch}
+    if privacy is not None:
+        # the guarantee the saved iterate carries; serve --checkpoint
+        # reports it next to the model
+        metadata["epsilon_spent"] = privacy.epsilon_np(
+            state.privacy_state)
+        metadata["privacy_delta"] = spec.privacy.delta
+    save_experiment(path, state, spec=spec, step=blocks_done,
+                    metadata=metadata)
+    print("saved", path)
 
 
 if __name__ == "__main__":

@@ -44,6 +44,7 @@ from repro_torch.core.attacks import make_attack  # noqa: E402
 from repro_torch.core.diffusion import (DiffusionConfig,  # noqa: E402
                                         DiffusionEngine)
 from repro_torch.core.mixing import TrimmedMeanMixer  # noqa: E402
+from repro_torch.core.sharded import ShardedEngine  # noqa: E402
 from repro_torch.core.schedules import (CyclicGroups,  # noqa: E402
                                         MarkovAvailability)
 from repro_torch.core.state import EngineState  # noqa: E402
@@ -315,7 +316,7 @@ def test_build_bit_equal_to_the_hand_built_engine(name):
     new = api.build(spec, data.loss_fn(), device="cpu")
     old = _hand_built(name, data.loss_fn())
     assert spec.to_diffusion_config() == old.config
-    assert new.engine_kind == "stacked" and new.auto_substituted is None
+    assert new.engine_kind == "stacked" and isinstance(new, DiffusionEngine)
     sampler = make_indexed_block_sampler(data, T=spec.run.local_steps,
                                          seed=3, device="cpu")
     w0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
@@ -556,41 +557,53 @@ def test_cli_guards_raise(flags, match):
 
 
 # ---------------------------------------------------------------------------
-# engine selection: auto -> stacked in the sharded engine's place
+# engine selection: auto -> sharded for a transformer spec
 # ---------------------------------------------------------------------------
 
-def test_auto_builds_stacked_for_sharded_and_sharded_raises(capsys):
+def test_auto_builds_sharded_for_a_transformer_spec_and_guards_offload(
+        capsys):
+    """The reference's rule (repro/api/build.py:431-437): auto builds the
+    sharded engine for a self-contained model and the stacked one for an
+    external loss; ef_host_offload is the sharded engine's only, and an
+    external model needs a 3-arg loss for it."""
     spec = _spec(cli, "train", ["--agents", "2", "--blocks", "1"])
     eng = api.build(spec, device="cpu")
-    assert isinstance(eng, DiffusionEngine)
-    assert (eng.engine_kind, eng.auto_substituted) == ("stacked", "sharded")
-    assert api.build(spec, engine="stacked", device="cpu").auto_substituted \
-        is None
-    for engine in ("sharded",):
-        with pytest.raises(NotImplementedError, match="item 25"):
-            api.build(spec, engine=engine, device="cpu")
+    assert isinstance(eng, ShardedEngine) and eng.engine_kind == "sharded"
+    assert not hasattr(eng, "auto_substituted") and eng.shard is None
+    assert api.build(spec, engine="sharded", device="cpu").engine_kind \
+        == "sharded"
+    stacked = api.build(spec, engine="stacked", device="cpu")
+    assert isinstance(stacked, DiffusionEngine)
     offload = spec.replace(compression=dataclasses.replace(
-        spec.compression, ef_host_offload=True))
-    with pytest.raises(NotImplementedError, match="item 25"):
-        api.build(offload, device="cpu")
+        spec.compression, kind="int8", error_feedback=True,
+        ef_host_offload=True))
+    assert api.build(offload, device="cpu").ef_host_offload
+    for engine in ("stacked", "async"):
+        with pytest.raises(ValueError, match="ef_host_offload"):
+            api.build(offload, engine=engine, device="cpu")
+    with pytest.raises(ValueError, match="stateful pipeline"):
+        api.build(spec.replace(compression=dataclasses.replace(
+            spec.compression, ef_host_offload=True)), device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         api.build(spec, engine="gspmd", device="cpu")
     # an external model resolves auto to stacked, as the reference does
     data = make_regression_problem(K=4, N=20)
     ext = api.build(ExperimentSpec(run=RunSpec(num_agents=4)),
                     data.loss_fn(), device="cpu")
-    assert (ext.engine_kind, ext.auto_substituted) == ("stacked", None)
+    assert ext.engine_kind == "stacked"
     with pytest.raises(ValueError, match="loss_fn"):
         api.build(ExperimentSpec(run=RunSpec(num_agents=4)), device="cpu")
-    # the driver says so in one line
+    with pytest.raises(ValueError, match="3-arg loss_fn"):
+        api.build(ExperimentSpec(run=RunSpec(num_agents=4)),
+                  engine="sharded", device="cpu")
+    # the train driver trains through it, with no substitution banner
     out = train.main(["--device", "cpu", "--agents", "2", "--blocks", "1",
                       "--seq", "8", "--batch", "1"])
-    printed = capsys.readouterr().out
-    assert "builds the stacked engine" in printed and "item 25" in printed
-    assert out["engine"].auto_substituted == "sharded"
-    train.main(["--device", "cpu", "--agents", "2", "--blocks", "1",
-                "--seq", "8", "--batch", "1", "--engine", "stacked"])
-    assert "builds the stacked engine" not in capsys.readouterr().out
+    assert "stacked engine" not in capsys.readouterr().out
+    assert out["engine"].engine_kind == "sharded"
+    out = train.main(["--device", "cpu", "--agents", "2", "--blocks", "1",
+                      "--seq", "8", "--batch", "1", "--engine", "stacked"])
+    assert out["engine"].engine_kind == "stacked"
 
 
 def test_build_optimizer_spec_threads_grad_transform():

@@ -383,7 +383,7 @@ def test_train_driver_runs_the_async_engine(tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "async: lognormal rates" in printed and "sim_wall=" in printed
     eng = out["engine"]
-    assert isinstance(eng, AsyncEngine) and eng.auto_substituted is None
+    assert isinstance(eng, AsyncEngine) and eng.engine_kind == "async"
     assert len(out["t_wall"]) == 3 and out["t_wall"] == sorted(out["t_wall"])
     fires = np.sum(out["active"], axis=0)
     np.testing.assert_allclose(

@@ -700,3 +700,48 @@ def test_cuda_spec_checkpoint_serves_on_the_cpu(tmp_path):
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
+
+
+@pytest.mark.cuda
+def test_cuda_ef_host_offload_parks_pinned_and_fetches_bit_equal():
+    """The EF host offload on the card: the offloaded leaves are pinned
+    CPU tensors, fetch brings them back bit-equal, and a compressed_fedavg
+    run (int8 + EF, the fused path) with the offload equals the run
+    without it bit for bit."""
+    _need_card()
+    from repro_torch.core.sharded import (ef_host_sharding,
+                                          fetch_comm_state,
+                                          offload_comm_state)
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+
+    assert ef_host_sharding() == torch.device("cpu")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"e": torch.randn((4, 1000), generator=gen, device="cuda")
+            .to(torch.bfloat16), "f": torch.randn((4, 3, 5), generator=gen,
+                                                  device="cuda")}
+    host = offload_comm_state(tree)
+    for leaf in tree_leaves(host):
+        assert leaf.device.type == "cpu" and leaf.is_pinned()
+    back = fetch_comm_state(host)
+    for a, b in zip(tree_leaves(back), tree_leaves(tree)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+    argv = ["--agents", "4", "--blocks", "3", "--batch", "1", "--seq", "16",
+            "--optimizer", "sgd", "--step-size", "0.05", "--topology",
+            "fedavg", "--mix", "pallas", "--compress", "int8",
+            "--error-feedback", "--engine", "sharded"]
+    seen = []
+
+    def on_block(i, before, after, metrics):
+        seen.append([leaf.is_pinned() for leaf in
+                     tree_leaves(after.comm_state)])
+
+    off = train.main(argv)
+    on = train.main(argv + ["--ef-host-offload"], on_block=on_block)
+    assert seen and all(all(s) for s in seen)
+    for a, b in zip(tree_leaves(off["state"].params),
+                    tree_leaves(on["state"].params)):
+        assert torch.equal(a, b)
+    for a, b in zip(tree_leaves(off["state"].comm_state),
+                    tree_leaves(on["state"].comm_state)):
+        assert torch.equal(a, b.cuda())

@@ -220,15 +220,38 @@ def test_train_flag_guards_raise(flags, match):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--ef-host-offload"], "item 25"), (["--engine", "sharded"], "item 25"),
-    (["--engine=sharded", "--mix", "pallas"], "item 25"),
-    (["--ef-host-offload", "--engine", "async"], "item 25"),
-    (["--arch", "qwen3-32b"], "item 15"),
-    (["--arch", "granite-moe-1b-a400m"], "item 17"),
+    pytest.param(["--arch", "qwen3-32b"], "item 15", id="flag4-item 15"),
+    pytest.param(["--arch", "granite-moe-1b-a400m"], "item 17",
+                 id="flag5-item 17"),
 ])
 def test_unported_flags_name_their_roadmap_item(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         train.main(["--device", "cpu", "--blocks", "1"] + flag)
+
+
+@pytest.mark.parametrize("flag,error", [
+    (["--ef-host-offload", "--compress", "int8", "--error-feedback"], None),
+    (["--engine", "sharded"], None),
+    (["--engine=sharded", "--mix", "pallas"], None),
+    (["--ef-host-offload", "--engine", "async"], "ef_host_offload"),
+    (["--ef-host-offload", "--engine", "stacked", "--compress", "int8",
+      "--error-feedback"], "ef_host_offload"),
+    (["--ef-host-offload"], "stateful pipeline"),
+])
+def test_sharded_engine_flags_run_and_misuse_raises(flag, error):
+    """--engine sharded and --ef-host-offload run (the offload is the
+    identity on the CPU); the offload with the stacked or async engine, or
+    on a stateless pipeline, raises the reference's ValueError."""
+    argv = ["--device", "cpu", "--blocks", "1", "--seq", "8"] + flag
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            train.main(argv)
+        return
+    out = train.main(argv)
+    assert out["engine"].engine_kind == "sharded"
+    assert out["blocks_done"] == 1
+    assert all(torch.isfinite(x).all()
+               for x in tree_leaves(out["state"].params))
 
 
 def test_entry_points_without_device_refuse_the_cpu():
