@@ -32,7 +32,10 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
    S = 160 and 192, D = 32/64/128), a non-causal ragged pair of lengths,
    Skv = 333 with a window for each D in bf16, q past 2^31 elements,
    zamba2-1.2b's full-width shape (1, 1024, 32, 32, 64) in bf16, and the
-   full-width training shape in f32 and bf16.  Tolerances: the
+   full-width training shape in f32 and bf16; head dim 112 (kimi-k2's,
+   which the bf16 route runs in its 128 layout, TMA filling columns
+   112..127 with zeros) causal, windowed, at a ragged S and non-causal,
+   in f32 and bf16.  Tolerances: the
    reference's, 2e-5 (f32) and 2e-2 (bf16); every bf16 case (the
    tensor-core route) also within 2^-7 P|V| + one bf16 ulp of its rounding
    model ``attention_bf16p_ref``.  The ``ptxas`` lines of both routes and
@@ -41,7 +44,11 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
    ``scaled_dot_product_attention`` are timed by their device time
    (``torch.profiler``) and by CUDA events around a loop of calls (the
    wrapper's host time, where the host is slower), the plain version by
-   CUDA events.
+   CUDA events; likewise, each held to the same gates and beside its
+   bound, the attention of each phase-21c arch at its shape: chatglm3's
+   (1, 1024, 32, 2, 128), starcoder2's (1, 8192, 48, 4, 128) past its
+   4,096-key window, qwen3's (1, 1024, 64, 8, 128), kimi-k2's (1, 1024,
+   64, 8, 112).
 5. Train, full width: Algorithm 1 on smollm-360m through
    ``repro_torch.launch.train.main`` (K=4, T=2, B=2, S=1024, 3 blocks,
    Adam, ``--mix pallas``, ``use_kernels=True``); both kernels' launch
@@ -258,19 +265,46 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     gathered parameters bit-equal to (c)'s (sha256 of every leaf), the
     bytes each combination's gathers moved (int8 codes and float32
     scales, exactly) against the float32 stack's, each rank's launches,
-    peak memory and block seconds.
+    peak memory and block seconds.  19a's and 20a's stacks are drawn on
+    the card (``train.main(..., init_on_device=True)``).
+21. The MoE FFN and the other text archs: (a) granite-moe-1b-a400m at
+    full width (24 layers, 32 experts top 8, M = 1,334,628,352 an agent)
+    through ``train.main`` with ``--engine auto`` (sharded, world 1), K =
+    4 ring, q 0.9, T = 2, SGD mu 0.05, B = 1 x 1024, ``--mix pallas``, 2
+    blocks, the stack drawn on the card, ``--checkpoint``: the launch
+    counts exact (``diffusion_mix`` 20 tiles a block), the float32 router
+    kept, block 0 bit-equal to one stacked-engine step from its input
+    state; one local step of agent 0, kernel against plain attention,
+    both routed as the plain route routes (``moe.Routing``'s replay):
+    the loss within 2e-3 relative with float32 parameters and in bf16,
+    every float32 gradient leaf within MOE_GRAD_TOL_F32, every bf16 leaf
+    within MOE_GRAD_WITNESS_RATIO times the same leaf's witness taken in
+    the same run (a forward whose attention is the kernel's rounding
+    model), the assignments the kernel route would have chosen otherwise
+    counted; (b) that checkpoint through ``serve.main`` with no
+    spec flag: the consensus through ``diffusion_mix`` within one bf16
+    ulp plus the summation bound of a float64 mean, the router float32,
+    prefill of 4 x 128 and 32 greedy steps; (c) chatglm3-6b (28 layers),
+    starcoder2-15b (40 layers, S = 8192 past its 4,096-key window),
+    qwen3-32b (16 of 64 layers) and kimi-k2 (1 of 61 layers; head dim
+    112) at full width, weights drawn on the card, one forward each at K
+    = 1, B = 1 with the attention kernel and with the plain version: one
+    launch a layer, the loss within 2e-3 relative, the logits' relative
+    error and kimi's routing flips printed.
 
 The kernel mixers run over a column-tiled flatten, one launch per tile
 (``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14, 15,
-16, 18, 19 and 20 count tiles.  Each path's launch counts (all six kernels) are
-set to 0 just before its first run and read just after it (phases 3, 5, 8,
-9, 11, 12, 14, 15, 16, 17, 18, 19 and 20; 20b counts in each rank).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
+16, 18, 19, 20 and 21 count tiles.  Each path's launch counts (all six
+kernels) are set to 0 just before its first run and read just after it
+(phases 3, 5, 8, 9, 11, 12, 14, 15, 16, 17, 18, 19, 20 and 21; 20b counts
+in each rank).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import shutil
 import subprocess
@@ -389,6 +423,12 @@ def device_ms(fn, iters: int = 20) -> float:
     it launches, from ``torch.profiler``'s raw device events over
     ``iters`` calls after a warm-up.  Where the host takes longer per call
     than the device, :func:`time_ms` measures the host; this does not."""
+    return _device_ms_of(fn, "", iters)[0]
+
+
+def _device_ms_of(fn, name: str, iters: int = 20) -> tuple[float, float]:
+    """:func:`device_ms` of ``fn``, and the part of it in device events
+    whose name contains ``name``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -398,10 +438,12 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    ns = sum(n for _, n in device_events(prof))
-    if not ns:
+    events = list(device_events(prof))
+    total = sum(n for _, n in events)
+    if not total:
         raise AssertionError("the profiler saw no device time")
-    return ns / 1e6 / iters
+    part = sum(n for e, n in events if name in e)
+    return total / 1e6 / iters, part / 1e6 / iters
 
 
 def device_events(prof):
@@ -747,6 +789,14 @@ def phase_attention(card: str) -> dict:
     cases += [(1, 1024, 1024, 32, 32, 64, bf16, True, None)]
     # Skv ragged against the 64-key tile, with a window, for every D
     cases += [(1, 333, 333, 3, 1, D, bf16, True, 50) for D in (32, 64, 128)]
+    # head dim 112 (kimi-k2's; the bf16 route runs its D = 128 layout, TMA
+    # filling columns 112..127 with zeros): causal, windowed, ragged,
+    # non-causal with ragged lengths, in both dtypes
+    cases += [c for dt in (f32, bf16) for c in (
+        (1, 256, 256, 8, 1, 112, dt, True, None),
+        (1, 256, 256, 4, 2, 112, dt, True, 96),
+        (1, 333, 333, 3, 1, 112, dt, True, 50),
+        (2, 200, 333, 4, 2, 112, dt, False, None))]
     worst = {f32: 0.0, bf16: 0.0}
     worst_model = 0.0
     for B, Sq, Skv, H, Kv, D, dt, causal, window in cases:
@@ -856,7 +906,85 @@ def phase_attention(card: str) -> dict:
           f"{z_lib:.4f} ms [{card}]")
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
+    # phase 21c's attention, one layer of each arch as its forward calls
+    # it: chatglm3's (1, 1024, 32, 2, 128), starcoder2's (1, 8192, 48, 4,
+    # 128) past its 4,096-key window, qwen3's (1, 1024, 64, 8, 128) and
+    # kimi-k2's (1, 1024, 64, 8, 112)
+    from repro_torch.configs import get_config
+
+    for arch, S, _ in ARCH_FORWARDS:
+        c = get_config(arch).model
+        row[arch] = _time_attention(
+            gen, (1, S, c.num_heads, c.num_kv_heads, c.head_dim), card,
+            window=c.attention_window)
     return row
+
+
+def _time_attention(gen, shape, card: str, window=None) -> dict:
+    """One bf16 causal attention at ``shape`` (B, S, H, Kv, D): the kernel
+    against its plain version (phase 4's gates and the bf16 rounding
+    budget), the kernel's and SDPA's device times (profiler), the plain
+    version's (CUDA events) and the bound of its bytes and of the
+    operations of the unmasked scores."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+
+    B, S, H, Kv, D = shape
+    q, k, v = _attention_inputs(gen, B, S, S, H, Kv, D, torch.bfloat16)
+    out = fa.flash_attention(q, k, v, window=window)
+    ref = attention_ref(q, k, v, window=window)
+    ok, err = _attention_close(out, ref)
+    if not ok:
+        raise AssertionError(f"flash_attention {shape} window={window} "
+                             f"bf16: max |err| {err:.3e} beyond {ATTN_TOL}")
+    share = _bf16p_share(out, q, k, v, window=window,
+                         label=f"{shape} window={window}")
+    del ref
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms, kernel_ms = _device_ms_of(
+        lambda: fa.flash_attention(q, k, v, window=window),
+        "flash_attention")
+    if window is None:
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    else:
+        # SDPA takes a window only as a mask, which its flash route refuses
+        pos = torch.arange(S, device=q.device)
+        mask = ((pos[None, :] <= pos[:, None])
+                & (pos[None, :] > pos[:, None] - window))
+        library_ms = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    loop_ms = time_ms(lambda: fa.flash_attention(q, k, v, window=window),
+                      iters=20)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, window=window),
+                       iters=5)
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    # the (query, key) pairs the causal window keeps
+    w = S if window is None else min(window, S)
+    pairs = w * (w + 1) // 2 + (S - w) * w
+    flops = 2 * 2 * B * H * pairs * D
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / BF16_FLOPS_PER_S * 1e3
+    res = {"shape": list(shape), "window": window, "dtype": "bfloat16",
+           "ms": ms, "kernel_only_ms": kernel_ms, "library_ms": library_ms,
+           "loop_ms": loop_ms,
+           "plain_ms": plain_ms, "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": ("bytes" if bound_bytes >= bound_ops
+                        else "operations"),
+           "max_abs_err": err, "bf16p_budget_share": share}
+    print(f"phase 4: {tuple(shape)} window={window} bf16 causal: kernel "
+          f"device {ms:.4f} ms (the attention kernel alone {kernel_ms:.4f} "
+          f"ms; loop {loop_ms:.4f} ms), SDPA device {library_ms:.4f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}; the kernel at "
+          f"{100 * res['bound_ms'] / ms:.1f} % of it); max |err| {err:.3e}, "
+          f"{share:.3f} of the bf16 rounding budget [{card}]")
+    del q, k, v, qt, kt, vt, out
+    torch.cuda.empty_cache()
+    return res
 
 
 def _bf16p_share(out, q, k, v, *, causal=True, window=None,
@@ -2079,15 +2207,17 @@ def _frozen_equal(got, params, active) -> bool:
 
 def _train_full(card: str, label: str, flags: list, blocks: int,
                 want_fn, K: int = 12, T: int = 2,
-                layers: int | None = None,
-                on_block=None) -> tuple[dict, dict]:
-    """Algorithm 1 on full-width smollm-360m at K agents (12 unless given)
-    through train.main (ring unless ``flags`` say otherwise, T local steps,
-    q = 0.9, B = 1, S = 1024, SGD mu = 0.05, ``use_kernels=True``; the
-    depth cut to ``layers`` when given) with ``flags``; the launch counts
-    against ``want_fn(cfg, n_logged)``, finite honest losses and
-    parameters, the block split, tokens/s and peak memory.  ``on_block``
-    goes to train.main."""
+                layers: int | None = None, on_block=None,
+                arch: str = "smollm-360m",
+                init_on_device: bool = False) -> tuple[dict, dict]:
+    """Algorithm 1 on full-width ``arch`` (smollm-360m unless given) at K
+    agents (12 unless given) through train.main (ring unless ``flags`` say
+    otherwise, T local steps, q = 0.9, B = 1, S = 1024, SGD mu = 0.05,
+    ``use_kernels=True``; the depth cut to ``layers`` when given) with
+    ``flags``; the launch counts against ``want_fn(cfg, n_logged)``,
+    finite honest losses and parameters, the block split, tokens/s and
+    peak memory.  ``on_block`` and ``init_on_device`` (the stack drawn on
+    the card) go to train.main."""
     import torch
 
     from repro_torch.core.attacks import byzantine_mask
@@ -2095,15 +2225,15 @@ def _train_full(card: str, label: str, flags: list, blocks: int,
     from repro_torch.tree import tree_leaves
 
     B, S, mu = 1, 1024, 0.05
-    argv = ["--full", "--agents", str(K), "--local-steps", str(T),
-            "--batch", str(B), "--seq", str(S), "--blocks", str(blocks),
-            "--optimizer", "sgd", "--step-size", str(mu), "--participation",
-            "0.9", *flags]
+    argv = ["--full", "--arch", arch, "--agents", str(K), "--local-steps",
+            str(T), "--batch", str(B), "--seq", str(S), "--blocks",
+            str(blocks), "--optimizer", "sgd", "--step-size", str(mu),
+            "--participation", "0.9", *flags]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
     out = train.main(argv, use_kernels=True, num_layers=layers,
-                     on_block=on_block)
+                     on_block=on_block, init_on_device=init_on_device)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2129,7 +2259,7 @@ def _train_full(card: str, label: str, flags: list, blocks: int,
     print(f"{label}: launches {launches}; losses {out['losses']}; peak "
           f"device memory {peak_gb:.2f} GB; train.main took {wall:.1f}s "
           f"[{card}]")
-    row = {"arch": "smollm-360m", "layers": cfg.num_layers, "agents": K,
+    row = {"arch": arch, "layers": cfg.num_layers, "agents": K,
            "local_steps": T, "batch": B, "seq": S, "blocks": blocks,
            "optimizer": "sgd", "step_size": mu,
            "flags": flags, "timings": out["timings"],
@@ -4422,7 +4552,8 @@ def phase_train_async(card: str, scratch: Path) -> tuple[dict, dict, str]:
     train.save_experiment = timed_save
     try:
         t0 = time.perf_counter()
-        out = train.main(argv, use_kernels=True, on_block=on_block)
+        out = train.main(argv, use_kernels=True, on_block=on_block,
+                         init_on_device=True)
         wall = time.perf_counter() - t0
     finally:
         train.save_experiment = save
@@ -4947,7 +5078,7 @@ def phase_train_sharded(card: str) -> tuple[dict, dict]:
 
     out, row = _train_full(card, "phase 20a", ["--engine", "auto", "--mix",
                                                "pallas"], blocks, want, K=K,
-                           on_block=on_block)
+                           on_block=on_block, init_on_device=True)
     eng = out["engine"]
     if eng.engine_kind != "sharded" or eng.shard is not None:
         raise AssertionError(f"phase 20a: --engine auto built "
@@ -5182,6 +5313,437 @@ def phase_train_two_ranks(card: str, scratch: Path,
     return totals, row
 
 
+#: phase 21: the MoE path and the other text archs
+GRANITE = "granite-moe-1b-a400m"
+# one full-width granite local step, kernel against plain attention, each
+# route routed as the plain route routes (moe.Routing's replay).  Routing
+# is discontinuous: where two routes round a bf16 attention output
+# differently, a token's k-th expert can change or an assignment fall past
+# capacity, and the gradients move by more than rounding there.  With the
+# routing held, the gradients are continuous in the attention's output and
+# each leaf can be held on its own.  With float32 parameters the loss
+# within TRAIN_LOSS_TOL and every gradient leaf, in relative Frobenius
+# norm, within MOE_GRAD_TOL_F32 (ROADMAP's gradient gate).  In bf16 the
+# loss within TRAIN_LOSS_TOL and every gradient leaf within
+# MOE_GRAD_WITNESS_RATIO times the same leaf's witness, taken in the same
+# run: the distance from the plain route of a forward whose attention is
+# the kernel's rounding model attention_bf16p_ref.  The ratio is the
+# triangle inequality, |kernel - plain| <= |kernel - model| + |model -
+# plain|, with the kernel no farther from its model than the model from
+# the plain version (phase 4 holds the kernel's output within its rounding
+# budget of the model; kernel against model is printed).  The
+# token-expert assignments the kernel route would have chosen otherwise,
+# layer by layer at the held routing, are counted and printed
+MOE_GRAD_TOL_F32 = 1e-4
+MOE_GRAD_WITNESS_RATIO = 2.0
+#: phase 21c: (arch, tokens, layers run or None for all) of each
+#: full-width forward, kernel against plain attention; phase 4 holds and
+#: times each arch's attention at its shape
+ARCH_FORWARDS = (("chatglm3-6b", 1024, None), ("starcoder2-15b", 8192, None),
+                 ("qwen3-32b", 1024, 16), ("kimi-k2-1t-a32b", 1024, 1))
+
+
+def _routing_flips(a: list, b: list, E: int) -> int:
+    """Token-expert assignments one route chose and the other did not."""
+    import torch
+
+    n = 0
+    for x, y in zip(a, b):
+        sx = torch.zeros(x.shape[0], E, device=x.device).scatter_(1, x, 1.0)
+        sy = torch.zeros(y.shape[0], E, device=y.device).scatter_(1, y, 1.0)
+        n += int((sx != sy).sum().item()) // 2
+    return n
+
+
+def _moe_grads(params, cfg, batch, replay=None):
+    """Loss, gradients and the router's own choices (``moe.Routing``) of
+    one agent's local step, routed by ``replay`` where given."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    leaves = [x.detach().requires_grad_() for x in tree_leaves(params)]
+    with moe.Routing(replay) as routing:
+        loss = tf.train_loss(tree_unflatten(params, leaves), cfg, batch,
+                             remat=False)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.item(), grads, routing.ids
+
+
+@contextlib.contextmanager
+def _kernel_model():
+    """The kernel path with the bf16 kernel's rounding model
+    ``attention_bf16p_ref`` in the kernel's place (its backward stays the
+    plain one, as the kernel's does)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import attention_bf16p_ref
+
+    orig = ops.flash_attention
+    ops.flash_attention = (lambda q, k, v, causal=True, window=None:
+                           attention_bf16p_ref(q, k, v, causal=causal,
+                                               window=window))
+    try:
+        yield
+    finally:
+        ops.flash_attention = orig
+
+
+def _granite_step_check(params, cfg, card: str) -> dict:
+    """One local step of one agent at full granite width (B = 1 x 1024),
+    kernel against plain attention at the plain route's routing, in bf16
+    beside the rounding model's witness and in float32 (see
+    MOE_GRAD_WITNESS_RATIO)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.tree import tree_map
+
+    E = cfg.num_experts
+    batch = tree_map(lambda x: x.cuda(), lm_token_batch(
+        torch.Generator().manual_seed(21), (1, 1024), cfg.vocab_size))
+    kern = dataclasses.replace(cfg, use_kernels=True)
+    plain = dataclasses.replace(cfg, use_kernels=False)
+    loss_p, g_p, r_p = _moe_grads(params, plain, batch)
+    loss_k, g_k, r_k = _moe_grads(params, kern, batch, r_p)
+    with _kernel_model():
+        loss_m, g_m, _ = _moe_grads(params, kern, batch, r_p)
+    kernel, kernel_layers = _grad_rels(params, g_k, g_p)
+    model, model_layers = _grad_rels(params, g_m, g_p)
+    k_vs_m, _ = _grad_rels(params, g_k, g_m)
+    del g_k, g_m, g_p
+    p32 = tree_map(lambda x: x.float(), params)
+    cfg32 = dataclasses.replace(plain, dtype="float32")
+    loss_p32, g_p32, r_p32 = _moe_grads(p32, cfg32, batch)
+    loss_k32, g_k32, r_k32 = _moe_grads(
+        p32, dataclasses.replace(cfg32, use_kernels=True), batch, r_p32)
+    f32, f32_layers = _grad_rels(p32, g_k32, g_p32)
+    del p32, g_k32, g_p32
+    torch.cuda.empty_cache()
+    ratio = {n: kernel[n] / max(model[n], 1e-30) for n in kernel}
+    n_assign = len(r_p) * r_p[0].numel()
+    res = {"loss_kernel": loss_k, "loss_plain": loss_p, "loss_model": loss_m,
+           "loss_rel_kernel_vs_plain": abs(loss_k - loss_p) / abs(loss_p),
+           "loss_rel_f32": abs(loss_k32 - loss_p32) / abs(loss_p32),
+           "assignments": n_assign,
+           "routing_flips_bf16": _routing_flips(r_k, r_p, E),
+           "routing_flips_f32": _routing_flips(r_k32, r_p32, E),
+           "grad_bf16_kernel_vs_plain": {"leaf": _summary(kernel),
+                                         "layer": _summary(kernel_layers)},
+           "grad_bf16_model_vs_plain": {"leaf": _summary(model),
+                                        "layer": _summary(model_layers)},
+           "grad_bf16_kernel_vs_model": {"leaf": _summary(k_vs_m)},
+           "grad_bf16_ratio_to_witness": _summary(ratio),
+           "grad_f32_kernel_vs_plain": {"leaf": _summary(f32),
+                                        "layer": _summary(f32_layers)}}
+    for name in ("grad_bf16_kernel_vs_plain", "grad_bf16_model_vs_plain",
+                 "grad_bf16_kernel_vs_model", "grad_f32_kernel_vs_plain"):
+        for unit, r in res[name].items():
+            print(f"phase 21a: {name} per {unit}: worst {r['worst']} "
+                  f"{r['worst_rel']:.3e}, median {r['median_rel']:.3e}")
+    worst = res["grad_bf16_ratio_to_witness"]
+    f32_worst = res["grad_f32_kernel_vs_plain"]["leaf"]["worst_rel"]
+    print(f"phase 21a: one local step at the plain route's routing, kernel "
+          f"vs plain attention: bf16 loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{res['loss_rel_kernel_vs_plain']:.2e}), float32 loss rel "
+          f"{res['loss_rel_f32']:.2e} (gate {TRAIN_LOSS_TOL}); float32 "
+          f"worst gradient leaf {f32_worst:.3e} (gate {MOE_GRAD_TOL_F32}); "
+          f"bf16 gradient "
+          f"leaves at most {worst['worst_rel']:.3f} times their witness "
+          f"({worst['worst']}; median {worst['median_rel']:.3f}; gate "
+          f"{MOE_GRAD_WITNESS_RATIO}); token-expert assignments of "
+          f"{n_assign:,} the kernel route would have chosen otherwise: "
+          f"{res['routing_flips_bf16']} (bf16), {res['routing_flips_f32']} "
+          f"(float32) [{card}]")
+    if not (res["loss_rel_f32"] <= TRAIN_LOSS_TOL
+            and res["loss_rel_kernel_vs_plain"] <= TRAIN_LOSS_TOL):
+        raise AssertionError("phase 21a: full-width granite loss: kernel "
+                             "path != plain")
+    over = [n for n, r in f32.items() if not r <= MOE_GRAD_TOL_F32]
+    if over:
+        raise AssertionError(f"phase 21a: full-width granite float32 "
+                             f"gradients beyond {MOE_GRAD_TOL_F32}: {over}")
+    over = [n for n in kernel
+            if not kernel[n] <= MOE_GRAD_WITNESS_RATIO * model[n]]
+    if over:
+        raise AssertionError(f"phase 21a: full-width granite bf16 gradients "
+                             f"beyond {MOE_GRAD_WITNESS_RATIO} times their "
+                             f"witness: {over}")
+    return res
+
+
+def phase_train_granite(card: str, scratch: Path) -> tuple[dict, dict, str]:
+    """Phase 21a: granite-moe-1b-a400m at full width (24 layers, 32
+    experts top 8), through ``train.main`` with ``--engine auto`` (the
+    sharded engine, world 1), K = 4 ring, q 0.9, T = 2, SGD mu 0.05, B = 1
+    x 1024, ``--mix pallas``, 2 blocks, the stack drawn on the card, and
+    ``--checkpoint``: the launch counts exact, block 0 bit-equal to one
+    stacked-engine step from its input state, then one local step of
+    agent 0, kernel against plain attention (``_granite_step_check``)."""
+    import torch
+
+    from repro_torch.api import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves, tree_map
+
+    K, blocks = 4, 2
+    M = full_width_M(GRANITE)
+    tiles = num_tiles(K, M)
+    path = str(scratch / "granite_k4.npz")
+    keep = {}
+
+    def on_block(i, before, after, metrics):
+        if i == 0:
+            keep.update(before=before.params, after=after.params,
+                        active=metrics["active"], batch=metrics["batch"])
+
+    def want(cfg, n_logged):
+        return {"diffusion_mix": tiles * blocks,
+                "flash_attention": cfg.num_layers * K * (2 * blocks
+                                                         + n_logged),
+                "diffusion_mix_int8": 0, "gather_mix": 0,
+                "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+
+    out, row = _train_full(card, "phase 21a",
+                           ["--engine", "auto", "--mix", "pallas",
+                            "--checkpoint", path], blocks, want, K=K,
+                           on_block=on_block, arch=GRANITE,
+                           init_on_device=True)
+    eng = out["engine"]
+    if eng.engine_kind != "sharded" or eng.shard is not None:
+        raise AssertionError(f"phase 21a: --engine auto built "
+                             f"{eng.engine_kind} (shard {eng.shard})")
+    cfg, spec = out["cfg"], out["spec"]
+    routers = [x for x in tree_leaves(out["state"].params)
+               if x.dtype == torch.float32]
+    if len(routers) != 1 or routers[0].shape[1:] != (
+            cfg.num_layers, cfg.d_model, cfg.num_experts):
+        raise AssertionError("phase 21a: the trained stack's float32 "
+                             "leaves are not the router")
+    del out
+    torch.cuda.empty_cache()
+    ckpt_gb = Path(path).stat().st_size / 1e9
+
+    def loss(p, b):
+        return tf.train_loss(p, cfg, b, remat=False)
+
+    stacked = build(spec, loss, engine="stacked", device="cuda")
+    state, _ = stacked.step(stacked.init_state(keep["before"]),
+                            keep["batch"], None, active=keep["active"])
+    equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(state.params), tree_leaves(keep["after"])))
+    if not equal:
+        raise AssertionError("phase 21a: the sharded block != one stacked "
+                             "step from its input state")
+    del state, stacked
+    agent = tree_map(lambda x: x[0].clone(), keep["before"])
+    keep.clear()
+    torch.cuda.empty_cache()
+    step = _granite_step_check(agent, cfg, card)
+    del agent
+    torch.cuda.empty_cache()
+    row.update(M=M, tiles=tiles, stacked_bit_equal=True, step_check=step,
+               checkpoint_gb=ckpt_gb)
+    print(f"phase 21a: {GRANITE} M = {M:,} an agent ({tiles} column tiles "
+          f"at K = {K}); block 0 bit-equal to one stacked-engine step; "
+          f"checkpoint {ckpt_gb:.2f} GB [{card}]")
+    print(json.dumps({"phase": "21a", **row}))
+    return row["launches"], row, path
+
+
+def phase_serve_granite(path: str, card: str) -> tuple[dict, dict]:
+    """Phase 21b: 21a's checkpoint through ``serve.main`` with no spec
+    flag: the consensus through ``diffusion_mix`` (the exact mean, held
+    against a float64 mean of the loaded stack within one bf16 ulp plus
+    the float32 summation bound; the router stays float32), prefill of 4
+    prompts of 128 and 32 greedy steps (decode sends B = 4 tokens through
+    each MoE layer: capacity max(ceil(4 8 / 32 1.25), 8) = 8)."""
+    import torch
+
+    from repro_torch.api import EngineState
+    from repro_torch.checkpoint import load_experiment, load_spec
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    argv = ["--checkpoint", path, "--batch", "4", "--prompt-len", "128",
+            "--decode", "32", "--temperature", "0"]
+    spec = load_spec(path)
+    K = spec.run.num_agents
+    reset_launches()
+    out = serve.main(argv)
+    launches = read_launches()
+    cfg = out["cfg"]
+    want = {"diffusion_mix": num_tiles(K, full_width_M(GRANITE)),
+            "flash_attention": 0, "diffusion_mix_int8": 0, "gather_mix": 0,
+            "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+    if launches != want:
+        raise AssertionError(f"phase 21b: launches {launches}, expected "
+                             f"{want}")
+    toks = out["tokens"]
+    if (tuple(toks.shape) != (4, 32) or toks.min() < 0
+            or toks.max() >= cfg.vocab_size):
+        raise AssertionError(f"phase 21b: tokens out of range {toks}")
+    for p, x in tree_flatten_with_path(out["params"]):
+        if (x.dtype == torch.float32) != (p[-1] == "router"):
+            raise AssertionError(f"phase 21b: consensus leaf {p} is "
+                                 f"{x.dtype}")
+    stack, _ = load_experiment(path, EngineState(tf.param_specs(
+        cfg, num_agents=K)), device="cuda")
+
+    def exact():
+        width = CHECK_SLICE // K
+        for got, x, floor in zip(tree_leaves(out["params"]),
+                                 tree_leaves(stack.params),
+                                 _sum_floors(stack.params, 2 * K)):
+            got, x = got.reshape(-1), x.reshape(K, -1)
+            for a in range(0, x.shape[1], width):
+                yield got[a:a + width], x[:, a:a + width].double().mean(0), \
+                    floor
+
+    gate = _ulp_gate("phase 21b: consensus vs float64 mean", exact())
+    t = out["timings"]
+    print(f"phase 21b: load {t['load_s']:.2f}s, consensus "
+          f"{t['consensus_s']:.3f}s ({want['diffusion_mix']} diffusion_mix "
+          f"launches), prefill 4 x 128 {t['prefill_s']:.3f}s, decode 32 "
+          f"steps {t['decode_s']:.3f}s ({out['tokens_per_s']:.1f} "
+          f"tokens/s) [{card}]")
+    row = {"timings": t, "tokens_per_s": out["tokens_per_s"],
+           "consensus_vs_float64": gate, "launches": launches,
+           "card": card}
+    print(json.dumps({"phase": "21b", **row}))
+    del out, stack
+    torch.cuda.empty_cache()
+    return launches, row
+
+
+def phase_arch_forwards(card: str) -> dict:
+    """Phase 21c: chatglm3-6b, starcoder2-15b, qwen3-32b and kimi-k2 at
+    full width (depths in ARCH_FORWARDS), weights drawn on the card from a
+    seed, ``train_loss`` at K = 1, B = 1, kernel against plain attention:
+    one ``flash_attention`` launch a layer (kimi's at head dim 112), the
+    loss within TRAIN_LOSS_TOL relative; the logits' relative error (a
+    second forward of each route) and, for kimi, the routing flips
+    printed.  Phase 4 holds each arch's attention call at its shape."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    launches_by, rows = {}, {}
+    for i, (arch, S, layers) in enumerate(ARCH_FORWARDS):
+        cfg = get_config(arch).model
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = tf.init_params(
+            torch.Generator(device="cuda").manual_seed(210 + i), cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        size_gb = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params)) / 1e9
+        batch = {k: v.cuda() for k, v in lm_token_batch(
+            torch.Generator().manual_seed(220 + i), (1, S),
+            cfg.vocab_size).items()}
+        kern = dataclasses.replace(cfg, use_kernels=True)
+        reset_launches()
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            loss_k = tf.train_loss(params, kern, batch, remat=False).item()
+            kernel_s = time.perf_counter() - t0
+        launches = read_launches()
+        with torch.no_grad():
+            loss_p = tf.train_loss(params, cfg, batch, remat=False).item()
+            with moe.Routing() as r_k:
+                logits_k = tf.forward(params, kern, batch["tokens"],
+                                      remat=False)[0]
+            with moe.Routing() as r_p:
+                logits_p = tf.forward(params, cfg, batch["tokens"],
+                                      remat=False)[0]
+        want = {"flash_attention": cfg.num_layers, "diffusion_mix": 0,
+                "diffusion_mix_int8": 0, "gather_mix": 0,
+                "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+        if launches != want:
+            raise AssertionError(f"phase 21c: {arch} launches {launches}, "
+                                 f"expected {want}")
+        a, b = logits_k.float()[0], logits_p.float()[0]
+        logits_rel = ((a - b).norm() / b.norm()).item()
+        flips = same_rel = kept_rel = dropped = None
+        if cfg.num_experts:
+            E = cfg.num_experts
+            flips = _routing_flips(r_k.ids, r_p.ids, E)
+            # the logits of the tokens both routes sent to the same
+            # experts in every layer, and of those whose kept (not
+            # dropped past capacity) experts are the same too: a flip
+            # moves the queue positions of later tokens in two experts
+            cap = moe.moe_capacity(S, E, cfg.num_experts_per_token,
+                                   cfg.capacity_factor)
+            same = torch.ones(S, dtype=torch.bool, device=a.device)
+            kept = same.clone()
+            n_drop = 0
+            for x, y in zip(r_k.ids, r_p.ids):
+                same &= (x.sort(-1).values == y.sort(-1).values).all(-1)
+                kx, ky = (moe.assignment_positions(z.reshape(-1), E)[3]
+                          .reshape(z.shape) < cap for z in (x, y))
+                kept &= (torch.where(kx, x, -1).sort(-1).values
+                         == torch.where(ky, y, -1).sort(-1).values).all(-1)
+                n_drop += int((~ky).sum())
+            kept &= same
+            dropped = n_drop / (len(r_p.ids) * r_p.ids[0].numel())
+            same_rel = ((a[same] - b[same]).norm()
+                        / b[same].norm()).item()
+            kept_rel = ((a[kept] - b[kept]).norm()
+                        / b[kept].norm()).item()
+        del a, b, logits_k, logits_p
+        loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        row = {"layers": cfg.num_layers, "of_layers":
+               get_config(arch).model.num_layers, "tokens": S,
+               "head_dim": cfg.head_dim, "size_gb": size_gb,
+               "init_s": init_s, "kernel_forward_s": kernel_s,
+               "loss_kernel": loss_k, "loss_plain": loss_p,
+               "loss_rel": loss_rel, "logits_rel": logits_rel,
+               "routing_flips": flips,
+               "logits_rel_same_routing": same_rel,
+               "logits_rel_same_routing_and_drops": kept_rel,
+               "dropped_share": dropped, "peak_mem_gb": peak,
+               "launches": launches}
+        print(f"phase 21c: {arch} full width, {cfg.num_layers} of "
+              f"{row['of_layers']} layers ({size_gb:.1f} GB bf16, drawn in "
+              f"{init_s:.1f}s), B=1, S={S}, head dim {cfg.head_dim}: loss "
+              f"kernel {loss_k:.6f}, plain {loss_p:.6f} (rel "
+              f"{loss_rel:.2e}, gate {TRAIN_LOSS_TOL}), logits rel "
+              f"{logits_rel:.2e}"
+              + (f", routing flips {flips} of "
+                 f"{len(r_p.ids) * r_p.ids[0].numel():,} ({dropped:.1%} of "
+                 f"the assignments dropped past capacity); logits rel "
+                 f"{same_rel:.2e} over the tokens routed alike, "
+                 f"{kept_rel:.2e} over those whose kept experts match too"
+                 if flips is not None else "")
+              + f"; kernel forward {kernel_s:.3f}s, peak {peak:.1f} GB "
+              f"[{card}]")
+        if not (loss_rel <= TRAIN_LOSS_TOL
+                and torch.isfinite(torch.tensor([loss_k, loss_p])).all()):
+            raise AssertionError(f"phase 21c: {arch}: kernel forward != "
+                                 "plain")
+        rows[arch] = row
+        launches_by[arch] = launches
+        del params, batch, r_k, r_p
+    print(json.dumps({"phase": "21c", "archs": rows, "card": card}))
+    torch.cuda.empty_cache()
+    return launches_by
+
+
 def main() -> int:
     import torch
 
@@ -5263,6 +5825,12 @@ def main() -> int:
         offload_launches, _, world1 = timed("phase 20c", phase_offload, card)
         ranks_launches, _ = timed("phase 20b", phase_train_two_ranks, card,
                                   scratch, world1)
+        granite_launches, _, granite_path = timed(
+            "phase 21a", phase_train_granite, card, scratch)
+        granite_serve_launches, _ = timed("phase 21b", phase_serve_granite,
+                                          granite_path, card)
+        Path(granite_path).unlink()
+        forward_launches = timed("phase 21c", phase_arch_forwards, card)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
@@ -5291,7 +5859,11 @@ def main() -> int:
                "regression_exact_diffusion": exact_launches,
                "train_smollm_sharded_default": sharded_launches,
                "train_smollm_sharded_offload": offload_launches,
-               "train_smollm_sharded_two_ranks": ranks_launches}
+               "train_smollm_sharded_two_ranks": ranks_launches,
+               "train_granite_moe": granite_launches,
+               "serve_granite_moe": granite_serve_launches,
+               **{f"forward_{arch}": counts
+                  for arch, counts in forward_launches.items()}}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
             (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),

@@ -118,21 +118,21 @@ class ArchBundle:
 
 
 #: architectures the port runs today
-ARCH_IDS = ("smollm_360m", "mamba2_2p7b", "zamba2_1p2b")
+ARCH_IDS = ("smollm_360m", "mamba2_2p7b", "zamba2_1p2b", "chatglm3_6b",
+            "qwen3_32b", "starcoder2_15b", "granite_moe_1b_a400m",
+            "kimi_k2_1t_a32b")
 
 _ALIASES = {"smollm-360m": "smollm_360m", "mamba2-2.7b": "mamba2_2p7b",
-            "zamba2-1.2b": "zamba2_1p2b"}
+            "zamba2-1.2b": "zamba2_1p2b", "chatglm3-6b": "chatglm3_6b",
+            "qwen3-32b": "qwen3_32b", "starcoder2-15b": "starcoder2_15b",
+            "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b"}
 
 #: the reference's other architectures, with the ROADMAP item that ports
 #: what they need
 _PENDING = {
-    "chatglm3_6b": "queue 1 item 15 (the other dense archs)",
-    "qwen3_32b": "queue 1 item 15 (the other dense archs)",
-    "starcoder2_15b": "queue 1 item 15 (the other dense archs)",
     "llava_next_mistral_7b": "queue 1 item 17 (image prefix)",
     "musicgen_medium": "queue 1 item 17 (multi-codebook embeddings)",
-    "granite_moe_1b_a400m": "queue 1 item 17 (MoE)",
-    "kimi_k2_1t_a32b": "queue 1 item 17 (MoE)",
 }
 
 

@@ -50,6 +50,15 @@
 // The float32 plain model of this rounding is
 // repro_torch/kernels/ref.py::attention_bf16p_ref.
 //
+// Head dim 112 (kimi-k2's): the float32 route is instantiated at D = 112
+// (seven output columns a thread).  The bf16 route's layout is built on
+// 64-column, 128-byte swizzle panels, which 112 does not fill, so it runs
+// the D = 128 instantiation on the true 112-column buffers: the tensor maps
+// hold the true head dim (a 224-byte row), TMA fills the second panel's
+// columns 112..127 with zeros, which add nothing to Q K^T and make zero
+// columns of P V, and the epilogue stores only the first 112 columns of
+// each row.  The zero columns cost 8/7 of the products, no bytes.
+//
 // Both routes skip the same key tiles (of 64 keys; the bf16 route per
 // warpgroup of 64 rows).  Tiles wholly above the causal diagonal are
 // skipped, which is exact: once a row has seen a valid key, exp(-1e30 - m)
@@ -580,7 +589,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tv,
                             __nv_bfloat16* __restrict__ out, int Sq, int Skv,
                             int H, int Kv, int B, int causal, int window,
-                            float scale_log2, int q_tiles) {
+                            float scale_log2, int q_tiles, int dg) {
   using T = Tile<D>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -798,13 +807,13 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     for (int ch = tid % 128; ch < 64 * D / 8; ch += 128) {
       const int rr = ch / (D / 8), col = (ch % (D / 8)) * 8;
       const int qp = r0 + rr;
-      if (qp >= Sq) continue;
+      if (qp >= Sq || col >= dg) continue;
       const int p = col / T::kPanel, cc = col % T::kPanel;
       const int chunk = (cc / 8) ^ (rr % kChunks);
       const uint4 val = *reinterpret_cast<const uint4*>(
           out_tile + p * T::kQPanel + (64 * wg + rr) * T::kRowBytes +
           chunk * 16);
-      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + qp) * H + h) * D +
+      *reinterpret_cast<uint4*>(out + (((int64_t)b * Sq + qp) * H + h) * dg +
                                 col) = val;
     }
     // the next item's staging waits for every copy of this one
@@ -839,7 +848,8 @@ EncodeTiled encoder() {
 }
 
 // A tensor map over the bf16 (B, S, heads, D) buffer as (D, heads, S, B),
-// boxes of (cols, 1, rows, 1) elements; TMA fills rows past S with zeros.
+// boxes of (cols, 1, rows, 1) elements; TMA fills rows past S and columns
+// past D with zeros.
 bool encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, int D,
             int heads, int S, int B, int cols, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
@@ -873,20 +883,21 @@ int sm_count() {
   return n;
 }
 
+// dg is the buffers' head dim: D, or 112 on the D = 128 instantiation
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int Sq, int Skv, int H, int Kv, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, float scale, cudaStream_t stream, int dg) {
   using T = Tile<D>;
   static bool smem_set[kMaxDevices];
   if (Skv == 0)          // no keys: the row sums stay 0 and out is 0
-    return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * D * 2, stream);
+    return cudaMemsetAsync(out, 0, (size_t)B * Sq * H * dg * 2, stream);
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
-  if (!encode(enc, &tq, q, D, H, Sq, B, T::kPanel, kBQ) ||
-      !encode(enc, &tk, k, D, Kv, Skv, B, T::kPanel, kBK) ||
-      !encode(enc, &tv, v, D, Kv, Skv, B, T::kPanel, kBK))
+  if (!encode(enc, &tq, q, dg, H, Sq, B, T::kPanel, kBQ) ||
+      !encode(enc, &tk, k, dg, Kv, Skv, B, T::kPanel, kBK) ||
+      !encode(enc, &tv, v, dg, Kv, Skv, B, T::kPanel, kBK))
     return cudaErrorInvalidValue;
   cudaError_t err = allow_smem_once(
       (const void*)flash_attention_bf16_kernel<D>, T::kSmem, smem_set);
@@ -900,7 +911,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   flash_attention_bf16_kernel<D>
       <<<blocks, kThreads, T::kSmem, stream>>>(
           tq, tk, tv, (__nv_bfloat16*)out, Sq, Skv, H, Kv, B, causal, window,
-          scale * 1.4426950408889634f, q_tiles);
+          scale * 1.4426950408889634f, q_tiles, dg);
   return cudaGetLastError();
 }
 
@@ -920,6 +931,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
       case 64:
         return fp32::launch<64>(q, k, v, out, B, Sq, Skv, H, Kv, causal,
                                 window, scale, s);
+      case 112:
+        return fp32::launch<112>(q, k, v, out, B, Sq, Skv, H, Kv, causal,
+                                 window, scale, s);
       case 128:
         return fp32::launch<128>(q, k, v, out, B, Sq, Skv, H, Kv, causal,
                                  window, scale, s);
@@ -928,13 +942,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
     switch (D) {
       case 32:
         return hopper::launch<32>(q, k, v, out, B, Sq, Skv, H, Kv, causal,
-                                  window, scale, s);
+                                  window, scale, s, D);
       case 64:
         return hopper::launch<64>(q, k, v, out, B, Sq, Skv, H, Kv, causal,
-                                  window, scale, s);
+                                  window, scale, s, D);
+      case 112:    // the D = 128 layout, columns 112..127 zero-filled
       case 128:
         return hopper::launch<128>(q, k, v, out, B, Sq, Skv, H, Kv, causal,
-                                   window, scale, s);
+                                   window, scale, s, D);
     }
   }
   return cudaErrorInvalidValue;
@@ -945,8 +960,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
 // Returns a cudaError_t (0 on success).  q, out: (B, Sq, H, D); k, v:
 // (B, Skv, Kv, D); all contiguous device buffers of one type: dtype 0 is
 // float32 (the FMA route), 1 is bfloat16 (the tensor-core route, whose
-// buffers must be 16-byte aligned for TMA).  D is 32, 64 or 128; H % Kv ==
-// 0; window <= 0 means no window.  B, Sq and H must be positive.
+// buffers must be 16-byte aligned for TMA).  D is 32, 64, 112 or 128;
+// H % Kv == 0; window <= 0 means no window.  B, Sq and H must be positive.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int dtype,
                                       int B, int Sq, int Skv, int H, int Kv,

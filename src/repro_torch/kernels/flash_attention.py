@@ -21,7 +21,10 @@ launches the kernel, and a failure to build or launch raises.
 ``flash_attention.launches`` counts the kernel's launches.
 
 Unlike the TPU kernel, the CUDA kernel takes any sequence lengths: it
-bounds its tiles by Sq and Skv, so there is no padding contract.
+bounds its tiles by Sq and Skv, so there is no padding contract.  It takes
+the head dims :data:`HEAD_DIMS`; the bf16 route runs a head dim of 112
+(kimi-k2's) through its D = 128 layout, TMA filling the missing columns
+with zeros.
 """
 from __future__ import annotations
 
@@ -34,8 +37,8 @@ from repro_torch.kernels.ref import attention_ref
 
 __all__ = ["flash_attention", "check_operands", "HEAD_DIMS", "build"]
 
-#: head dims the kernel is instantiated for
-HEAD_DIMS = (32, 64, 128)
+#: head dims the kernel takes
+HEAD_DIMS = (32, 64, 112, 128)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -88,11 +91,12 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool, window: int) -> torch.Tensor:
     check_operands(q, k, v, window if window > 0 else None)
-    out = torch.empty_like(q)
     B, Sq, H, D = q.shape
+    scale = float(1.0 / np.sqrt(D))
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    out = torch.empty_like(q)
     Skv, Kv = k.shape[1], k.shape[2]
-    if out.numel() == 0:
-        return out
     if q.dtype == torch.bfloat16:
         # the tensor-core route reads through TMA, which takes 16-byte
         # aligned buffers: a view that starts elsewhere is copied
@@ -104,7 +108,7 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPE_CODES[q.dtype], B, Sq, Skv, H, Kv, D, int(causal),
-            window, float(1.0 / np.sqrt(D)), stream)
+            window, scale, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err} (q {tuple(q.shape)}, k "

@@ -206,7 +206,8 @@ def _async_banner(eng, spec) -> None:
 
 
 def main(argv=None, *, use_kernels: bool = False,
-         num_layers: int | None = None, on_block=None) -> dict:
+         num_layers: int | None = None, on_block=None,
+         init_on_device: bool = False) -> dict:
     """Train (see :func:`_main`).  Under a process group of several ranks,
     every rank but 0 runs with its standard output silenced.  torchrun's
     ranks join their group here (gloo when ``--device cpu``)."""
@@ -220,16 +221,22 @@ def main(argv=None, *, use_kernels: bool = False,
     with (contextlib.redirect_stdout(open(os.devnull, "w")) if quiet
           else contextlib.nullcontext()):
         return _main(argv, use_kernels=use_kernels, num_layers=num_layers,
-                     on_block=on_block)
+                     on_block=on_block, init_on_device=init_on_device)
 
 
 def _main(argv=None, *, use_kernels: bool = False,
-          num_layers: int | None = None, on_block=None) -> dict:
+          num_layers: int | None = None, on_block=None,
+          init_on_device: bool = False) -> dict:
     """Train.  ``num_layers`` cuts the arch's depth, keeping its widths (a
     smoke run's knob; ``None`` keeps the config's depth); ``on_block(i,
     before, after, metrics)`` is called after each block with the states
     around it (``before``'s optimizer state and async buffer are advanced
     in place by the step; ``metrics["batch"]`` is the block as fed).
+    ``init_on_device`` draws the initial parameters from a generator of
+    the run's device seeded with ``--seed`` instead of the host generator
+    (a full-width stack on a card in a fraction of the host's time; other
+    values than the host's, which then feeds only the engine and the
+    data).
 
     Returns the final ``EngineState`` (``state``), the spec (``spec``),
     the engine (``engine``), the config (``cfg``), and per logged block the
@@ -289,7 +296,9 @@ def _main(argv=None, *, use_kernels: bool = False,
     if is_async:
         _async_banner(eng, spec)
     key = torch.Generator().manual_seed(run.seed)
-    params = init_stacked(key, cfg, K, device,
+    init_key = (torch.Generator(device=device).manual_seed(run.seed)
+                if init_on_device else key)
+    params = init_stacked(init_key, cfg, K, device,
                           None if shard is None else shard.local_agents)
     state = eng.init_state(params, eng.optimizer.init(params), key=key)
     comm = None if is_async else _comm_banner(

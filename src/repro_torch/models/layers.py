@@ -101,8 +101,10 @@ class AttnDims:
 
 
 def _normal(gen: torch.Generator, shape, scale: float, dtype) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=gen.device)
-            * scale).to(dtype)
+    # scaled in place: one float32 transient, not two (kimi-k2's expert
+    # leaves are 22.5 GB each in float32)
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(
+        scale).to(dtype)
 
 
 def init_attention(gen: torch.Generator, d_model: int, dims: AttnDims,

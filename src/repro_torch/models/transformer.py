@@ -5,12 +5,17 @@ Counterpart of ``repro.models.transformer``.  Layers are grouped into
 *segments* (runs of one block type) whose per-layer parameters are stacked
 on a leading axis, under the reference's segment keys (``"00.attn.032"``),
 and segments run in sorted key order; where the reference scans a segment,
-the port loops over its layers.  The port runs ``attn``, ``mamba`` (the
+the port loops over its layers.  The port runs ``attn``, ``moe``
+(attention then the MoE FFN, :mod:`repro_torch.models.moe`), ``mamba`` (the
 Mamba2 mixer, :mod:`repro_torch.models.ssm`) and ``shared_attn`` segments:
 zamba2's shared attention block is stored once, at ``params["shared_attn"]``,
 each of its segments is an empty dict, and the block is applied at every
-slot of the segment.  ``moe`` segments, the image prefix and multi-codebook
-embeddings raise ``NotImplementedError`` (ROADMAP.md queue 1 item 17).
+slot of the segment.  The image prefix and multi-codebook embeddings raise
+``NotImplementedError`` (ROADMAP.md queue 1 item 17).
+
+A segment's stacked leaves are allocated once, in their own dtype, and
+each layer's draw is copied into its slot (a one-layer segment is a view
+of its draw): init holds a segment once plus one layer, not twice.
 
 ``cfg.use_kernels`` selects the kernels of :func:`forward` as the reference
 does: attention through the flash-attention kernel
@@ -41,7 +46,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import attention_op
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
 
@@ -71,12 +78,6 @@ def _ssm_kw(cfg: ModelConfig) -> dict:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = {kind for kind, _ in cfg.segments()}
-    if not kinds <= {"attn", "mamba"}:
-        raise NotImplementedError(
-            f"{cfg.name}: block types {sorted(kinds - {'attn', 'mamba'})} "
-            "are not ported yet — the port runs attention, mamba and shared "
-            "attention segments; see ROADMAP.md queue 1 item 17")
     if cfg.num_codebooks or cfg.img_tokens:
         raise NotImplementedError(
             f"{cfg.name}: multi-codebook / image-prefix embeddings are not "
@@ -93,17 +94,36 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, kind: str,
         return {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device),
                 "ssm": ssm_lib.init_ssm(gen, cfg.d_model, dtype=dtype,
                                         **_ssm_kw(cfg))}
-    return {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device),
-            "attn": L.init_attention(gen, cfg.d_model, _adims(cfg),
-                                     cfg.qk_norm, dtype),
-            "ln2": L.init_rms_norm(cfg.d_model, dtype, gen.device),
-            "mlp": L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype)}
+    p = {"ln1": L.init_rms_norm(cfg.d_model, dtype, gen.device),
+         "attn": L.init_attention(gen, cfg.d_model, _adims(cfg),
+                                  cfg.qk_norm, dtype),
+         "ln2": L.init_rms_norm(cfg.d_model, dtype, gen.device)}
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg.d_model, cfg.moe_d_ff,
+                                    cfg.num_experts, dtype)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype)
+    return p
 
 
-def _stack(trees: list) -> dict:
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees, dim=0)
+def _init_segment(gen: torch.Generator, cfg: ModelConfig, kind: str,
+                  dtype, n: int) -> dict:
+    """The n layers of a segment drawn one after another, stacked on a
+    leading axis.  Each stacked leaf is allocated once in its own dtype and
+    layer j's draw is copied into slot j, then dropped; one layer alone is
+    a view of its draw.  (A stack of the n draws would hold the segment
+    twice: past 80 GB for one full-width kimi-k2 layer.)"""
+    layer = _block_init(gen, cfg, kind, dtype)
+    if n == 1:
+        return tree_map(lambda x: x.unsqueeze(0), layer)
+    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), layer)
+    for j in range(n):
+        if j:
+            layer = _block_init(gen, cfg, kind, dtype)
+        for o, x in zip(tree_leaves(out), tree_leaves(layer)):
+            o[j].copy_(x)
+        layer = None                  # freed before the next draw
+    return out
 
 
 def init_params(key: torch.Generator, cfg: ModelConfig) -> PyTree:
@@ -122,8 +142,8 @@ def init_params(key: torch.Generator, cfg: ModelConfig) -> PyTree:
         if kind == "attn" and cfg.shared_attention:
             segs[_seg_key(si, "shared_attn", n)] = {}
             continue
-        segs[_seg_key(si, kind, n)] = _stack(
-            [_block_init(key, cfg, kind, dtype) for _ in range(n)])
+        segs[_seg_key(si, kind, n)] = _init_segment(key, cfg, kind, dtype,
+                                                    n)
     p["segments"] = segs
     if cfg.shared_attention:
         p["shared_attn"] = _block_init(key, cfg, "attn", dtype)
@@ -158,11 +178,17 @@ def param_specs(cfg: ModelConfig, *, num_agents: int | None = None) -> PyTree:
         if cfg.qk_norm:
             attn["q_norm"] = {"scale": spec(*n, Dh)}
             attn["k_norm"] = {"scale": spec(*n, Dh)}
-        mlp = ({"w_gate": spec(*n, D, F), "w_up": spec(*n, D, F),
-                "w_down": spec(*n, F, D)} if cfg.mlp_act == "silu"
-               else {"w_up": spec(*n, D, F), "w_down": spec(*n, F, D)})
-        return {"ln1": {"scale": spec(*n, D)}, "attn": attn,
-                "ln2": {"scale": spec(*n, D)}, "mlp": mlp}
+        p = {"ln1": {"scale": spec(*n, D)}, "attn": attn,
+             "ln2": {"scale": spec(*n, D)}}
+        if kind == "moe":
+            p["moe"] = moe_lib.moe_specs(D, cfg.moe_d_ff, cfg.num_experts,
+                                         cfg.param_dtype, lead=lead + n)
+        elif cfg.mlp_act == "silu":
+            p["mlp"] = {"w_gate": spec(*n, D, F), "w_up": spec(*n, D, F),
+                        "w_down": spec(*n, F, D)}
+        else:
+            p["mlp"] = {"w_up": spec(*n, D, F), "w_down": spec(*n, F, D)}
+        return p
 
     p: dict = {"embed": spec(V, D)}
     segs = {}
@@ -205,17 +231,33 @@ def _lm_logits(params: PyTree, cfg: ModelConfig,
 # block application (no cache: the training / loss path)
 # ---------------------------------------------------------------------------
 
+def _ffn(cfg: ModelConfig, kind: str, bp: dict, x: torch.Tensor):
+    """The block's FFN on its residual stream: (x + ffn(ln2(x)), aux), the
+    MoE FFN for a ``moe`` block (capacity from x's B S tokens), else the
+    dense MLP with aux 0."""
+    h = L.rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
+    if kind == "moe":
+        y, aux = moe_lib.moe_forward(bp["moe"], h,
+                                     top_k=cfg.num_experts_per_token,
+                                     capacity_factor=cfg.capacity_factor,
+                                     cap_shard_axis=cfg.moe_cap_shard)
+        return x + y, aux
+    return x + L.mlp_forward(bp["mlp"], h, cfg.mlp_act), None
+
+
 def _apply_block(cfg: ModelConfig, kind: str, bp: dict, x: torch.Tensor,
                  positions: torch.Tensor, window: int | None, q_chunk: int,
-                 kv_chunk: int) -> torch.Tensor:
+                 kv_chunk: int):
     """One block, residual: a ``mamba`` block is the Mamba2 mixer; an
-    ``attn`` block is attention then the dense MLP."""
+    ``attn`` block is attention then the dense MLP, a ``moe`` block
+    attention then the MoE FFN.  Returns (x, aux), aux the MoE's
+    load-balance loss or None."""
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     if kind == "mamba":
         return x + ssm_lib.ssm_forward(bp["ssm"], h, chunk=cfg.ssm_chunk,
                                        norm_eps=cfg.norm_eps,
                                        use_kernel=cfg.use_kernels,
-                                       **_ssm_kw(cfg))
+                                       **_ssm_kw(cfg)), None
     q, k, v = L.qkv_project(bp["attn"], h, _adims(cfg), positions=positions,
                             rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta,
                             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
@@ -226,8 +268,7 @@ def _apply_block(cfg: ModelConfig, kind: str, bp: dict, x: torch.Tensor,
                                   q_chunk=q_chunk, kv_chunk=kv_chunk)
     B, S = x.shape[:2]
     x = x + o.reshape(B, S, -1) @ bp["attn"]["wo"]
-    h = L.rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-    return x + L.mlp_forward(bp["mlp"], h, cfg.mlp_act)
+    return _ffn(cfg, kind, bp, x)
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -235,8 +276,9 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             window: int | None = None, remat: bool = True,
             q_chunk: int = 512, kv_chunk: int = 512):
     """Full-sequence forward.  Returns (logits, aux_loss, n_prefix), as the
-    reference does; ``aux_loss`` is 0 and ``n_prefix`` 0 for the ported
-    (MoE-free, text-only) configs.
+    reference does: ``aux_loss`` the float32 sum of the MoE layers'
+    load-balance losses (0 without experts), ``n_prefix`` 0 (the ported
+    configs are text-only).
 
     tokens: (B, S) integer.  ``remat`` recomputes each block's activations
     in the backward pass (``torch.utils.checkpoint``, non-reentrant), as
@@ -251,6 +293,7 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = _embed_inputs(params, tokens)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, n, seg_params in _seg_items(params["segments"]):
         for bp in _layers(seg_params, n):
             if kind == "shared_attn":
@@ -258,23 +301,29 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             else:
                 kind_j = kind
             args = (cfg, kind_j, bp, x, positions, window, q_chunk, kv_chunk)
-            x = (checkpoint(_apply_block, *args, use_reentrant=False)
-                 if remat else _apply_block(*args))
+            x, a = (checkpoint(_apply_block, *args, use_reentrant=False)
+                    if remat else _apply_block(*args))
+            if a is not None:
+                aux = aux + a
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _lm_logits(params, cfg, x), aux, 0
 
 
 def train_loss(params: PyTree, cfg: ModelConfig, batch: dict,
                rng=None, *, remat: bool = True) -> torch.Tensor:
-    """Next-token cross-entropy in float32.  batch: ``tokens``/``labels``
-    (B, S).  ``rng`` is unused, as in the reference."""
+    """Next-token cross-entropy in float32, plus ``aux_loss_coef`` times
+    the MoE load-balance loss when the config has experts.  batch:
+    ``tokens``/``labels`` (B, S).  ``rng`` is unused, as in the
+    reference."""
     del rng
-    logits, _, _ = forward(params, cfg, batch["tokens"],
-                           img_embeds=batch.get("img_embeds"), remat=remat)
+    logits, aux, _ = forward(params, cfg, batch["tokens"],
+                             img_embeds=batch.get("img_embeds"), remat=remat)
     logp = torch.log_softmax(logits.float(), dim=-1)
     labels = batch["labels"].long()
-    return -logp.gather(-1, labels[..., None])[..., 0].mean()
+    loss = -logp.gather(-1, labels[..., None])[..., 0].mean()
+    if cfg.num_experts:
+        loss = loss + cfg.aux_loss_coef * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -323,12 +372,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                  slot_pos=torch.full((C,), -1, dtype=torch.int32, device=dev))
 
 
-def _attn_block_decode(cfg: ModelConfig, bp: dict, x: torch.Tensor,
-                       kc: torch.Tensor, vc: torch.Tensor,
+def _attn_block_decode(cfg: ModelConfig, kind: str, bp: dict,
+                       x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
                        positions: torch.Tensor, slot: int,
                        valid: torch.Tensor) -> torch.Tensor:
-    """One attention block for a single new token; writes its K/V into ring
-    slot ``slot`` of ``kc``/``vc`` in place and attends over ``valid``."""
+    """One attention (or ``moe``) block for a single new token; writes its
+    K/V into ring slot ``slot`` of ``kc``/``vc`` in place and attends over
+    ``valid``.  A ``moe`` block's capacity comes from the B tokens of the
+    step, as in the reference."""
     B = x.shape[0]
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     q, k, v = L.qkv_project(bp["attn"], h, _adims(cfg), positions=positions,
@@ -338,8 +389,7 @@ def _attn_block_decode(cfg: ModelConfig, bp: dict, x: torch.Tensor,
     vc[:, slot] = v[:, 0]
     o = L.decode_attention_jnp(q, kc, vc, valid)
     x = x + o.reshape(B, 1, -1) @ bp["attn"]["wo"]
-    h = L.rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-    return x + L.mlp_forward(bp["mlp"], h, cfg.mlp_act)
+    return _ffn(cfg, kind, bp, x)[0]
 
 
 def decode_step(params: PyTree, cfg: ModelConfig, cache: Cache,
@@ -374,7 +424,7 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Cache,
                 continue
             if kind == "shared_attn":
                 bp = params["shared_attn"]
-            x = _attn_block_decode(cfg, bp, x, seg_cache["k"][j],
+            x = _attn_block_decode(cfg, kind, bp, x, seg_cache["k"][j],
                                    seg_cache["v"][j], positions, slot, valid)
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     cache.pos = pos + 1
@@ -420,7 +470,7 @@ def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             if kind == "shared_attn":
                 bp = params["shared_attn"]
             x, (kcs[j], vcs[j]) = _attn_block_prefill(
-                cfg, bp, x, positions, window, q_chunk, kv_chunk, C)
+                cfg, kind, bp, x, positions, window, q_chunk, kv_chunk, C)
         new_segs.append({"k": kcs, "v": vcs})
 
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
@@ -439,9 +489,12 @@ def _prefill_slot_positions(S: int, C: int, device=None) -> torch.Tensor:
     return (last - torch.remainder(last - j, C)).to(torch.int32)
 
 
-def _attn_block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor,
-                        positions: torch.Tensor, window: int | None,
-                        q_chunk: int, kv_chunk: int, C: int):
+def _attn_block_prefill(cfg: ModelConfig, kind: str, bp: dict,
+                        x: torch.Tensor, positions: torch.Tensor,
+                        window: int | None, q_chunk: int, kv_chunk: int,
+                        C: int):
+    """One attention (or ``moe``: capacity from the B S prompt tokens)
+    block over the prompt; returns (x, its ring-buffered (k, v))."""
     B, S = x.shape[:2]
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     q, k, v = L.qkv_project(bp["attn"], h, _adims(cfg), positions=positions,
@@ -450,8 +503,7 @@ def _attn_block_prefill(cfg: ModelConfig, bp: dict, x: torch.Tensor,
     o = L.flash_attention_jnp(q, k, v, causal=True, window=window,
                               q_chunk=q_chunk, kv_chunk=kv_chunk)
     x = x + o.reshape(B, S, -1) @ bp["attn"]["wo"]
-    h = L.rms_norm(x, bp["ln2"]["scale"], cfg.norm_eps)
-    x = x + L.mlp_forward(bp["mlp"], h, cfg.mlp_act)
+    x = _ffn(cfg, kind, bp, x)[0]
     # ring-buffer the last C positions
     if C >= S:
         pad = (0, 0, 0, 0, 0, C - S)

@@ -50,6 +50,7 @@ def _assert_close(got, want, dtype):
     (2, 256, 8, 2, 64),    # GQA 4x
     (1, 192, 6, 1, 32),    # MQA, ragged (192 % 128 != 0)
     (2, 128, 4, 2, 128),   # head dim 128
+    (1, 128, 8, 1, 112),   # head dim 112 (kimi-k2's), GQA 8x
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_op_matches_reference(B, S, H, Kv, D, dtype):
@@ -104,7 +105,7 @@ def test_attention_op_gradients_match_reference():
 
 # the reference's bf16 sweep (tests/test_kernels.py)
 BF16_SWEEP = [(1, 128, 4, 4, 64), (2, 256, 8, 2, 64), (1, 192, 6, 1, 32),
-              (2, 128, 4, 2, 128)]
+              (2, 128, 4, 2, 128), (1, 192, 8, 1, 112)]
 
 
 @pytest.mark.parametrize("B,S,H,Kv,D", BF16_SWEEP)
@@ -174,6 +175,8 @@ def test_kernel_operands_are_checked():
     with pytest.raises(ValueError, match="head dim"):
         fa.check_operands(torch.zeros(1, 8, 4, 48), torch.zeros(1, 8, 2, 48),
                           torch.zeros(1, 8, 2, 48))
+    kv112 = torch.zeros(1, 8, 2, 112)
+    fa.check_operands(torch.zeros(1, 8, 4, 112), kv112, kv112)
     with pytest.raises(ValueError, match="multiple"):
         fa.check_operands(torch.zeros(1, 8, 3, 64), kv, kv)
     with pytest.raises(ValueError, match="q is"):

@@ -119,7 +119,13 @@ def test_cuda_kernel_matches_attention_ref(dtype):
              (2, 1024, 1024, 15, 5, 64, True, None),
              (1, 1024, 1024, 32, 32, 64, True, None)]
     # Skv ragged against the 64-key tile, with a window, for every D
-    cases += [(1, 333, 333, 3, 1, D, True, 50) for D in (32, 64, 128)]
+    cases += [(1, 333, 333, 3, 1, D, True, 50) for D in (32, 64, 112, 128)]
+    # head dim 112 (kimi-k2's; the bf16 route runs its D = 128 layout,
+    # TMA filling columns 112..127 with zeros): its
+    # full-width layer, a window, non-causal ragged lengths
+    cases += [(1, 1024, 1024, 64, 8, 112, True, None),
+              (1, 256, 256, 4, 2, 112, True, 96),
+              (2, 200, 333, 4, 2, 112, False, None)]
     tol = ATTN_TOL[dtype]
     for B, Sq, Skv, H, Kv, D, causal, window in cases:
         q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
@@ -139,6 +145,44 @@ def test_cuda_kernel_matches_attention_ref(dtype):
                                             window=window)
             over = (out.float() - model.float()).abs() > budget
             assert not bool(over.any()), (B, Sq, Skv, H, Kv, D, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+def test_cuda_moe_smoke_forward_matches_the_cpu(arch):
+    """The MoE archs' smoke forward in float32, card (the attention kernel
+    on) against the CPU from the same weights: the same routing, the
+    logits within ROADMAP's 2e-3 and the load-balance loss within 1e-5."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch).smoke
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(1))
+    routes = {}
+
+    def run(device, p, c):
+        with torch.no_grad(), moe.Routing() as routing:
+            out = tf.forward(p, c, toks.to(device), remat=False)
+        routes[device] = [x.cpu() for x in routing.ids]
+        return out
+
+    lg_cpu, aux_cpu, _ = run("cpu", params, cfg)
+    before = fa.flash_attention.launches
+    lg, aux, _ = run("cuda", tree_map(lambda x: x.cuda(), params),
+                     dataclasses.replace(cfg, use_kernels=True))
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + cfg.num_layers
+    for a, b in zip(routes["cuda"], routes["cpu"]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(lg.cpu(), lg_cpu, atol=2e-3, rtol=0)
+    torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.cuda

@@ -35,7 +35,9 @@ def _fake_mesh(shape, axes):
 MESHES = {"data4_model2": _fake_mesh((4, 2), ("data", "model")),
           "pod2_data16_model16": _fake_mesh((2, 16, 16),
                                             ("pod", "data", "model"))}
-ARCHS = ("smollm-360m", "mamba2-2.7b", "zamba2-1.2b")
+ARCHS = ("smollm-360m", "mamba2-2.7b", "zamba2-1.2b", "chatglm3-6b",
+         "qwen3-32b", "starcoder2-15b", "granite-moe-1b-a400m",
+         "kimi-k2-1t-a32b")
 
 
 class _DeviceMeshLike:

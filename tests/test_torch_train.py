@@ -120,6 +120,23 @@ def test_train_main_runs_on_the_cpu(use_kernels):
     assert int(state.opt_state["t"]) == 4           # adam, T=2, 2 blocks
 
 
+@pytest.mark.parametrize("arch", ["smollm-360m", "granite-moe-1b-a400m"])
+def test_train_main_init_on_device_draws_from_the_run_seed(arch):
+    """``init_on_device`` draws the initial stack from a fresh generator of
+    the device seeded with ``--seed`` (on the CPU: the host generator's
+    first draws), and leaves the host generator to the engine and data."""
+    argv = ["--device", "cpu", "--blocks", "1", "--arch", arch, "--smoke",
+            "--seed", "3", "--optimizer", "sgd", "--step-size", "0.05"]
+    seen = {}
+    out = train.main(argv, init_on_device=True, on_block=lambda i, before,
+                     after, m: seen.update(p=before.params))
+    want = train.init_stacked(torch.Generator().manual_seed(3),
+                              out["cfg"], 4, torch.device("cpu"))
+    for x, y in zip(tree_leaves(seen["p"]), tree_leaves(want)):
+        assert torch.equal(x, y)
+    assert np.isfinite(out["losses"]).all()
+
+
 def test_train_main_is_reproducible_and_kernel_path_agrees():
     argv = ["--device", "cpu", "--blocks", "2", "--mix", "pallas",
             "--optimizer", "sgd", "--step-size", "0.05", "--seq", "32"]
@@ -220,8 +237,9 @@ def test_train_flag_guards_raise(flags, match):
 
 
 @pytest.mark.parametrize("flag,item", [
-    pytest.param(["--arch", "qwen3-32b"], "item 15", id="flag4-item 15"),
-    pytest.param(["--arch", "granite-moe-1b-a400m"], "item 17",
+    pytest.param(["--arch", "llava-next-mistral-7b"], "item 17",
+                 id="flag4-item 17"),
+    pytest.param(["--arch", "musicgen-medium"], "item 17",
                  id="flag5-item 17"),
 ])
 def test_unported_flags_name_their_roadmap_item(flag, item):
