@@ -48,7 +48,9 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
    bound, the attention of each phase-21c arch at its shape: chatglm3's
    (1, 1024, 32, 2, 128), starcoder2's (1, 8192, 48, 4, 128) past its
    4,096-key window, qwen3's (1, 1024, 64, 8, 128), kimi-k2's (1, 1024,
-   64, 8, 112).
+   64, 8, 112); and phase 22's: llava's (1, 3904, 32, 8, 128) (2,880
+   image positions and 1,024 tokens, ragged against the 128-query tiles)
+   and musicgen's (1, 1024, 24, 24, 64).
 5. Train, full width: Algorithm 1 on smollm-360m through
    ``repro_torch.launch.train.main`` (K=4, T=2, B=2, S=1024, 3 blocks,
    Adam, ``--mix pallas``, ``use_kernels=True``); both kernels' launch
@@ -97,7 +99,7 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     route, launch shape and achieved bytes/s; the ``ptxas`` summary.
     Tolerance: max |kernel - plain| <= 1e-5 * max(1, |plain|); inactive
     rows bit-equal.
-11. Train smollm-360m at full width, cut to 16 of its 32 layers
+11. Train smollm-360m at full width, cut to 8 of its 32 layers
     (``CUT_LAYERS``, as in phases 14, 16 and 18), through ``train.main``
     at K=12 (ring, T=2, q=0.9, B=1, S=1024, SGD mu=0.05,
     ``use_kernels=True``): (a) the
@@ -135,7 +137,7 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     and 240 (M = 2^22, operations-bound), passes route against scalar
     route (no slower).  The ``ptxas`` summary (no spill) and the SASS memory
     instructions (a 16-byte evict-first store required).
-14. Train smollm-360m at full width (16 layers) through ``train.main`` at
+14. Train smollm-360m at full width (8 layers) through ``train.main`` at
     K=8 (q=0.9,
     B=1, S=1024, SGD mu=0.05, ``--mix pallas``, ``use_kernels=True``):
     (a) the reference's compressed_fedavg preset (FedAvg, int8, error
@@ -164,7 +166,7 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     against the stored stack's consensus below the reference's 1e-3, two
     runs bit-equal, prefill and 32 greedy steps.
 16. Time-varying graphs and stateful availability: smollm-360m at full
-    width (16 layers) through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
+    width (8 layers) through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
     mu=0.05, 2 blocks, ``use_kernels=True``): (a) ``--mix pallas --graph
     link_dropout --link-drop 0.3 --participation-process markov
     --markov-corr 0.5``: exact launch counts (``diffusion_mix`` one per
@@ -195,7 +197,7 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     ratios are printed, and 200 more Fig. 5 blocks are profiled (the
     device's busy share).
 18. The privacy tier and the partitioned data: smollm-360m at full width
-    (16 layers) through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
+    (8 layers) through ``train.main`` (K=8 ring, T=2, q=0.9, B=1, S=1024, SGD
     mu=0.05, ``use_kernels=True``): (a) ``--mix pallas --privacy
     --privacy-epsilon 8 --privacy-delta 1e-5 --privacy-clip 1.0 --data
     dirichlet --data-alpha 0.3 --data-clusters 4``, 3 blocks unless the
@@ -225,7 +227,7 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     variance; microseconds a block and 200 profiled blocks (the device's
     busy share).
 19. The experiment API and the async engine: (a) smollm-360m at full
-    width, all 32 layers, through ``train.main`` (K=8 ring, q=0.9, T=2,
+    width, 8 of its 32 layers (``CUT_LAYERS``), through ``train.main`` (K=8 ring, q=0.9, T=2,
     SGD mu=0.05, B=1, S=1024, 3 blocks, ``use_kernels=True``) with
     ``--engine async`` (lognormal rates, sigma 0.5, seed 0, tau_max 4,
     exp discount 0.1, ``--mix auto``) and ``--checkpoint``: each block's
@@ -249,13 +251,13 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     CPU within 1e-5 relative.
 20. The sharded engine, the reference's default training path (every
     ``train.main`` phase above runs it at world 1 too): (a) smollm-360m at
-    full width, all 32 layers, through ``train.main`` with ``--engine
+    full width, 8 of its 32 layers, through ``train.main`` with ``--engine
     auto`` and no process group (K=8 ring, q=0.9, T=2, SGD mu=0.05, B=1,
     S=1024, ``--mix pallas``, 3 blocks): the engine built is the sharded
     one, the launch counts exact, and one stacked-engine step from block
     0's input state with its realized mask and batch gives parameters
     bit-equal to the sharded block; (c) the compressed_fedavg run (int8 +
-    EF, the fused int8 path) at 16 layers, 2 blocks, ``--engine
+    EF, the fused int8 path) at 8 layers, 2 blocks, ``--engine
     sharded`` without and with ``--ef-host-offload``: parameters
     bit-equal, the pipeline memory pinned CPU tensors between blocks, the
     peak device memory lower by at least three quarters of it, the block
@@ -291,13 +293,51 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     = 1, B = 1 with the attention kernel and with the plain version: one
     launch a layer, the loss within 2e-3 relative, the logits' relative
     error and kimi's routing flips printed.
+22. The two modalities: (a) musicgen-medium at full width (all 48
+    layers, 4 codebooks of 2,048, M = 1,384,269,312 an agent) through
+    ``train.main`` with ``--engine auto`` (sharded, world 1), K = 4 ring,
+    q 0.9, T = 2, SGD mu 0.05, B = 1 x 1024 x 4, ``--mix pallas``, 2
+    blocks, ``--checkpoint``: the launch counts exact (``diffusion_mix``
+    21 tiles a block), block 0 bit-equal to one stacked-engine step; (b)
+    that checkpoint through ``serve.main`` with no spec flag: prompts (4,
+    128, 4), 32 greedy steps, tokens (4, 32, 4), a second greedy run
+    equal, the consensus through ``diffusion_mix`` within one bf16 ulp
+    plus the summation bound of the dense mixer's over the same stack;
+    (c) llava-next-mistral-7b at full width, 8 of its 32 layers
+    (``LLAVA_CUT_LAYERS``), K = 2, the same recipe with the 2,880-token
+    float32 image stream (B = 1 x (2,880 + 1,024)): the launch counts
+    exact (15 tiles a block), block 0 bit-equal to a stacked step; its
+    checkpoint through ``serve.main(..., num_layers=8)``: 4 prompts of
+    128 after the image prefix, 32 greedy steps, a cache of 2,880 + 128 +
+    32 positions, and on the served consensus in float32 the first 8
+    decode steps within the reference's 5e-3 gate of the uncached forward
+    over the same context (the reference's sizing, 128 + 32 positions,
+    printed beside it); (d) one forward each of llava (all 32 layers, S =
+    2,880 + 1,024) and musicgen (all 48) at K = 1, B = 1, kernel against
+    plain attention as in 21c.
+23. The continuous-batching ServeLoop: at smoke size in float32, 5
+    requests on 2 slots equal single-request serving, and under a swap a
+    tick the card's tokens and tags equal the CPU's and every completion
+    replays on the card; at full width over 22b's consensus (bf16), 4
+    slots, chunk 8, max_len 256, six requests of 64-160 prompt tokens x 4
+    codebooks and 32 new tokens, 22a's checkpoint ingested after the
+    first tick (``ingest_checkpoint``, the watch path: its consensus
+    through ``diffusion_mix``) and a perturbed copy swapped in after the
+    third: every completion replays at the loop's width
+    (``replay_completion(..., slots=4)``), and the tokens batch-1 serving
+    would choose otherwise under the same schedule are counted, each
+    completion's first such token within twice the batch-vs-single logit
+    difference of its top two.
 
-The kernel mixers run over a column-tiled flatten, one launch per tile
+Every full-width training phase (5, 8, 11, 14, 16, 18, 19a, 20, 21a, 22a,
+22c) draws its stack on the card (``train.main(..., init_on_device=True)``);
+phase 6 keeps the host draw its card-against-CPU check needs.  The kernel
+mixers run over a column-tiled flatten, one launch per tile
 (``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14, 15,
-16, 18, 19, 20 and 21 count tiles.  Each path's launch counts (all six
-kernels) are set to 0 just before its first run and read just after it
-(phases 3, 5, 8, 9, 11, 12, 14, 15, 16, 17, 18, 19, 20 and 21; 20b counts
-in each rank).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
+16, 18, 19, 20, 21, 22 and 23 count tiles.  Each path's launch counts
+(all six kernels) are set to 0 just before its first run and read just
+after it (phases 3, 5, 8, 9, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22
+and 23; 20b counts in each rank).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
@@ -917,6 +957,14 @@ def phase_attention(card: str) -> dict:
         row[arch] = _time_attention(
             gen, (1, S, c.num_heads, c.num_kv_heads, c.head_dim), card,
             window=c.attention_window)
+    # phase 22's: llava's (1, 3904, 32, 8, 128), its 2,880 image positions
+    # and 1,024 tokens (ragged against the 128-query tiles), and
+    # musicgen's (1, 1024, 24, 24, 64), no GQA
+    for arch, S, _ in MODALITY_FORWARDS:
+        c = get_config(arch).model
+        row[arch] = _time_attention(
+            gen, (1, S + c.img_tokens, c.num_heads, c.num_kv_heads,
+                  c.head_dim), card, window=c.attention_window)
     return row
 
 
@@ -1105,7 +1153,7 @@ def phase_train(card: str) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    out = train.main(argv, use_kernels=True)
+    out = train.main(argv, use_kernels=True, init_on_device=True)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1617,7 +1665,8 @@ def phase_train_mamba(card: str) -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
-    out = train.main(argv, use_kernels=True, num_layers=MAMBA_CUT_LAYERS)
+    out = train.main(argv, use_kernels=True, num_layers=MAMBA_CUT_LAYERS,
+                     init_on_device=True)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2160,10 +2209,17 @@ def _ulp_gate(label: str, pairs) -> dict:
 
 
 #: the depth of the full-width smollm-360m training phases 11a, 11b, 14a,
-#: 14b, 16a, 16b, 18a and 18b: 16 of its 32 layers at its full width (the
-#: cut that keeps the whole script within its time; phases 5 and 19a train
+#: 14b, 16a, 16b, 18a, 18b, 19a, 20a, 20b and 20c: 8 of its 32 layers at
+#: its full width (the cut that keeps the whole script well within its
+#: time on a slower host, and 19a's checkpoint near 8 GB; phase 5 trains
 #: all 32)
-CUT_LAYERS = 16
+CUT_LAYERS = 8
+
+#: the depth of phase 22c's full-width llava-next-mistral-7b training: 8
+#: of its 32 layers at its full width (memory: at 32 layers K = 2 holds
+#: two 14.5 GB agents, block 0's two kept stacks and the gradients; M =
+#: 2,011,242,496 an agent, 15 column tiles at K = 2); phase 22d runs all 32
+LLAVA_CUT_LAYERS = 8
 
 #: the depth of phase 8's full-width mamba2-2.7b: 32 of its 64 layers
 #: (K M still past 2^31 at K = 2)
@@ -2208,16 +2264,15 @@ def _frozen_equal(got, params, active) -> bool:
 def _train_full(card: str, label: str, flags: list, blocks: int,
                 want_fn, K: int = 12, T: int = 2,
                 layers: int | None = None, on_block=None,
-                arch: str = "smollm-360m",
-                init_on_device: bool = False) -> tuple[dict, dict]:
+                arch: str = "smollm-360m") -> tuple[dict, dict]:
     """Algorithm 1 on full-width ``arch`` (smollm-360m unless given) at K
     agents (12 unless given) through train.main (ring unless ``flags`` say
     otherwise, T local steps, q = 0.9, B = 1, S = 1024, SGD mu = 0.05,
     ``use_kernels=True``; the depth cut to ``layers`` when given) with
     ``flags``; the launch counts against ``want_fn(cfg, n_logged)``,
     finite honest losses and parameters, the block split, tokens/s and
-    peak memory.  ``on_block`` and ``init_on_device`` (the stack drawn on
-    the card) go to train.main."""
+    peak memory.  The stack is drawn on the card
+    (``init_on_device=True``); ``on_block`` goes to train.main."""
     import torch
 
     from repro_torch.core.attacks import byzantine_mask
@@ -2233,7 +2288,7 @@ def _train_full(card: str, label: str, flags: list, blocks: int,
     reset_launches()
     t0 = time.perf_counter()
     out = train.main(argv, use_kernels=True, num_layers=layers,
-                     on_block=on_block, init_on_device=init_on_device)
+                     on_block=on_block, init_on_device=True)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4496,7 +4551,8 @@ class _Tee:
 
 
 def phase_train_async(card: str, scratch: Path) -> tuple[dict, dict, str]:
-    """Phase 19a: full-width smollm-360m (32 layers), K = 8 ring, q = 0.9,
+    """Phase 19a: full-width smollm-360m (``CUT_LAYERS`` of its 32 layers,
+    for the checkpoint's bytes), K = 8 ring, q = 0.9,
     T = 2, SGD mu = 0.05, B = 1 x 1024, 3 blocks through ``train.main``
     with ``--engine async`` (lognormal rates, sigma 0.5, seed 0; tau_max
     4; exp discount 0.1; ``--mix auto``) and ``--checkpoint``.  Each block:
@@ -4553,7 +4609,7 @@ def phase_train_async(card: str, scratch: Path) -> tuple[dict, dict, str]:
     try:
         t0 = time.perf_counter()
         out = train.main(argv, use_kernels=True, on_block=on_block,
-                         init_on_device=True)
+                         init_on_device=True, num_layers=CUT_LAYERS)
         wall = time.perf_counter() - t0
     finally:
         train.save_experiment = save
@@ -4622,6 +4678,7 @@ def phase_serve_async(path: str, card: str) -> tuple[dict, dict]:
     bf16 ulp plus the float32 summation bound), prefill of 4 prompts of
     128 and 32 greedy steps, twice (the same tokens)."""
     import contextlib
+    import dataclasses
 
     import torch
 
@@ -4637,9 +4694,9 @@ def phase_serve_async(path: str, card: str) -> tuple[dict, dict]:
     tee = _Tee(sys.stdout)
     reset_launches()
     with contextlib.redirect_stdout(tee):
-        first = serve.main(argv)
+        first = serve.main(argv, num_layers=CUT_LAYERS)
     launches = read_launches()
-    second = serve.main(argv)
+    second = serve.main(argv, num_layers=CUT_LAYERS)
     printed = "".join(tee.text)
     if "async checkpoint: freshness-weighted consensus" not in printed:
         raise AssertionError("phase 19b: serve did not weight the "
@@ -4651,7 +4708,8 @@ def phase_serve_async(path: str, card: str) -> tuple[dict, dict]:
         raise AssertionError("phase 19b: two greedy runs differ")
     spec = load_spec(path)
     K, bundle = spec.run.num_agents, get_config(spec.model.arch)
-    cfg = bundle.smoke if spec.model.smoke else bundle.model
+    cfg = dataclasses.replace(bundle.smoke if spec.model.smoke
+                              else bundle.model, num_layers=CUT_LAYERS)
     toks = first["tokens"]
     if (tuple(toks.shape) != (4, 32) or toks.min() < 0
             or toks.max() >= cfg.vocab_size):
@@ -5019,7 +5077,7 @@ def phase_exact_diffusion(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 #: phase 20b/20c's run: the compressed_fedavg preset (int8 + EF through the
-#: fused int8 path) on the sharded engine, 16 layers, 2 blocks
+#: fused int8 path) on the sharded engine, ``CUT_LAYERS`` layers, 2 blocks
 SHARDED_INT8_FLAGS = ["--mix", "pallas", *COMPRESSED_FEDAVG_FLAGS,
                       "--engine", "sharded"]
 #: the seconds phase 20b waits for its two ranks
@@ -5050,7 +5108,8 @@ def phase_train_sharded(card: str) -> tuple[dict, dict]:
     """Phase 20a: the reference's default training path, world 1:
     ``train.main`` with ``--engine auto`` (no process group) builds the
     sharded engine for the transformer spec; K = 8 ring, q 0.9, T = 2, SGD
-    mu 0.05, B = 1 x 1024, ``--mix pallas``, all 32 layers, 3 blocks.
+    mu 0.05, B = 1 x 1024, ``--mix pallas``, ``CUT_LAYERS`` of its 32
+    layers, 3 blocks.
     Gate: one stacked-engine step from block 0's input state, with block
     0's realized mask and batch (the static ring draws no graph), gives
     parameters bit-equal to the sharded block."""
@@ -5061,7 +5120,7 @@ def phase_train_sharded(card: str) -> tuple[dict, dict]:
     from repro_torch.tree import tree_leaves
 
     K, blocks = 8, 3
-    tiles = num_tiles(K, full_width_M())
+    tiles = num_tiles(K, full_width_M(layers=CUT_LAYERS))
     keep = {}
 
     def on_block(i, before, after, metrics):
@@ -5078,7 +5137,7 @@ def phase_train_sharded(card: str) -> tuple[dict, dict]:
 
     out, row = _train_full(card, "phase 20a", ["--engine", "auto", "--mix",
                                                "pallas"], blocks, want, K=K,
-                           on_block=on_block, init_on_device=True)
+                           on_block=on_block, layers=CUT_LAYERS)
     eng = out["engine"]
     if eng.engine_kind != "sharded" or eng.shard is not None:
         raise AssertionError(f"phase 20a: --engine auto built "
@@ -5121,7 +5180,8 @@ def _int8_launches(K: int, M: int, blocks: int, agents: int | None = None):
 
 def phase_offload(card: str) -> tuple[dict, dict]:
     """Phase 20c: the compressed_fedavg run on the sharded engine at world
-    1 (16 layers, 2 blocks), without and with ``--ef-host-offload``.
+    1 (``CUT_LAYERS`` layers, 2 blocks), without and with
+    ``--ef-host-offload``.
     Gates: parameters bit-equal; between blocks the pipeline memory's
     leaves are pinned CPU tensors; the peak device memory falls by at
     least three quarters of the pipeline memory (the EF residual, in the
@@ -5206,7 +5266,8 @@ def _sharded_rank(rank: int, world: int, store: str, out: str, argv: list,
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = train.main(argv, use_kernels=True, num_layers=layers)
+    res = train.main(argv, use_kernels=True, num_layers=layers,
+                     init_on_device=True)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -5341,6 +5402,19 @@ MOE_GRAD_WITNESS_RATIO = 2.0
 #: times each arch's attention at its shape
 ARCH_FORWARDS = (("chatglm3-6b", 1024, None), ("starcoder2-15b", 8192, None),
                  ("qwen3-32b", 1024, 16), ("kimi-k2-1t-a32b", 1024, 1))
+MUSICGEN = "musicgen-medium"
+LLAVA = "llava-next-mistral-7b"
+#: phase 22d: the two modalities at full depth (tokens after llava's
+#: 2,880-token image prefix), as ARCH_FORWARDS
+MODALITY_FORWARDS = ((LLAVA, 1024, None), (MUSICGEN, 1024, None))
+#: the reference's decode gate (tests/test_arch_smoke.py): decode logits
+#: against the uncached forward, atol = rtol
+DECODE_TOL = 5e-3
+#: phase 23's full-width ServeLoop: slots, chunk, cache positions, and its
+#: six requests' prompt lengths (more requests than slots) and new tokens
+SERVELOOP = dict(slots=4, chunk=8, max_len=256)
+SERVELOOP_PROMPTS = (64, 83, 102, 121, 140, 160)
+SERVELOOP_NEW = 32
 
 
 def _routing_flips(a: list, b: list, E: int) -> int:
@@ -5475,24 +5549,9 @@ def _granite_step_check(params, cfg, card: str) -> dict:
     return res
 
 
-def phase_train_granite(card: str, scratch: Path) -> tuple[dict, dict, str]:
-    """Phase 21a: granite-moe-1b-a400m at full width (24 layers, 32
-    experts top 8), through ``train.main`` with ``--engine auto`` (the
-    sharded engine, world 1), K = 4 ring, q 0.9, T = 2, SGD mu 0.05, B = 1
-    x 1024, ``--mix pallas``, 2 blocks, the stack drawn on the card, and
-    ``--checkpoint``: the launch counts exact, block 0 bit-equal to one
-    stacked-engine step from its input state, then one local step of
-    agent 0, kernel against plain attention (``_granite_step_check``)."""
-    import torch
-
-    from repro_torch.api import build
-    from repro_torch.models import transformer as tf
-    from repro_torch.tree import tree_leaves, tree_map
-
-    K, blocks = 4, 2
-    M = full_width_M(GRANITE)
-    tiles = num_tiles(K, M)
-    path = str(scratch / "granite_k4.npz")
+def _block0_keeper():
+    """(keep, on_block): ``on_block`` for train.main that keeps block 0's
+    input and output stacks, realized mask and batch in ``keep``."""
     keep = {}
 
     def on_block(i, before, after, metrics):
@@ -5500,32 +5559,37 @@ def phase_train_granite(card: str, scratch: Path) -> tuple[dict, dict, str]:
             keep.update(before=before.params, after=after.params,
                         active=metrics["active"], batch=metrics["batch"])
 
+    return keep, on_block
+
+
+def _train_launches(K: int, tiles: int, blocks: int, T: int = 2):
+    """``want_fn`` of a full-width run through ``--mix pallas``: one
+    ``diffusion_mix`` launch a tile a block, one ``flash_attention`` a
+    layer a local step an agent plus the logging forwards, no other."""
     def want(cfg, n_logged):
         return {"diffusion_mix": tiles * blocks,
-                "flash_attention": cfg.num_layers * K * (2 * blocks
+                "flash_attention": cfg.num_layers * K * (T * blocks
                                                          + n_logged),
                 "diffusion_mix_int8": 0, "gather_mix": 0,
                 "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+    return want
 
-    out, row = _train_full(card, "phase 21a",
-                           ["--engine", "auto", "--mix", "pallas",
-                            "--checkpoint", path], blocks, want, K=K,
-                           on_block=on_block, arch=GRANITE,
-                           init_on_device=True)
-    eng = out["engine"]
+
+def _check_sharded_world1(label: str, eng) -> None:
     if eng.engine_kind != "sharded" or eng.shard is not None:
-        raise AssertionError(f"phase 21a: --engine auto built "
+        raise AssertionError(f"{label}: --engine auto built "
                              f"{eng.engine_kind} (shard {eng.shard})")
-    cfg, spec = out["cfg"], out["spec"]
-    routers = [x for x in tree_leaves(out["state"].params)
-               if x.dtype == torch.float32]
-    if len(routers) != 1 or routers[0].shape[1:] != (
-            cfg.num_layers, cfg.d_model, cfg.num_experts):
-        raise AssertionError("phase 21a: the trained stack's float32 "
-                             "leaves are not the router")
-    del out
-    torch.cuda.empty_cache()
-    ckpt_gb = Path(path).stat().st_size / 1e9
+
+
+def _check_stacked_step(label: str, spec, cfg, keep: dict) -> None:
+    """One stacked-engine step from block 0's input state, under its
+    realized mask and batch, bit-equal to the sharded block (``keep`` from
+    :func:`_block0_keeper`)."""
+    import torch
+
+    from repro_torch.api import build
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
 
     def loss(p, b):
         return tf.train_loss(p, cfg, b, remat=False)
@@ -5536,9 +5600,46 @@ def phase_train_granite(card: str, scratch: Path) -> tuple[dict, dict, str]:
     equal = all(torch.equal(a, b) for a, b in zip(
         tree_leaves(state.params), tree_leaves(keep["after"])))
     if not equal:
-        raise AssertionError("phase 21a: the sharded block != one stacked "
+        raise AssertionError(f"{label}: the sharded block != one stacked "
                              "step from its input state")
     del state, stacked
+    torch.cuda.empty_cache()
+
+
+def phase_train_granite(card: str, scratch: Path) -> tuple[dict, dict, str]:
+    """Phase 21a: granite-moe-1b-a400m at full width (24 layers, 32
+    experts top 8), through ``train.main`` with ``--engine auto`` (the
+    sharded engine, world 1), K = 4 ring, q 0.9, T = 2, SGD mu 0.05, B = 1
+    x 1024, ``--mix pallas``, 2 blocks, the stack drawn on the card, and
+    ``--checkpoint``: the launch counts exact, block 0 bit-equal to one
+    stacked-engine step from its input state, then one local step of
+    agent 0, kernel against plain attention (``_granite_step_check``)."""
+    import torch
+
+    from repro_torch.tree import tree_leaves, tree_map
+
+    K, blocks = 4, 2
+    M = full_width_M(GRANITE)
+    tiles = num_tiles(K, M)
+    path = str(scratch / "granite_k4.npz")
+    keep, on_block = _block0_keeper()
+    out, row = _train_full(card, "phase 21a",
+                           ["--engine", "auto", "--mix", "pallas",
+                            "--checkpoint", path], blocks,
+                           _train_launches(K, tiles, blocks), K=K,
+                           on_block=on_block, arch=GRANITE)
+    _check_sharded_world1("phase 21a", out["engine"])
+    cfg, spec = out["cfg"], out["spec"]
+    routers = [x for x in tree_leaves(out["state"].params)
+               if x.dtype == torch.float32]
+    if len(routers) != 1 or routers[0].shape[1:] != (
+            cfg.num_layers, cfg.d_model, cfg.num_experts):
+        raise AssertionError("phase 21a: the trained stack's float32 "
+                             "leaves are not the router")
+    del out
+    torch.cuda.empty_cache()
+    ckpt_gb = Path(path).stat().st_size / 1e9
+    _check_stacked_step("phase 21a", spec, cfg, keep)
     agent = tree_map(lambda x: x[0].clone(), keep["before"])
     keep.clear()
     torch.cuda.empty_cache()
@@ -5620,26 +5721,47 @@ def phase_serve_granite(path: str, card: str) -> tuple[dict, dict]:
     return launches, row
 
 
-def phase_arch_forwards(card: str) -> dict:
-    """Phase 21c: chatglm3-6b, starcoder2-15b, qwen3-32b and kimi-k2 at
-    full width (depths in ARCH_FORWARDS), weights drawn on the card from a
-    seed, ``train_loss`` at K = 1, B = 1, kernel against plain attention:
-    one ``flash_attention`` launch a layer (kimi's at head dim 112), the
-    loss within TRAIN_LOSS_TOL relative; the logits' relative error (a
-    second forward of each route) and, for kimi, the routing flips
-    printed.  Phase 4 holds each arch's attention call at its shape."""
+def _forward_batch(cfg, S: int, seed: int) -> dict:
+    """One next-token batch of B = 1 on the card: tokens (1, S), or (1, S,
+    nq) with codebooks, from a seeded host generator, and for an
+    image-prefix config its prefix (1, img_tokens, VISION_DIM), float32
+    normals times 0.02, from the same generator."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_token_batch
+    from repro_torch.models import transformer as tf
+
+    gen = torch.Generator().manual_seed(seed)
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    batch = lm_token_batch(gen, (1, S) + cb, cfg.vocab_size)
+    if cfg.img_tokens:
+        batch["img_embeds"] = torch.randn(
+            (1, cfg.img_tokens, tf.VISION_DIM), generator=gen).mul_(0.02)
+    return {k: v.cuda() for k, v in batch.items()}
+
+
+def phase_arch_forwards(card: str, forwards=ARCH_FORWARDS,
+                        label: str = "phase 21c", seed: int = 210) -> dict:
+    """Phase 21c (and 22d with MODALITY_FORWARDS): each arch of
+    ``forwards`` at full width (its depth there), weights drawn on the card
+    from a seed, ``train_loss`` at K = 1, B = 1 (llava's image prefix in
+    front of its tokens, musicgen's four codebooks), kernel against plain
+    attention: one ``flash_attention`` launch a layer (kimi's at head dim
+    112), the loss within TRAIN_LOSS_TOL relative; the logits' relative
+    error (a second forward of each route) and, for kimi, the routing
+    flips printed.  Phase 4 holds each arch's attention call at its
+    shape."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import lm_token_batch
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
     from repro_torch.tree import tree_leaves
 
     launches_by, rows = {}, {}
-    for i, (arch, S, layers) in enumerate(ARCH_FORWARDS):
+    for i, (arch, S, layers) in enumerate(forwards):
         cfg = get_config(arch).model
         if layers is not None:
             cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -5647,14 +5769,13 @@ def phase_arch_forwards(card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = tf.init_params(
-            torch.Generator(device="cuda").manual_seed(210 + i), cfg)
+            torch.Generator(device="cuda").manual_seed(seed + i), cfg)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         size_gb = sum(x.numel() * x.element_size()
                       for x in tree_leaves(params)) / 1e9
-        batch = {k: v.cuda() for k, v in lm_token_batch(
-            torch.Generator().manual_seed(220 + i), (1, S),
-            cfg.vocab_size).items()}
+        batch = _forward_batch(cfg, S, seed + 10 + i)
+        img = batch.get("img_embeds")
         kern = dataclasses.replace(cfg, use_kernels=True)
         reset_launches()
         with torch.no_grad():
@@ -5666,15 +5787,15 @@ def phase_arch_forwards(card: str) -> dict:
             loss_p = tf.train_loss(params, cfg, batch, remat=False).item()
             with moe.Routing() as r_k:
                 logits_k = tf.forward(params, kern, batch["tokens"],
-                                      remat=False)[0]
+                                      img_embeds=img, remat=False)[0]
             with moe.Routing() as r_p:
                 logits_p = tf.forward(params, cfg, batch["tokens"],
-                                      remat=False)[0]
+                                      img_embeds=img, remat=False)[0]
         want = {"flash_attention": cfg.num_layers, "diffusion_mix": 0,
                 "diffusion_mix_int8": 0, "gather_mix": 0,
                 "gather_robust_mix": 0, "ssd_intra_chunk": 0}
         if launches != want:
-            raise AssertionError(f"phase 21c: {arch} launches {launches}, "
+            raise AssertionError(f"{label}: {arch} launches {launches}, "
                                  f"expected {want}")
         a, b = logits_k.float()[0], logits_p.float()[0]
         logits_rel = ((a - b).norm() / b.norm()).item()
@@ -5709,6 +5830,8 @@ def phase_arch_forwards(card: str) -> dict:
         peak = torch.cuda.max_memory_allocated() / 1e9
         row = {"layers": cfg.num_layers, "of_layers":
                get_config(arch).model.num_layers, "tokens": S,
+               "img_tokens": cfg.img_tokens,
+               "codebooks": cfg.num_codebooks,
                "head_dim": cfg.head_dim, "size_gb": size_gb,
                "init_s": init_s, "kernel_forward_s": kernel_s,
                "loss_kernel": loss_k, "loss_plain": loss_p,
@@ -5718,9 +5841,14 @@ def phase_arch_forwards(card: str) -> dict:
                "logits_rel_same_routing_and_drops": kept_rel,
                "dropped_share": dropped, "peak_mem_gb": peak,
                "launches": launches}
-        print(f"phase 21c: {arch} full width, {cfg.num_layers} of "
+        extra = (f" after a {cfg.img_tokens}-token image prefix"
+                 if cfg.img_tokens else
+                 f" x {cfg.num_codebooks} codebooks" if cfg.num_codebooks
+                 else "")
+        print(f"{label}: {arch} full width, {cfg.num_layers} of "
               f"{row['of_layers']} layers ({size_gb:.1f} GB bf16, drawn in "
-              f"{init_s:.1f}s), B=1, S={S}, head dim {cfg.head_dim}: loss "
+              f"{init_s:.1f}s), B=1, S={S}{extra}, head dim "
+              f"{cfg.head_dim}: loss "
               f"kernel {loss_k:.6f}, plain {loss_p:.6f} (rel "
               f"{loss_rel:.2e}, gate {TRAIN_LOSS_TOL}), logits rel "
               f"{logits_rel:.2e}"
@@ -5734,14 +5862,474 @@ def phase_arch_forwards(card: str) -> dict:
               f"[{card}]")
         if not (loss_rel <= TRAIN_LOSS_TOL
                 and torch.isfinite(torch.tensor([loss_k, loss_p])).all()):
-            raise AssertionError(f"phase 21c: {arch}: kernel forward != "
+            raise AssertionError(f"{label}: {arch}: kernel forward != "
                                  "plain")
         rows[arch] = row
         launches_by[arch] = launches
-        del params, batch, r_k, r_p
-    print(json.dumps({"phase": "21c", "archs": rows, "card": card}))
+        del params, batch, img, r_k, r_p
+    print(json.dumps({"phase": label.removeprefix("phase "), "archs": rows,
+                      "card": card}))
     torch.cuda.empty_cache()
     return launches_by
+
+
+def phase_train_musicgen(card: str, scratch: Path):
+    """Phase 22a: musicgen-medium at full width, all 48 layers (d 1,536,
+    24/24 heads of 64, d_ff 6,144 gelu, 4 codebooks of 2,048), through
+    ``train.main`` with ``--engine auto`` (the sharded engine, world 1),
+    K = 4 ring, q 0.9, T = 2, SGD mu 0.05, B = 1 x 1024 x 4 codebooks,
+    ``--mix pallas``, 2 blocks, the stack drawn on the card, and
+    ``--checkpoint``: the launch counts exact, the blocks' (T, K, B, S, 4)
+    tokens, block 0 bit-equal to one stacked-engine step from its input
+    state.  Returns the launches, the row, the checkpoint's path and the
+    final stack (phase 22b's dense consensus reads it)."""
+    import torch
+
+    K, blocks = 4, 2
+    M = full_width_M(MUSICGEN)
+    tiles = num_tiles(K, M)
+    path = str(scratch / "musicgen_k4.npz")
+    keep, on_block = _block0_keeper()
+    out, row = _train_full(card, "phase 22a",
+                           ["--engine", "auto", "--mix", "pallas",
+                            "--checkpoint", path], blocks,
+                           _train_launches(K, tiles, blocks), K=K,
+                           on_block=on_block, arch=MUSICGEN)
+    _check_sharded_world1("phase 22a", out["engine"])
+    cfg, spec = out["cfg"], out["spec"]
+    shape = tuple(keep["batch"]["tokens"].shape)
+    if shape != (2, K, 1, 1024, cfg.num_codebooks):
+        raise AssertionError(f"phase 22a: block tokens {shape}")
+    stack = out["state"].params
+    del out
+    torch.cuda.empty_cache()
+    ckpt_gb = Path(path).stat().st_size / 1e9
+    _check_stacked_step("phase 22a", spec, cfg, keep)
+    keep.clear()
+    torch.cuda.empty_cache()
+    row.update(M=M, tiles=tiles, stacked_bit_equal=True,
+               checkpoint_gb=ckpt_gb, block_tokens_shape=list(shape))
+    print(f"phase 22a: {MUSICGEN} M = {M:,} an agent ({2 * M / 1e9:.2f} GB "
+          f"bf16; {tiles} column tiles at K = {K}); block 0 bit-equal to "
+          f"one stacked-engine step; checkpoint {ckpt_gb:.2f} GB [{card}]")
+    print(json.dumps({"phase": "22a", **row}))
+    return row["launches"], row, path, stack
+
+
+def phase_serve_musicgen(path: str, stack, card: str):
+    """Phase 22b: 22a's checkpoint through ``serve.main`` with no spec
+    flag: the consensus through ``diffusion_mix`` within one bf16 ulp
+    (plus the float32 summation bound) of the dense mixer's over the same
+    stack, prompts (4, 128, 4) and 32 greedy steps, tokens (4, 32, 4) in
+    the vocabulary, a second greedy run from the same consensus equal.
+    Returns the launches, the row and the served consensus (phase 23's
+    first generation)."""
+    import torch
+
+    from repro_torch.api import TOPOLOGIES
+    from repro_torch.checkpoint import load_spec
+    from repro_torch.core.serving import consensus_from_stacked
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    spec = load_spec(path)
+    K = spec.run.num_agents
+    argv = ["--checkpoint", path, "--batch", "4", "--prompt-len", "128",
+            "--decode", "32", "--temperature", "0"]
+    reset_launches()
+    out = serve.main(argv)
+    launches = read_launches()
+    cfg = out["cfg"]
+    want = {"diffusion_mix": num_tiles(K, full_width_M(MUSICGEN)),
+            "flash_attention": 0, "diffusion_mix_int8": 0, "gather_mix": 0,
+            "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+    if launches != want:
+        raise AssertionError(f"phase 22b: launches {launches}, expected "
+                             f"{want}")
+    toks = out["tokens"]
+    if (tuple(toks.shape) != (4, 32, cfg.num_codebooks) or toks.min() < 0
+            or toks.max() >= cfg.vocab_size):
+        raise AssertionError(f"phase 22b: tokens {tuple(toks.shape)} out of "
+                             "range")
+    with torch.inference_mode():
+        lg, cache = tf.prefill(out["params"], cfg, out["prompts"],
+                               max_len=out["max_len"])
+        again, _, _ = tf.decode_loop(out["params"], cfg, cache, lg[:, -1],
+                                     None, 32, temperature=0.0)
+    if not torch.equal(again.cpu(), toks):
+        raise AssertionError("phase 22b: two greedy runs gave different "
+                             "tokens")
+    del lg, cache, again
+    topo = TOPOLOGIES.get(spec.topology.kind)(spec.topology, K)
+    t0 = time.perf_counter()
+    dense = consensus_from_stacked(stack, K, "dense", topology=topo)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    gate = _ulp_gate("phase 22b: kernel vs dense consensus",
+                     _sliced(out["params"], dense, _sum_floors(stack, K)))
+    del dense
+    torch.cuda.empty_cache()
+    t = out["timings"]
+    print(f"phase 22b: load {t['load_s']:.2f}s, consensus "
+          f"{t['consensus_s']:.3f}s ({want['diffusion_mix']} diffusion_mix "
+          f"launches; the dense mixer {dense_s:.3f}s), prefill 4 x 128 x "
+          f"{cfg.num_codebooks} {t['prefill_s']:.3f}s, decode 32 steps "
+          f"{t['decode_s']:.3f}s ({out['tokens_per_s']:.1f} tokens/s, "
+          f"each {cfg.num_codebooks} codebooks); greedy tokens repeat "
+          f"[{card}]")
+    row = {"timings": t, "tokens_per_s": out["tokens_per_s"],
+           "dense_consensus_s": dense_s, "consensus_vs_dense": gate,
+           "tokens_shape": list(toks.shape), "launches": launches,
+           "card": card}
+    print(json.dumps({"phase": "22b", **row}))
+    return launches, row, out["params"], cfg
+
+
+def _serveloop_smoke(card: str) -> dict:
+    """Phase 23, smoke: musicgen's smoke config in float32, 5 requests on
+    2 slots (chunk 3), on the card and on the CPU from the same weights:
+    without swaps every request's tokens equal single-request serving on
+    the card; with a swap after every tick, the card's tokens and tags
+    equal the CPU's and every completion replays on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serving import (Request, ServeLoop,
+                                            replay_completion)
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(MUSICGEN).smoke
+    base = tf.init_params(torch.Generator().manual_seed(230), cfg)
+    rng = np.random.default_rng(231)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (7 + 3 * i, 4)
+                                    ).astype(np.int32), 6 + i)
+            for i in range(5)]
+
+    def drain(params, swap):
+        loop = ServeLoop(cfg, params, slots=2, max_len=48, chunk=3)
+        for r in reqs:
+            loop.submit(r)
+        by_gen, done = {0: params}, []
+        while loop._queue or loop.active:
+            done.extend(loop.step())
+            if swap:
+                g = loop.store.generation + 1
+                newp = tree_map(lambda x, s=g: x * (1.0 + 0.03 * s), params)
+                by_gen[loop.store.swap(newp)] = newp
+        return sorted(done, key=lambda c: c.uid), by_gen
+
+    card_p = tree_map(lambda x: x.cuda(), base)
+    plain, _ = drain(card_p, swap=False)
+    for c in plain:
+        with torch.no_grad():
+            lg, cache = tf.prefill(card_p, cfg, torch.as_tensor(
+                reqs[c.uid].prompt, device="cuda")[None], max_len=48)
+            want, _, _ = tf.decode_loop(card_p, cfg, cache, lg[:, -1], None,
+                                        reqs[c.uid].max_new_tokens)
+        if c.tokens != want[0].tolist():
+            raise AssertionError(f"phase 23: smoke request {c.uid} != "
+                                 "single-request serving")
+    swapped, by_gen = drain(card_p, swap=True)
+    on_cpu, _ = drain(base, swap=True)
+    for a, b in zip(swapped, on_cpu):
+        if a.tokens != b.tokens or a.generations != b.generations:
+            raise AssertionError(f"phase 23: smoke request {a.uid}: card "
+                                 "!= CPU")
+    spans = [replay_completion(cfg, by_gen, c, max_len=48) for c in swapped]
+    if max(spans) < 2:
+        raise AssertionError("phase 23: no smoke swap landed mid-request")
+    print(f"phase 23: smoke (float32): 5 requests on 2 slots equal "
+          f"single-request serving; under {len(by_gen) - 1} swaps card == "
+          f"CPU and every completion replays on the card (spans up to "
+          f"{max(spans)} generations) [{card}]")
+    return {"requests": 5, "swaps": len(by_gen) - 1,
+            "max_generations_spanned": max(spans)}
+
+
+def _replay_logits(cfg, by_gen, c, max_len: int, slots: int) -> list:
+    """The logits (row 0, float32, on the host) each of completion ``c``'s
+    tokens was chosen from, decoded teacher-forced under its generations
+    as :func:`replay_completion` decodes it, alone (``slots=1``) or at the
+    loop's width."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serving import _write_slot
+    from repro_torch.models import transformer as tf
+
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    out = []
+    with torch.no_grad():
+        p0 = by_gen[c.generations[0]]
+        lg, cache = tf.prefill(p0, cfg, torch.as_tensor(
+            c.prompt, device="cuda")[None], max_len=max_len)
+        if slots > 1:
+            small = cache
+            cache = tf.init_cache(cfg, slots, max_len, per_slot=True,
+                                  device="cuda")
+            for s in range(slots):
+                _write_slot(cache, small, s)
+        logits = lg[:1, -1]
+        for i, t in enumerate(c.tokens):
+            out.append(logits[0].float().cpu())
+            if i + 1 == len(c.tokens):
+                break
+            tok = torch.as_tensor(np.asarray(t, np.int32),
+                                  device="cuda").reshape((1, 1) + cb)
+            lg, cache = tf.decode_step(by_gen[c.generations[i + 1]], cfg,
+                                       cache, tok.expand((slots, 1) + cb))
+            logits = lg[:1, 0]
+    return out
+
+
+def phase_serveloop(path: str, params, cfg, card: str):
+    """Phase 23: the continuous-batching ServeLoop.  Smoke
+    (``_serveloop_smoke``), then at full width over 22b's consensus
+    (bf16): 4 slots, chunk 8, max_len 256, six requests of 64-160 prompt
+    tokens x 4 codebooks and 32 new tokens; after the first tick 22a's
+    checkpoint is ingested (``ingest_checkpoint``: the watch path, its
+    consensus through ``diffusion_mix``), after the third a perturbed copy
+    is swapped in, both while decodes are in flight.  Every completion
+    passes ``replay_completion`` at the loop's width (``slots=4``).  The
+    same replay alone (batch 1, single-request serving under the same
+    schedule) is reported: the tokens it would choose otherwise, and for
+    each completion's first such token the top-two gap of its batch-1
+    logits against twice the largest batch-4-vs-batch-1 logit difference
+    there (the most two logits can move apart: a larger gap fails)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serving import (Request, ServeLoop,
+                                            replay_completion)
+    from repro_torch.tree import tree_map
+
+    smoke = _serveloop_smoke(card)
+    loop = ServeLoop(cfg, params, **SERVELOOP)
+    rng = np.random.default_rng(232)
+    nq = cfg.num_codebooks
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (n, nq)).astype(
+        np.int32), SERVELOOP_NEW) for i, n in enumerate(SERVELOOP_PROMPTS)]
+    for r in reqs:
+        loop.submit(r)
+    by_gen, done, ticks = {0: params}, [], 0
+    reset_launches()
+    t0 = time.perf_counter()
+    tick_s = []
+    while loop._queue or loop.active:
+        t1 = time.perf_counter()
+        done.extend(loop.step())
+        tick_s.append(time.perf_counter() - t1)
+        ticks += 1
+        if ticks == 1:
+            g = loop.ingest_checkpoint(path)
+            by_gen[g] = loop.store.snapshot()[0]
+        elif ticks == 3:
+            newp = tree_map(lambda x: (x.float() * 1.01).to(x.dtype), params)
+            by_gen[loop.store.swap(newp)] = newp
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = {"diffusion_mix": num_tiles(4, full_width_M(MUSICGEN)),
+            "flash_attention": 0, "diffusion_mix_int8": 0, "gather_mix": 0,
+            "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+    if launches != want:
+        raise AssertionError(f"phase 23: launches {launches}, expected "
+                             f"{want}")
+    done.sort(key=lambda c: c.uid)
+    if sorted(c.uid for c in done) != [r.uid for r in reqs]:
+        raise AssertionError("phase 23: not every request completed")
+    spans = [replay_completion(cfg, by_gen, c, max_len=SERVELOOP["max_len"],
+                               slots=SERVELOOP["slots"]) for c in done]
+    if loop.store.generation != 2 or max(spans) < 2:
+        raise AssertionError(f"phase 23: generations {loop.store.generation}"
+                             f", spans {spans}: no swap landed mid-request")
+    n_tok = n_diff = 0
+    firsts = []
+    for c in done:
+        alone = _replay_logits(cfg, by_gen, c, SERVELOOP["max_len"], 1)
+        wide = None
+        first = None
+        for i, (a, t) in enumerate(zip(alone, c.tokens)):
+            t = torch.as_tensor(t)
+            differs = a.argmax(-1) != t
+            n_tok += t.numel()
+            n_diff += int(differs.sum())
+            if first is None and bool(differs.any()):
+                # the loop-width logits (the ones the token came from)
+                wide = wide or _replay_logits(cfg, by_gen, c,
+                                              SERVELOOP["max_len"],
+                                              SERVELOOP["slots"])
+                if not torch.equal(wide[i].argmax(-1), t):
+                    raise AssertionError(f"phase 23: uid {c.uid} token {i}:"
+                                         " the loop-width replay disagrees")
+                top2 = a.topk(2, dim=-1).values
+                gap = float((top2[..., 0] - top2[..., 1])[differs].max())
+                delta = float((wide[i] - a).abs().max())
+                first = {"uid": c.uid, "token": i, "top_two_gap": gap,
+                         "batch_vs_single_max_diff": delta}
+                firsts.append(first)
+                if gap > 2 * delta:
+                    raise AssertionError(
+                        f"phase 23: uid {c.uid} token {i}: batch-1 serving "
+                        f"picks otherwise at a top-two gap {gap:.4g} above "
+                        f"twice the batch-vs-single difference {delta:.4g}")
+    decode_steps = ticks * SERVELOOP["chunk"]
+    row = {"smoke": smoke, "requests": len(reqs),
+           "prompt_lens": list(SERVELOOP_PROMPTS), **SERVELOOP,
+           "new_tokens": SERVELOOP_NEW, "ticks": ticks, "wall_s": wall,
+           "tick_s": tick_s, "generations": loop.store.generation,
+           "spans": spans, "tokens": n_tok,
+           "tokens_differing_from_single_request": n_diff,
+           "first_divergences": firsts, "launches": launches, "card": card}
+    print(f"phase 23: ServeLoop at full width (bf16): {len(reqs)} requests "
+          f"on {SERVELOOP['slots']} slots in {ticks} ticks of "
+          f"{SERVELOOP['chunk']} ({decode_steps} decode steps) in "
+          f"{wall:.2f}s incl. the ingest ({np.median(tick_s):.3f}s median "
+          f"tick); {loop.store.generation} swaps in flight, completions "
+          f"span up to {max(spans)} generations, every one replays at the "
+          f"loop's width; {n_diff} of {n_tok} codebook tokens differ from "
+          f"single-request serving under the same schedule"
+          + (f" (first divergences: {firsts})" if firsts else "")
+          + f"; launches {launches} [{card}]")
+    print(json.dumps({"phase": "23", **row}))
+    return launches, row
+
+
+def _llava_decode_check(served: dict, card: str) -> dict:
+    """Phase 22c's decode gate on the served consensus, in float32 (the
+    reference's gate is a float32 one): prefill of the image prefix and
+    the 4 prompts into a cache of prefix + 128 + 32 positions, then the
+    first 8 generated tokens decoded, each step's logits within DECODE_TOL
+    of the uncached forward over the same context; the reference's serve
+    sizing (128 + 32 positions, so decode overwrites the oldest image
+    positions) is run too and its drift printed."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    n = 8
+    cfg = served["cfg"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), served["params"])
+    img, prompts = served["img_embeds"], served["prompts"]
+    gen = served["tokens"][:, :n].to(prompts.device, prompts.dtype)
+    P, S = cfg.img_tokens, prompts.shape[1]
+    with torch.no_grad():
+        full, _, _ = tf.forward(p32, cfg32, torch.cat([prompts, gen], 1),
+                                img_embeds=img, remat=False)
+        full = full[:, P + S - 1:]
+        worst = {}
+        for label, max_len in (("port", served["max_len"]),
+                               ("reference sizing", S + 32)):
+            lg, cache = tf.prefill(p32, cfg32, prompts, img_embeds=img,
+                                   max_len=max_len)
+            errs = [(lg[:, -1] - full[:, 0]).abs().max().item()]
+            bad = not torch.allclose(lg[:, -1], full[:, 0], atol=2e-3,
+                                     rtol=2e-3)
+            for t in range(n):
+                lg, cache = tf.decode_step(p32, cfg32, cache, gen[:, t:t + 1])
+                errs.append((lg[:, 0] - full[:, t + 1]).abs().max().item())
+                bad |= not torch.allclose(lg[:, 0], full[:, t + 1],
+                                          atol=DECODE_TOL, rtol=DECODE_TOL)
+            worst[label] = {"cache_positions": cache.slot_pos.shape[0],
+                            "max_abs": errs, "beyond_gate": bad}
+            del lg, cache
+    del p32, full
+    torch.cuda.empty_cache()
+    print(f"phase 22c: decode vs the uncached forward (float32 weights, "
+          f"{P} + {S} context, 8 steps): cache of "
+          f"{worst['port']['cache_positions']} positions, max |diff| "
+          f"{max(worst['port']['max_abs']):.3e} (gate {DECODE_TOL}); the "
+          f"reference's sizing ({worst['reference sizing']['cache_positions']}"
+          f" positions, decode evicting image positions) "
+          f"{max(worst['reference sizing']['max_abs']):.3e} [{card}]")
+    if worst["port"]["beyond_gate"]:
+        raise AssertionError("phase 22c: cached decode beyond the 5e-3 "
+                             "gate of the uncached forward")
+    return worst
+
+
+def phase_llava(card: str, scratch: Path):
+    """Phase 22c: llava-next-mistral-7b at full width, cut to
+    LLAVA_CUT_LAYERS of its 32 layers, through ``train.main`` with
+    ``--engine auto`` (sharded, world 1), K = 2 ring, q 0.9, T = 2, SGD mu
+    0.05, B = 1 x (2,880 image positions + 1,024 tokens), ``--mix
+    pallas``, 2 blocks, the stack drawn on the card, ``--checkpoint``: the
+    launch counts exact, the blocks' float32 image stream, block 0
+    bit-equal to one stacked-engine step; then the checkpoint through
+    ``serve.main(..., num_layers=LLAVA_CUT_LAYERS)`` with no spec flag:
+    the consensus through ``diffusion_mix``, 4 prompts of 128 after the
+    image prefix, 32 greedy steps, a cache of 2,880 + 128 + 32 positions,
+    and ``_llava_decode_check``.  Returns the training and serving
+    launches and the row."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    K, blocks, layers = 2, 2, LLAVA_CUT_LAYERS
+    M = full_width_M(LLAVA, layers)
+    tiles = num_tiles(K, M)
+    path = str(scratch / "llava_k2.npz")
+    keep, on_block = _block0_keeper()
+    out, row = _train_full(card, "phase 22c",
+                           ["--engine", "auto", "--mix", "pallas",
+                            "--checkpoint", path], blocks,
+                           _train_launches(K, tiles, blocks), K=K,
+                           layers=layers, on_block=on_block, arch=LLAVA)
+    _check_sharded_world1("phase 22c", out["engine"])
+    cfg, spec = out["cfg"], out["spec"]
+    img = keep["batch"]["img_embeds"]
+    if (tuple(img.shape) != (2, K, 1, cfg.img_tokens, 1024)
+            or img.dtype != torch.float32):
+        raise AssertionError(f"phase 22c: image stream {tuple(img.shape)} "
+                             f"{img.dtype}")
+    del out
+    torch.cuda.empty_cache()
+    ckpt_gb = Path(path).stat().st_size / 1e9
+    _check_stacked_step("phase 22c", spec, cfg, keep)
+    keep.clear()
+    torch.cuda.empty_cache()
+    print(f"phase 22c: {LLAVA} M = {M:,} an agent at {layers} of 32 layers "
+          f"({tiles} column tiles at K = {K}); block 0 bit-equal to one "
+          f"stacked-engine step; checkpoint {ckpt_gb:.2f} GB [{card}]")
+    train_launches = row["launches"]
+
+    argv = ["--checkpoint", path, "--batch", "4", "--prompt-len", "128",
+            "--decode", "32", "--temperature", "0"]
+    reset_launches()
+    served = serve.main(argv, num_layers=layers)
+    serve_launches = read_launches()
+    Path(path).unlink()
+    want = {"diffusion_mix": tiles, "flash_attention": 0,
+            "diffusion_mix_int8": 0, "gather_mix": 0,
+            "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+    if serve_launches != want:
+        raise AssertionError(f"phase 22c: serving launches "
+                             f"{serve_launches}, expected {want}")
+    toks = served["tokens"]
+    if (tuple(toks.shape) != (4, 32) or toks.min() < 0
+            or toks.max() >= cfg.vocab_size
+            or served["max_len"] != cfg.img_tokens + 128 + 32):
+        raise AssertionError(f"phase 22c: tokens {tuple(toks.shape)}, "
+                             f"cache {served['max_len']}")
+    t = served["timings"]
+    print(f"phase 22c: serve load {t['load_s']:.2f}s, consensus "
+          f"{t['consensus_s']:.3f}s, prefill 4 x ({cfg.img_tokens} + 128) "
+          f"{t['prefill_s']:.3f}s, decode 32 steps {t['decode_s']:.3f}s "
+          f"({served['tokens_per_s']:.1f} tokens/s) [{card}]")
+    decode = _llava_decode_check(served, card)
+    del served
+    torch.cuda.empty_cache()
+    row.update(M=M, tiles=tiles, stacked_bit_equal=True,
+               checkpoint_gb=ckpt_gb, serve_timings=t,
+               serve_launches=serve_launches, decode_check=decode)
+    print(json.dumps({"phase": "22c", **row}))
+    return train_launches, serve_launches, row
 
 
 def main() -> int:
@@ -5831,6 +6419,23 @@ def main() -> int:
                                           granite_path, card)
         Path(granite_path).unlink()
         forward_launches = timed("phase 21c", phase_arch_forwards, card)
+        musicgen_launches, _, musicgen_path, stack = timed(
+            "phase 22a", phase_train_musicgen, card, scratch)
+        musicgen_serve_launches, _, consensus, musicgen_cfg = timed(
+            "phase 22b", phase_serve_musicgen, musicgen_path, stack, card)
+        del stack
+        # phase 23 runs on 22b's consensus and ingests 22a's checkpoint
+        serveloop_launches, _ = timed("phase 23", phase_serveloop,
+                                      musicgen_path, consensus,
+                                      musicgen_cfg, card)
+        del consensus
+        Path(musicgen_path).unlink()
+        torch.cuda.empty_cache()
+        llava_launches, llava_serve_launches, _ = timed(
+            "phase 22c", phase_llava, card, scratch)
+        modality_launches = timed(
+            "phase 22d", phase_arch_forwards, card, MODALITY_FORWARDS,
+            "phase 22d", 240)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
@@ -5863,7 +6468,14 @@ def main() -> int:
                "train_granite_moe": granite_launches,
                "serve_granite_moe": granite_serve_launches,
                **{f"forward_{arch}": counts
-                  for arch, counts in forward_launches.items()}}
+                  for arch, counts in forward_launches.items()},
+               "train_musicgen": musicgen_launches,
+               "serve_musicgen": musicgen_serve_launches,
+               "serveloop_musicgen": serveloop_launches,
+               "train_llava": llava_launches,
+               "serve_llava": llava_serve_launches,
+               **{f"forward_{arch}": counts
+                  for arch, counts in modality_launches.items()}}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
             (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),

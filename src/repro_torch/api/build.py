@@ -215,8 +215,8 @@ def _external(spec: ModelSpec):
 
 @MODELS.register("transformer")
 def _transformer(spec: ModelSpec):
-    """The port's archs (``repro_torch.configs``); the reference's others
-    raise ``NotImplementedError`` naming ROADMAP.md items 15 and 17."""
+    """Any arch of the model zoo (``repro_torch.configs``, the
+    reference's ten), its smoke config under ``spec.smoke``."""
     from repro_torch.configs import get_config    # lazy: keep api light
     from repro_torch.models import transformer as tf
     bundle = get_config(spec.arch)

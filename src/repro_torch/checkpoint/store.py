@@ -18,12 +18,27 @@ them) under the reference's key paths (``params/...``,
 :class:`repro_torch.api.ExperimentSpec` JSON in the metadata under
 ``"spec"``: :func:`load_spec` + :func:`repro_torch.api.build` rebuild the
 exact engine, :func:`load_experiment` restores the state into it.
+
+Both directions stream.  A save writes each ``.npy`` member from the
+leaf's own buffer: a host leaf in place, in 64 MiB pieces (``np.savez``
+writes the same bytes through a 16 MiB ``tobytes`` copy at a time), a
+card's leaf through two pinned 64 MiB buffers, piece i+1 copied off the
+card while piece i is written.  A load reads
+each stored member's data straight from its offset in the file into the
+destination: on the CPU into the tensor's own buffer, on a card through
+two pinned 64 MiB buffers, one filled from the file while the other is
+copied to the card.  This read skips the zip CRC check that
+``np.load`` makes; a compressed, Fortran-ordered or big-endian member
+goes through ``np.load`` and keeps it.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
+import struct
+import zipfile
 from typing import Any
 
 import numpy as np
@@ -43,26 +58,116 @@ def _path_str(path) -> str:
     return "/".join(str(p) for p in path)
 
 
+_CHUNK = 64 << 20        # bytes a write or a staged copy moves at a time
+
+
+class _Staging:
+    """Two pinned 64 MiB host buffers taking turns between the file and a
+    card: one is filled (or written out) while the other's copy runs."""
+
+    def __init__(self):
+        self.bufs = [torch.empty(_CHUNK, dtype=torch.uint8,
+                                 pin_memory=True) for _ in range(2)]
+        self.done = [torch.cuda.Event(), torch.cuda.Event()]
+        self.turn = 0
+
+    def _next(self):
+        buf, done = self.bufs[self.turn], self.done[self.turn]
+        self.turn ^= 1
+        return buf, done
+
+    def read(self, f, out: torch.Tensor) -> None:
+        """The next ``out.numel()`` bytes of ``f`` into ``out`` (uint8,
+        on a card)."""
+        for i in range(0, out.numel(), _CHUNK):
+            n = min(_CHUNK, out.numel() - i)
+            buf, done = self._next()
+            done.synchronize()               # its previous copy has ended
+            _readinto(f, buf[:n])
+            out[i:i + n].copy_(buf[:n], non_blocking=True)
+            done.record()
+
+    def write(self, fid, data: torch.Tensor) -> None:
+        """``data`` (uint8, on a card) to ``fid``: chunk i+1's copy to the
+        host runs while chunk i is written."""
+        held = None
+        for i in range(0, data.numel(), _CHUNK):
+            n = min(_CHUNK, data.numel() - i)
+            buf, done = self._next()
+            buf[:n].copy_(data[i:i + n], non_blocking=True)
+            done.record()
+            if held is not None:
+                self._flush(fid, *held)
+            held = buf[:n], done
+        if held is not None:
+            self._flush(fid, *held)
+
+    @staticmethod
+    def _flush(fid, buf, done) -> None:
+        done.synchronize()
+        fid.write(memoryview(buf.numpy()))
+
+
+def _write_member(zf: zipfile.ZipFile, key: str, v, stage) -> bool:
+    """One ``.npy`` member, as ``np.savez`` writes it, from ``v``'s own
+    buffer: a CPU tensor or array in place, a card's tensor through the
+    staging buffers (``stage()`` gives them).  Returns whether ``v`` is
+    bfloat16 (stored as the reference's raw ``V2`` bytes)."""
+    bf16 = isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
+    on_card = isinstance(v, torch.Tensor) and v.device.type != "cpu"
+    if isinstance(v, torch.Tensor):
+        v = v.detach().contiguous()
+        dtype = (np.dtype("V2") if bf16 else
+                 torch.empty(0, dtype=v.dtype).numpy().dtype)
+    else:
+        v = np.asarray(v)
+        dtype = v.dtype
+    with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+        if dtype.hasobject or dtype.kind == "U":
+            np.lib.format.write_array(fid, v, allow_pickle=False)
+            return bf16
+        header = {"descr": np.lib.format.dtype_to_descr(dtype),
+                  "fortran_order": False, "shape": tuple(v.shape)}
+        try:
+            np.lib.format.write_array_header_1_0(fid, header)
+        except ValueError:                   # too long for version 1.0
+            np.lib.format.write_array_header_2_0(fid, header)
+        if on_card:
+            stage().write(fid, v.reshape(-1).view(torch.uint8))
+            return bf16
+        if isinstance(v, torch.Tensor):
+            v = to_numpy(v)
+        data = memoryview(np.ascontiguousarray(v).reshape(-1).view(np.uint8))
+        for i in range(0, len(data), _CHUNK):
+            fid.write(data[i:i + _CHUNK])
+    return bf16
+
+
 def save_checkpoint(path: str, tree: PyTree, step: int = 0,
                     metadata: dict | None = None) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    arrays, dtypes = {}, {}
-    for p, v in tree_flatten_with_path(tree):
-        if v is None:                # JAX's convention: an empty subtree
-            continue
-        key = _path_str(p)
-        if isinstance(v, torch.Tensor):
-            arr = to_numpy(v)
-            if v.dtype == torch.bfloat16:
-                arr = arr.view("V2")         # the reference's raw layout
+    if not path.endswith(".npz"):
+        path = path + ".npz"                 # as np.savez names it
+    keys, dtypes, staging = [], {}, []
+
+    def stage():
+        if not staging:
+            staging.append(_Staging())
+        return staging[0]
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for p, v in tree_flatten_with_path(tree):
+            if v is None:            # JAX's convention: an empty subtree
+                continue
+            key = _path_str(p)
+            keys.append(key)
+            if _write_member(zf, key, v, stage):
                 dtypes[key] = "bfloat16"
-        else:
-            arr = np.asarray(v)
-        arrays[key] = arr
-    # reserved fields win over user metadata
-    meta = {**(metadata or {}), "step": step, "keys": sorted(arrays),
-            "dtypes": dtypes}
-    np.savez(path, __meta__=json.dumps(meta), **arrays)
+        # reserved fields win over user metadata
+        meta = {**(metadata or {}), "step": step, "keys": sorted(keys),
+                "dtypes": dtypes}
+        _write_member(zf, "__meta__", np.asarray(json.dumps(meta)), stage)
 
 
 def _to_tensor(arr: np.ndarray, dtype_name: str | None,
@@ -74,6 +179,60 @@ def _to_tensor(arr: np.ndarray, dtype_name: str | None,
     return from_numpy(arr, device)
 
 
+def _stored_data(f, info: zipfile.ZipInfo):
+    """``(offset, dtype, shape)`` of a stored ``.npy`` member's data in the
+    archive ``f``, or None where the member has to go through ``np.load``
+    (compressed, Fortran order, an object or big-endian dtype)."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    f.seek(info.header_offset)
+    local = f.read(30)
+    if local[:4] != b"PK\x03\x04":
+        return None
+    name_len, extra_len = struct.unpack("<HH", local[26:30])
+    start = info.header_offset + 30 + name_len + extra_len
+    f.seek(start)
+    read = {(1, 0): np.lib.format.read_array_header_1_0,
+            (2, 0): np.lib.format.read_array_header_2_0}.get(
+                np.lib.format.read_magic(f))
+    if read is None:
+        return None
+    shape, fortran, dtype = read(f)
+    if fortran or dtype.hasobject or dtype.byteorder == ">":
+        return None
+    offset = f.tell()
+    if offset - start + math.prod(shape) * dtype.itemsize != info.file_size:
+        return None
+    return offset, dtype, shape
+
+
+def _readinto(f, buf: torch.Tensor) -> None:
+    view = memoryview(buf.numpy()).cast("B")
+    while len(view):
+        n = f.readinto(view)
+        if not n:
+            raise EOFError("checkpoint member ends early")
+        view = view[n:]
+
+
+def _read_leaf(f, data, dtype_name, device, staging) -> torch.Tensor:
+    offset, dtype, shape = data
+    if dtype_name == "bfloat16":
+        tdtype = torch.bfloat16
+    elif dtype_name is not None:
+        raise ValueError(f"unsupported stored dtype {dtype_name!r}")
+    else:
+        tdtype = torch.from_numpy(np.empty(0, dtype)).dtype
+    out = torch.empty(math.prod(shape) * dtype.itemsize, dtype=torch.uint8,
+                      device=device)
+    f.seek(offset)
+    if device.type == "cpu":
+        _readinto(f, out)
+    else:
+        staging.read(f, out)
+    return out.view(tdtype).view(shape)
+
+
 def load_checkpoint(path: str, like: PyTree, *,
                     device=None) -> tuple[PyTree, dict]:
     """Restore into the structure of ``like`` (shapes validated) on
@@ -81,17 +240,22 @@ def load_checkpoint(path: str, like: PyTree, *,
 
     ``like``'s leaves only need ``.shape``: ``meta``-device tensors
     (:func:`repro_torch.models.transformer.param_specs`) describe a
-    full-width agent stack without allocating it.  Leaves are moved to the
-    device one at a time, so the host holds one leaf at a time.  ``None``
-    leaves of ``like`` stay ``None``.
+    full-width agent stack without allocating it.  Leaves are read from
+    the file one at a time, straight into their tensors (through two
+    64 MiB pinned buffers for a card).  ``None`` leaves of ``like`` stay
+    ``None``.
     """
     dev = resolve_device(device)
     if not path.endswith(".npz"):
         path = path + ".npz"
     leaves = []
-    with np.load(path, allow_pickle=False) as z:
+    with np.load(path, allow_pickle=False) as z, \
+            open(path, "rb", buffering=0) as f:
         meta = json.loads(str(z["__meta__"]))
         dtypes = meta.get("dtypes", {})
+        infos = {i.filename[:-4]: i for i in z.zip.infolist()
+                 if i.filename.endswith(".npy")}
+        staging = _Staging() if dev.type == "cuda" else None
         for p, v in tree_flatten_with_path(like):
             if v is None:
                 leaves.append(None)
@@ -99,11 +263,17 @@ def load_checkpoint(path: str, like: PyTree, *,
             key = _path_str(p)
             if key not in z:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
-            arr = z[key]
-            if hasattr(v, "shape") and tuple(arr.shape) != tuple(v.shape):
-                raise ValueError(f"{key}: shape {arr.shape} != "
+            data = _stored_data(f, infos[key]) if key in infos else None
+            arr = z[key] if data is None else None
+            shape = data[2] if data else arr.shape
+            if hasattr(v, "shape") and tuple(shape) != tuple(v.shape):
+                raise ValueError(f"{key}: shape {tuple(shape)} != "
                                  f"{tuple(v.shape)}")
-            leaves.append(_to_tensor(arr, dtypes.get(key), dev))
+            leaves.append(_to_tensor(arr, dtypes.get(key), dev) if data is None
+                          else _read_leaf(f, data, dtypes.get(key), dev,
+                                          staging))
+        if staging is not None:
+            torch.cuda.current_stream(dev).synchronize()
     return tree_unflatten(like, leaves), meta
 
 

@@ -2,8 +2,8 @@
 
 The fields are the reference's, so a config converts field for field;
 ``dtype`` stays a string and :attr:`ModelConfig.param_dtype` maps it to a
-torch dtype.  The registry lists only the architectures the port can run;
-asking for another one names the ROADMAP item that brings it.
+torch dtype.  The registry lists the reference's ten architectures; an
+unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -117,31 +117,22 @@ class ArchBundle:
     citation: str
 
 
-#: architectures the port runs today
+#: the architectures of the model zoo (the reference's ten)
 ARCH_IDS = ("smollm_360m", "mamba2_2p7b", "zamba2_1p2b", "chatglm3_6b",
             "qwen3_32b", "starcoder2_15b", "granite_moe_1b_a400m",
-            "kimi_k2_1t_a32b")
+            "kimi_k2_1t_a32b", "llava_next_mistral_7b", "musicgen_medium")
 
 _ALIASES = {"smollm-360m": "smollm_360m", "mamba2-2.7b": "mamba2_2p7b",
             "zamba2-1.2b": "zamba2_1p2b", "chatglm3-6b": "chatglm3_6b",
             "qwen3-32b": "qwen3_32b", "starcoder2-15b": "starcoder2_15b",
             "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b"}
-
-#: the reference's other architectures, with the ROADMAP item that ports
-#: what they need
-_PENDING = {
-    "llava_next_mistral_7b": "queue 1 item 17 (image prefix)",
-    "musicgen_medium": "queue 1 item 17 (multi-codebook embeddings)",
-}
+            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+            "llava-next-mistral-7b": "llava_next_mistral_7b",
+            "musicgen-medium": "musicgen_medium"}
 
 
 def get_config(arch: str) -> ArchBundle:
     mod_name = _ALIASES.get(arch, arch.replace("-", "_").replace(".", "p"))
-    if mod_name in _PENDING:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: see ROADMAP.md "
-            f"{_PENDING[mod_name]}")
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")

@@ -25,6 +25,17 @@ port's own stream, :func:`repro_torch.data.synthetic.lm_token_batch`),
 (:meth:`TokenDataset.synthetic`) and replay any block from its index.
 They take plain arguments in place of the reference's ``DataSpec`` and
 ``ExperimentSpec`` and keep the reference's names.
+
+An image-prefix config (llava) adds ``img_embeds`` (T, K, B, img_tokens,
+VISION_DIM) float32, normal times 0.02, to every block, drawn from
+``key``: under ``"iid"`` after the tokens and labels (the port's order;
+the reference splits its key in two, ``k_tok, k_img``), under the corpus
+kinds from ``key`` alone (their tokens come from the iterator).  A
+codebook config (musicgen) takes the ``"iid"`` stream only, as in the
+reference: its (T, K, B, S, nq) labels shift along the last axis, the
+codebook axis (``labels[..., q] = tokens[..., q + 1]``, the last codebook
+labelled 0), which is the reference's layout, kept so that a block means
+the same thing in both packages (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import VISION_DIM
 
 __all__ = ["DATA_KINDS", "BlockIterator", "TokenDataset",
            "contiguous_partition", "dirichlet_partition",
@@ -42,9 +54,6 @@ __all__ = ["DATA_KINDS", "BlockIterator", "TokenDataset",
 
 #: the partition kinds of the training driver's ``--data``
 DATA_KINDS = ("iid", "dirichlet", "shards")
-
-#: the reference's stubbed vision-encoder output width (image prefixes)
-VISION_DIM = 1024
 
 
 def dirichlet_partition(labels: np.ndarray, K: int, alpha: float,
@@ -183,28 +192,27 @@ def train_block_struct(cfg, *, T: int, K: int, batch: int,
     return out
 
 
-def _token_struct(cfg, **shape) -> dict:
-    """:func:`train_block_struct` of a text-only config: the image-prefix
-    archs (llava) come with ROADMAP.md queue 1 item 17."""
-    if cfg.img_tokens:
-        raise NotImplementedError("image-prefix blocks are not ported yet: "
-                                  "see ROADMAP.md queue 1 item 17")
-    return train_block_struct(cfg, **shape)
+def _img_embeds(key: torch.Generator, struct: dict) -> torch.Tensor:
+    """The block's image prefix: float32 normals times 0.02 from ``key``."""
+    return torch.randn(struct["img_embeds"][0], generator=key,
+                       device=key.device).mul_(0.02)
 
 
 def _iid_provider(cfg, *, num_agents: int, local_steps: int, batch: int,
                   seq: int, device=None):
     """Fresh uniform tokens every block from the host generator ``key``
-    (the block index is ignored)."""
+    (the block index is ignored), then the image prefix, if any."""
     from repro_torch.data.synthetic import lm_token_batch
 
     device = resolve_device(device)
-    shape = _token_struct(cfg, T=local_steps, K=num_agents, batch=batch,
-                          seq=seq)["tokens"][0]
+    struct = train_block_struct(cfg, T=local_steps, K=num_agents,
+                                batch=batch, seq=seq)
 
     def provider(index: int, key: torch.Generator) -> dict:
-        return {name: x.to(device) for name, x in lm_token_batch(
-            key, shape, cfg.vocab_size).items()}
+        out = lm_token_batch(key, struct["tokens"][0], cfg.vocab_size)
+        if "img_embeds" in struct:
+            out["img_embeds"] = _img_embeds(key, struct)
+        return {name: x.to(device) for name, x in out.items()}
 
     return provider
 
@@ -214,14 +222,16 @@ def _corpus_provider(kind: str, cfg, partition_fn, *, num_agents: int,
                      corpus_tokens: int, device=None):
     """The partitioned-corpus kinds: a seeded Zipf :class:`TokenDataset`,
     per-agent window partitions from ``partition_fn(n_windows, K)``, and
-    an index-replayable :class:`BlockIterator`.  The provider carries
-    ``.iterator``, ``.partitions`` and ``.dataset``."""
+    an index-replayable :class:`BlockIterator` (and the image prefix
+    from ``key``).  The provider carries ``.iterator``, ``.partitions``
+    and ``.dataset``."""
     if cfg.num_codebooks:
         raise ValueError(
             f"data kind {kind!r} partitions a flat token corpus, "
             "which has no codebook axis — multi-codebook archs take the "
             'synthetic stream (data kind "iid")')
-    _token_struct(cfg, T=local_steps, K=num_agents, batch=batch, seq=seq)
+    struct = train_block_struct(cfg, T=local_steps, K=num_agents,
+                                batch=batch, seq=seq)
     ds = TokenDataset.synthetic(cfg.vocab_size, corpus_tokens, seq,
                                 seed=seed)
     parts = partition_fn(ds.num_windows, num_agents)
@@ -229,7 +239,10 @@ def _corpus_provider(kind: str, cfg, partition_fn, *, num_agents: int,
                        per_agent_batch=batch, seed=seed, device=device)
 
     def provider(index: int, key: torch.Generator) -> dict:
-        return it.block(index)
+        out = it.block(index)
+        if "img_embeds" in struct:
+            out["img_embeds"] = _img_embeds(key, struct).to(it.device)
+        return out
 
     provider.iterator = it
     provider.partitions = parts

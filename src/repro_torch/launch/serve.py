@@ -12,6 +12,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --checkpoint ckpt.npz --batch 2 --prompt-len 16 --decode 4 \
       --temperature 0
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch musicgen-medium --smoke --watch ckpts/ --watch-ticks 20 \
+      --temperature 0
 
 Counterpart of ``repro.launch.serve``.  A checkpoint written by
 ``repro_torch.launch.train --checkpoint`` (or the reference's) embeds its
@@ -37,24 +40,37 @@ defaults to 1 here (a plain checkpoint is one model), so ``--preset``
 needs an explicit ``--agents``.  ``--device`` defaults to CUDA and never
 falls back to the CPU by itself; ``--device cpu`` runs the plain versions.
 
-``--watch`` needs ``ServeLoop``, still to be ported (ROADMAP.md queue 1
-item 26).
+A codebook config (musicgen) takes prompts (B, P, nq) and decodes (B, n,
+nq) tokens.  An image-prefix config (llava) draws an image prefix (B,
+img_tokens, VISION_DIM), float32 normals times 0.02, from the prompts'
+CPU stream after the prompts, and passes it to prefill; the cache is then
+sized for the whole context, ``img_tokens + prompt_len + decode``
+positions (the reference sizes it ``prompt_len + decode``, so that each
+decoded token overwrites the oldest image position: ROADMAP.md queue 3).
+
+``--watch DIR`` switches to the continuous-batching
+:class:`repro_torch.launch.serving.ServeLoop` (``--batch`` slots, the
+``--batch`` prompts as requests, chunks of ``min(8, --decode)`` tokens)
+and re-extracts the consensus as training checkpoints stream into DIR
+(double-buffered swap: in-flight decodes never see a torn update), every
+``--watch-poll`` seconds, for ``--watch-ticks`` ticks (forever by
+default).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 import warnings
 
 import torch
 
-from repro_torch.api import EngineState, TOPOLOGIES, build
 from repro_torch.api.cli import add_spec_args, spec_from_args
-from repro_torch.checkpoint.store import (load_checkpoint, load_experiment,
-                                          load_spec)
+from repro_torch.checkpoint.store import load_checkpoint, load_spec
 from repro_torch.configs import get_config
 from repro_torch.core.serving import CONSENSUS_QUANTIZE, consensus_from_stacked
 from repro_torch.device import resolve_device
+from repro_torch.launch.serving import Request, ServeLoop, spec_consensus
 from repro_torch.models import transformer as tf
 
 __all__ = ["consensus_from_stacked", "load_params", "main"]
@@ -65,72 +81,37 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _load_spec_checkpoint(args, spec, device: torch.device, timings: dict):
+def _load_spec_checkpoint(args, spec, device: torch.device, timings: dict,
+                          num_layers: int | None = None):
     """(params, cfg, freshness weights or None) of a spec-embedding
     checkpoint: the engine rebuilt from the stored spec, the consensus of
-    the restored stack."""
+    the restored stack (:func:`repro_torch.launch.serving.spec_consensus`),
+    with the reference's report of it."""
     if getattr(args, "spec", None) or getattr(args, "preset", None):
         warnings.warn(
             "the checkpoint embeds its own ExperimentSpec, which takes "
             "precedence — the --spec/--preset flags are ignored for "
             "serving", stacklevel=3)
-    eng = build(spec, device=device)
-    K = spec.run.num_agents
-    cfg = eng.model.cfg
-    # meta tensors: the template gives shapes only, no K random models
-    like = EngineState(tf.param_specs(cfg, num_agents=K))
-    is_async = spec.asynchrony.enabled
-    if is_async:
-        # the clocks too: the consensus weights the stack by freshness
-        like = like.replace(async_state={"t_local": torch.empty(
-            (K,), dtype=torch.float32, device="meta")})
-    t0 = time.perf_counter()
-    state, meta = load_experiment(args.checkpoint, like, device=device)
-    _sync(device)
-    timings["load_s"] = time.perf_counter() - t0
-    weights = None
-    if is_async:
-        t_local = state.async_state["t_local"]
-        age = t_local.max() - t_local
-        weights = eng._discount(age)
-        a = spec.asynchrony
-        print(f"async checkpoint: freshness-weighted consensus "
-              f"(discount={a.discount}({a.discount_rate}); agent clock "
-              f"ages max={float(age.max()):.1f})")
-    if meta.get("epsilon_spent") is not None:
-        print(f"privacy: checkpoint trained under "
-              f"(epsilon={float(meta['epsilon_spent']):.3f}, "
-              f"delta={meta.get('privacy_delta', spec.privacy.delta):g})"
-              "-DP (RDP accountant at the realized participation rate)")
-    # the consensus comes from the topology the agents trained on; a
-    # time-varying graph is approximated by its base topology
-    topo = (TOPOLOGIES.get(spec.topology.kind)(spec.topology, K)
-            if K > 1 else None)
     if spec.graph.kind != "static":
         warnings.warn(
             f"checkpoint was trained on a time-varying graph "
             f"({spec.graph.kind!r}); consensus extraction uses the base "
             f"{spec.topology.kind!r} topology, not a realized draw",
             stacklevel=3)
-    print(f"loaded spec checkpoint (K={K}, arch={spec.model.arch}, "
-          f"step={meta.get('step')}); extracting consensus via "
-          f"mix={spec.mixer.kind} over topology={spec.topology.kind}")
-    t0 = time.perf_counter()
-    params = consensus_from_stacked(
-        state.params, K, spec.mixer.kind, trim=spec.mixer.trim,
-        scope=spec.mixer.scope, topology=topo,
-        quantize=args.consensus_quantize, weights=weights)
-    _sync(device)
-    timings["consensus_s"] = time.perf_counter() - t0
-    del state
+    params, cfg, _, weights = spec_consensus(
+        args.checkpoint, spec, quantize=args.consensus_quantize,
+        device=device, timings=timings, report=True, num_layers=num_layers)
     return params, cfg, weights
 
 
-def load_params(args, key: torch.Generator, device: torch.device):
+def load_params(args, key: torch.Generator, device: torch.device,
+                num_layers: int | None = None):
     """Resolve (params, cfg, timings, weights) from a spec checkpoint, the
     stacked-checkpoint path, a plain checkpoint, or fresh initialization
     from ``key``; ``weights`` are an async checkpoint's freshness weights
-    (else None)."""
+    (else None).  ``num_layers`` cuts the config's depth (widths kept), as
+    ``train.main``'s knob of that name does for the checkpoints it
+    writes."""
     timings = {}
     spec = load_spec(args.checkpoint) if args.checkpoint else None
     if spec is not None and spec.model.kind == "external":
@@ -141,10 +122,12 @@ def load_params(args, key: torch.Generator, device: torch.device):
         spec = None
     if spec is not None:
         params, cfg, weights = _load_spec_checkpoint(args, spec, device,
-                                                     timings)
+                                                     timings, num_layers)
         return params, cfg, timings, weights
     bundle = get_config(args.arch)
     cfg = bundle.smoke if args.smoke else bundle.model
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     if not args.checkpoint:
         return tf.init_params(key, cfg), cfg, timings, None
     K = args.agents
@@ -181,10 +164,15 @@ def _check_preset_shim(ap: argparse.ArgumentParser, args) -> None:
             "preset's agent count")
 
 
-def main(argv=None) -> dict:
-    """Run the driver; returns the consensus params, the generated tokens,
-    the last-position prefill logits, the timings (seconds) and an async
-    checkpoint's freshness weights (``weights``, else None)."""
+def main(argv=None, *, num_layers: int | None = None) -> dict:
+    """Run the driver (``num_layers`` cuts the model's depth, keeping its
+    widths, as ``train.main``'s knob does: a checkpoint trained at a cut
+    depth serves at it); returns the consensus params, the prompts (and the
+    image prefix, ``img_embeds``, else None), the generated tokens, the
+    last-position prefill logits, the cache's positions (``max_len``), the
+    timings (seconds) and an async checkpoint's freshness weights
+    (``weights``, else None).  With ``--watch``: the params, the
+    ServeLoop (``loop``) and its completions (``completions``)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     add_spec_args(ap)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -202,6 +190,15 @@ def main(argv=None) -> dict:
                     help="collapse the agent stack from int8-quantized "
                          "leaves (Int8Stochastic, the training-side wire "
                          "quantizer) instead of the stored ones")
+    ap.add_argument("--watch", default=None, metavar="DIR",
+                    help="continuous mode: serve through the slot-batched "
+                         "ServeLoop while re-extracting the consensus from "
+                         "*.npz checkpoints streaming into DIR "
+                         "(double-buffered param swap)")
+    ap.add_argument("--watch-poll", type=float, default=2.0,
+                    help="watch-mode poll interval, seconds")
+    ap.add_argument("--watch-ticks", type=int, default=None,
+                    help="stop watch mode after N ticks (default: forever)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; never falls back)")
     # a spec-less checkpoint is a plain single model unless --agents says
@@ -218,15 +215,43 @@ def main(argv=None) -> dict:
     kp, ks = (torch.Generator(device=device).manual_seed(args.seed + i)
               for i in (0, 2))
     kt = torch.Generator().manual_seed(args.seed + 1)
-    params, cfg, timings, weights = load_params(args, kp, device)
+    params, cfg, timings, weights = load_params(args, kp, device,
+                                                num_layers)
 
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
-                            generator=kt).to(device)
-    max_len = args.prompt_len + args.decode
+    shape = (args.batch, args.prompt_len) + (
+        (cfg.num_codebooks,) if cfg.num_codebooks else ())
+    prompts = torch.randint(0, cfg.vocab_size, shape, generator=kt)
+    img = None
+    if cfg.img_tokens:
+        img = torch.randn((args.batch, cfg.img_tokens, tf.VISION_DIM),
+                          generator=kt).mul_(0.02).to(device)
+    prompts = prompts.to(device)
+    # the cache holds the whole context: image prefix, prompt, decode
+    max_len = (cfg.img_tokens if img is not None else 0) + (
+        args.prompt_len + args.decode)
+
+    if args.watch:
+        loop = ServeLoop(cfg, params, slots=args.batch,
+                         max_len=args.prompt_len + args.decode,
+                         decode_loop=args.decode_loop,
+                         temperature=args.temperature,
+                         chunk=max(1, min(8, args.decode)), seed=args.seed)
+        for i in range(args.batch):
+            loop.submit(Request(uid=i, prompt=prompts[i].cpu().numpy(),
+                                max_new_tokens=args.decode))
+        done = loop.watch(args.watch, poll_s=args.watch_poll,
+                          max_ticks=args.watch_ticks,
+                          quantize=args.consensus_quantize)
+        for c in sorted(done, key=lambda c: c.uid):
+            print(f"request {c.uid}: {len(c.tokens)} tokens across "
+                  f"{len(set(c.generations))} checkpoint generation(s)")
+        return {"params": params, "cfg": cfg, "loop": loop,
+                "completions": done, "timings": timings}
 
     with torch.inference_mode():
         t0 = time.perf_counter()
-        logits, cache = tf.prefill(params, cfg, prompts, max_len=max_len)
+        logits, cache = tf.prefill(params, cfg, prompts, img_embeds=img,
+                                   max_len=max_len)
         logits = logits[:, -1]
         _sync(device)
         timings["prefill_s"] = time.perf_counter() - t0
@@ -247,8 +272,8 @@ def main(argv=None) -> dict:
                 lg, cache = tf.decode_step(params, cfg, cache, nxt[:, None])
                 logits = lg[:, 0]
             gen = (torch.stack(out_tokens, dim=1) if out_tokens else
-                   torch.empty((args.batch, 0), dtype=torch.int32,
-                               device=device))
+                   torch.empty(shape[:1] + (0,) + shape[2:],
+                               dtype=torch.int32, device=device))
         gen = gen.cpu()                   # device -> host inside the window
         timings["decode_s"] = time.perf_counter() - t0
 
@@ -258,9 +283,10 @@ def main(argv=None) -> dict:
     print(f"decode:  {args.decode} steps ({args.decode_loop} loop) in "
           f"{timings['decode_s']:.3f}s ({tok_s:.1f} tok/s)")
     print("sample tokens[0,:16]:", gen[0, :16].tolist())
-    return {"params": params, "cfg": cfg, "tokens": gen,
-            "prefill_logits": first_logits, "timings": timings,
-            "tokens_per_s": tok_s, "weights": weights}
+    return {"params": params, "cfg": cfg, "prompts": prompts,
+            "img_embeds": img, "tokens": gen, "prefill_logits": first_logits,
+            "max_len": max_len, "timings": timings, "tokens_per_s": tok_s,
+            "weights": weights}
 
 
 if __name__ == "__main__":

@@ -10,8 +10,16 @@ the port loops over its layers.  The port runs ``attn``, ``moe``
 Mamba2 mixer, :mod:`repro_torch.models.ssm`) and ``shared_attn`` segments:
 zamba2's shared attention block is stored once, at ``params["shared_attn"]``,
 each of its segments is an empty dict, and the block is applied at every
-slot of the segment.  The image prefix and multi-codebook embeddings raise
-``NotImplementedError`` (ROADMAP.md queue 1 item 17).
+slot of the segment.  Two modalities ride on the decoder as in the
+reference: musicgen's ``num_codebooks`` parallel token streams (tokens
+``(B, S, nq)``, an ``(nq, V, D)`` embedding whose per-codebook rows are
+summed, an ``(nq, D, V)`` head giving ``(B, S, nq, V)`` logits) and
+llava's image prefix (``img_embeds`` ``(B, img_tokens, VISION_DIM)``
+float32 through the ``projector`` ``{"w": (VISION_DIM, D), "b": (D,)}``,
+concatenated in front of the token embeddings; the loss drops the
+prefix's logits).  The projector runs in float32 with its weights upcast,
+then casts to the parameter dtype, as JAX's promotion of float32
+embeddings against bf16 weights does.
 
 A segment's stacked leaves are allocated once, in their own dtype, and
 each layer's draw is copied into its slot (a one-layer segment is a view
@@ -25,13 +33,18 @@ intra-chunk kernel (:func:`repro_torch.kernels.ops.ssd_op`), else the plain
 :func:`repro_torch.models.ssm.ssd_chunked`.  Prefill always takes the plain
 versions, as the reference's does.
 
-The cache is the reference's whole-batch ring buffer: position p lives in
-slot p % C, ``slot_pos`` records the absolute position held by each slot
-(-1 = empty), and decode masks by validity and the sliding window.  Unlike
-the JAX version, :func:`decode_step` writes the new K/V (and the new SSM
-and conv states) into the cache tensors in place (one slot per layer
-instead of a copy of the cache) and returns the same :class:`Cache`;
-``pos`` is a Python int.
+The cache is the reference's ring buffer: position p lives in slot p % C,
+``slot_pos`` records the absolute position held by each slot (-1 = empty),
+and decode masks by validity and the sliding window.  It comes in the
+reference's two layouts: whole-batch (``pos`` a Python int, ``slot_pos``
+(C,)), where every row sits at one position, and per-slot
+(``init_cache(..., per_slot=True)``: ``pos`` (B,) and ``slot_pos`` (B, C)
+int32 tensors), where each row is a request of its own at its own
+position (the continuous-batching :mod:`repro_torch.launch.serving`).
+Unlike the JAX version, :func:`decode_step` writes the new K/V (and the
+new SSM and conv states) into the cache tensors in place (one slot per
+layer and row instead of a copy of the cache) and returns the same
+:class:`Cache`.
 """
 from __future__ import annotations
 
@@ -54,7 +67,10 @@ PyTree = Any
 
 __all__ = ["init_params", "param_specs", "forward", "train_loss", "Cache",
            "init_cache", "prefill", "decode_step", "sample_logits",
-           "decode_loop"]
+           "decode_loop", "VISION_DIM"]
+
+#: the stubbed vision encoder's output width (CLIP-large), the reference's
+VISION_DIM = 1024
 
 
 def _seg_key(index: int, kind: str, n: int) -> str:
@@ -75,13 +91,6 @@ def _adims(cfg: ModelConfig) -> L.AttnDims:
 def _ssm_kw(cfg: ModelConfig) -> dict:
     return dict(expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
                 state=cfg.ssm_state, conv_kernel=cfg.conv_kernel)
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.num_codebooks or cfg.img_tokens:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-codebook / image-prefix embeddings are not "
-            "ported yet; see ROADMAP.md queue 1 item 17")
 
 
 # ---------------------------------------------------------------------------
@@ -133,10 +142,16 @@ def init_params(key: torch.Generator, cfg: ModelConfig) -> PyTree:
     (torch cannot replay JAX's random streams — carry reference weights
     across with :func:`repro_torch.models.convert.params_from_jax`).
     """
-    _check_supported(cfg)
     dtype = cfg.param_dtype
-    p: dict = {"embed": L._normal(key, (cfg.vocab_size, cfg.d_model), 0.02,
-                                  dtype)}
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    p: dict = {"embed": L._normal(key, cb + (cfg.vocab_size, cfg.d_model),
+                                  0.02, dtype)}
+    if cfg.img_tokens:
+        p["projector"] = {
+            "w": L._normal(key, (VISION_DIM, cfg.d_model),
+                           1.0 / np.sqrt(VISION_DIM), dtype),
+            "b": torch.zeros((cfg.d_model,), dtype=dtype,
+                             device=key.device)}
     segs = {}
     for si, (kind, n) in enumerate(cfg.segments()):
         if kind == "attn" and cfg.shared_attention:
@@ -149,7 +164,7 @@ def init_params(key: torch.Generator, cfg: ModelConfig) -> PyTree:
         p["shared_attn"] = _block_init(key, cfg, "attn", dtype)
     p["final_norm"] = L.init_rms_norm(cfg.d_model, dtype, key.device)
     if not cfg.tie_embeddings:
-        p["lm_head"] = L._normal(key, (cfg.d_model, cfg.vocab_size),
+        p["lm_head"] = L._normal(key, cb + (cfg.d_model, cfg.vocab_size),
                                  1.0 / np.sqrt(cfg.d_model), dtype)
     return p
 
@@ -159,7 +174,6 @@ def param_specs(cfg: ModelConfig, *, num_agents: int | None = None) -> PyTree:
     and dtypes with zero allocation (a template for
     :func:`repro_torch.checkpoint.load_checkpoint`).  ``num_agents`` adds a
     leading agent axis."""
-    _check_supported(cfg)
     lead = () if num_agents is None else (num_agents,)
 
     def spec(*shape):
@@ -190,7 +204,10 @@ def param_specs(cfg: ModelConfig, *, num_agents: int | None = None) -> PyTree:
             p["mlp"] = {"w_up": spec(*n, D, F), "w_down": spec(*n, F, D)}
         return p
 
-    p: dict = {"embed": spec(V, D)}
+    cb = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    p: dict = {"embed": spec(*cb, V, D)}
+    if cfg.img_tokens:
+        p["projector"] = {"w": spec(VISION_DIM, D), "b": spec(D)}
     segs = {}
     for si, (kind, n) in enumerate(cfg.segments()):
         if kind == "attn" and cfg.shared_attention:
@@ -202,7 +219,7 @@ def param_specs(cfg: ModelConfig, *, num_agents: int | None = None) -> PyTree:
         p["shared_attn"] = block("attn")
     p["final_norm"] = {"scale": spec(D)}
     if not cfg.tie_embeddings:
-        p["lm_head"] = spec(D, V)
+        p["lm_head"] = spec(*cb, D, V)
     return p
 
 
@@ -216,15 +233,38 @@ def _layers(seg_params: dict, n: int) -> list:
     return [{k: per_key[k][j] for k in seg_params} for j in range(n)]
 
 
-def _embed_inputs(params: PyTree, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]               # (B, S, D)
+def _embed_inputs(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor,
+                  img_embeds: torch.Tensor | None):
+    """Token (+ codebook / + image-prefix) embedding: returns (x (B, S', D),
+    n_prefix).  Codebook tokens (B, S, nq) take the sum of their
+    per-codebook rows; an image prefix (B, P, VISION_DIM) is projected in
+    float32 (the weights upcast, as JAX promotes float32 embeddings
+    against bf16 weights), cast to the parameter dtype and put in front."""
+    emb = params["embed"]
+    if cfg.num_codebooks:
+        q = torch.arange(cfg.num_codebooks, device=tokens.device)
+        x = emb[q, tokens.long()].sum(dim=-2)            # (B, S, D)
+    else:
+        x = emb[tokens.long()]                           # (B, S, D)
+    if not (cfg.img_tokens and img_embeds is not None):
+        return x, 0
+    pj = params["projector"]
+    proj = img_embeds.float() @ pj["w"].float() + pj["b"].float()
+    return torch.cat([proj.to(x.dtype), x], dim=1), img_embeds.shape[1]
 
 
 def _lm_logits(params: PyTree, cfg: ModelConfig,
                x: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits, or (B, S, nq, V) with codebooks."""
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+        W = params["embed"]
+        if cfg.num_codebooks:
+            return torch.einsum("bsd,qvd->bsqv", x, W)
+        return x @ W.T
+    W = params["lm_head"]
+    if cfg.num_codebooks:
+        return torch.einsum("bsd,qdv->bsqv", x, W)
+    return x @ W
 
 
 # ---------------------------------------------------------------------------
@@ -277,20 +317,17 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             q_chunk: int = 512, kv_chunk: int = 512):
     """Full-sequence forward.  Returns (logits, aux_loss, n_prefix), as the
     reference does: ``aux_loss`` the float32 sum of the MoE layers'
-    load-balance losses (0 without experts), ``n_prefix`` 0 (the ported
-    configs are text-only).
+    load-balance losses (0 without experts), ``n_prefix`` the image
+    prefix's length (0 without one; its positions lead the logits).
 
-    tokens: (B, S) integer.  ``remat`` recomputes each block's activations
-    in the backward pass (``torch.utils.checkpoint``, non-reentrant), as
-    the reference's ``jax.checkpoint`` of the scan body does.
+    tokens: (B, S) integer, or (B, S, nq) for multi-codebook audio;
+    ``img_embeds`` (B, P, VISION_DIM) for an image-prefix config.
+    ``remat`` recomputes each block's activations in the backward pass
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` of the scan body does.
     """
-    _check_supported(cfg)
-    if img_embeds is not None:
-        raise NotImplementedError(
-            "image-prefix embeddings are not ported yet; see ROADMAP.md "
-            "queue 1 item 17")
     window = window if window is not None else cfg.attention_window
-    x = _embed_inputs(params, tokens)
+    x, n_prefix = _embed_inputs(params, cfg, tokens, img_embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -306,18 +343,22 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
             if a is not None:
                 aux = aux + a
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return _lm_logits(params, cfg, x), aux, 0
+    return _lm_logits(params, cfg, x), aux, n_prefix
 
 
 def train_loss(params: PyTree, cfg: ModelConfig, batch: dict,
                rng=None, *, remat: bool = True) -> torch.Tensor:
     """Next-token cross-entropy in float32, plus ``aux_loss_coef`` times
     the MoE load-balance loss when the config has experts.  batch:
-    ``tokens``/``labels`` (B, S).  ``rng`` is unused, as in the
-    reference."""
+    ``tokens``/``labels`` (B, S) or (B, S, nq), and ``img_embeds`` for an
+    image-prefix config, whose prefix logits are dropped.  ``rng`` is
+    unused, as in the reference."""
     del rng
-    logits, aux, _ = forward(params, cfg, batch["tokens"],
-                             img_embeds=batch.get("img_embeds"), remat=remat)
+    logits, aux, n_prefix = forward(params, cfg, batch["tokens"],
+                                    img_embeds=batch.get("img_embeds"),
+                                    remat=remat)
+    if n_prefix:
+        logits = logits[:, n_prefix:]
     logp = torch.log_softmax(logits.float(), dim=-1)
     labels = batch["labels"].long()
     loss = -logp.gather(-1, labels[..., None])[..., 0].mean()
@@ -335,12 +376,18 @@ class Cache:
     """Decode cache.  ``segments`` mirrors ``params['segments']`` order; an
     attention or shared-attention entry holds ``k``/``v`` of shape
     (n, B, C, Kv, Dh), a mamba entry ``ssm`` (n, B, H, P, N) float32 and
-    ``conv`` (n, B, k - 1, conv_dim) in the parameter dtype.  ``pos`` is
-    the next write position (whole batch), ``slot_pos`` (C,) int32 the
-    absolute position stored in each ring slot."""
+    ``conv`` (n, B, k - 1, conv_dim) in the parameter dtype: the batch is
+    axis 1 of every leaf.  Whole-batch layout: ``pos`` the next write
+    position (an int), ``slot_pos`` (C,) int32 the absolute position
+    stored in each ring slot.  Per-slot layout: ``pos`` (B,) and
+    ``slot_pos`` (B, C) int32 tensors, one request a row."""
     segments: tuple
-    pos: int
+    pos: int | torch.Tensor
     slot_pos: torch.Tensor
+
+    @property
+    def per_slot(self) -> bool:
+        return self.slot_pos.ndim == 2
 
 
 def _cache_len(cfg: ModelConfig, max_seq: int, window: int | None) -> int:
@@ -349,8 +396,10 @@ def _cache_len(cfg: ModelConfig, max_seq: int, window: int | None) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               window: int | None = None, device=None) -> Cache:
-    _check_supported(cfg)
+               window: int | None = None, per_slot: bool = False,
+               device=None) -> Cache:
+    """An empty cache for ``batch`` rows and ``max_seq`` positions, in the
+    whole-batch layout or (``per_slot=True``) the per-slot one."""
     dev = resolve_device(device)
     C = _cache_len(cfg, max_seq, window)
     Kv, Dh = cfg.num_kv_heads, cfg.head_dim
@@ -368,48 +417,70 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         else:
             segs.append({"k": zeros((n, batch, C, Kv, Dh)),
                          "v": zeros((n, batch, C, Kv, Dh))})
+    if per_slot:
+        return Cache(segments=tuple(segs), pos=zeros((batch,), torch.int32),
+                     slot_pos=torch.full((batch, C), -1, dtype=torch.int32,
+                                         device=dev))
     return Cache(segments=tuple(segs), pos=0,
                  slot_pos=torch.full((C,), -1, dtype=torch.int32, device=dev))
 
 
 def _attn_block_decode(cfg: ModelConfig, kind: str, bp: dict,
                        x: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                       positions: torch.Tensor, slot: int,
+                       positions: torch.Tensor, where: tuple,
                        valid: torch.Tensor) -> torch.Tensor:
     """One attention (or ``moe``) block for a single new token; writes its
-    K/V into ring slot ``slot`` of ``kc``/``vc`` in place and attends over
-    ``valid``.  A ``moe`` block's capacity comes from the B tokens of the
-    step, as in the reference."""
+    K/V into ``kc[where]``/``vc[where]`` in place (``where`` is ``(:,
+    slot)`` for the whole batch, ``(rows, slots)`` per slot) and attends
+    over ``valid``.  A ``moe`` block's capacity comes from the B tokens of
+    the step, as in the reference."""
     B = x.shape[0]
     h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     q, k, v = L.qkv_project(bp["attn"], h, _adims(cfg), positions=positions,
                             rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta,
                             qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
-    kc[:, slot] = k[:, 0]
-    vc[:, slot] = v[:, 0]
+    kc[where] = k[:, 0]
+    vc[where] = v[:, 0]
     o = L.decode_attention_jnp(q, kc, vc, valid)
     x = x + o.reshape(B, 1, -1) @ bp["attn"]["wo"]
     return _ffn(cfg, kind, bp, x)[0]
 
 
+def _decode_geometry(cache: Cache, B: int, window: int | None, device):
+    """Write the step's positions into ``slot_pos`` (in place) and return
+    (RoPE positions (B, 1), the K/V write index, validity (C,) or (B, C)).
+    Every layer shares the ring geometry, so this runs once a step."""
+    pos, sp = cache.pos, cache.slot_pos
+    C = sp.shape[-1]
+    if cache.per_slot:
+        rows = torch.arange(B, device=sp.device)
+        slots = torch.remainder(pos, C).long()
+        sp[rows, slots] = pos
+        valid = (sp >= 0) & (sp <= pos[:, None])
+        if window:
+            valid = valid & (sp > (pos - window)[:, None])
+        return pos[:, None], (rows, slots), valid
+    slot = pos % C
+    sp[slot] = pos
+    valid = (sp >= 0) & (sp <= pos)
+    if window:
+        valid = valid & (sp > pos - window)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=device)
+    return positions, (slice(None), slot), valid
+
+
 def decode_step(params: PyTree, cfg: ModelConfig, cache: Cache,
                 tokens: torch.Tensor, *, window: int | None = None):
-    """One decode step: tokens (B, 1) -> (logits (B, 1, V), cache).
+    """One decode step: tokens (B, 1), or (B, 1, nq) with codebooks ->
+    (logits (B, 1, V) or (B, 1, nq, V), cache).
 
-    The cache is updated in place and returned.  Every layer shares the
-    ring geometry, so the slot and the validity mask (written, not past
-    ``pos``, inside the window) are computed once per step.
+    The cache is updated in place and returned, in either layout: the
+    whole batch at one position, or each row at its own (per slot).
     """
     window = window if window is not None else cfg.attention_window
-    x = _embed_inputs(params, tokens)
-    pos = cache.pos
-    slot = pos % cache.slot_pos.shape[0]
-    cache.slot_pos[slot] = pos
-    valid = (cache.slot_pos >= 0) & (cache.slot_pos <= pos)
-    if window:
-        valid = valid & (cache.slot_pos > pos - window)
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                           device=x.device)
+    x, _ = _embed_inputs(params, cfg, tokens, None)
+    positions, where, valid = _decode_geometry(cache, x.shape[0], window,
+                                               x.device)
     for (kind, n, seg_params), seg_cache in zip(
             _seg_items(params["segments"]), cache.segments):
         for j, bp in enumerate(_layers(seg_params, n)):
@@ -425,24 +496,27 @@ def decode_step(params: PyTree, cfg: ModelConfig, cache: Cache,
             if kind == "shared_attn":
                 bp = params["shared_attn"]
             x = _attn_block_decode(cfg, kind, bp, x, seg_cache["k"][j],
-                                   seg_cache["v"][j], positions, slot, valid)
+                                   seg_cache["v"][j], positions, where, valid)
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    cache.pos = pos + 1
+    cache.pos = cache.pos + 1
     return _lm_logits(params, cfg, x), cache
 
 
 def prefill(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            img_embeds: torch.Tensor | None = None,
             window: int | None = None, max_len: int | None = None,
             q_chunk: int = 512, kv_chunk: int = 512):
     """Process a prompt, returning (logits, cache) for subsequent decode.
 
-    A full forward that also captures per-layer K/V into a ring-buffer
-    cache sized for ``max_len`` total positions (default: prompt length),
-    and each mamba layer's final SSM and conv states.
+    A full forward that also captures per-layer K/V into a whole-batch
+    ring-buffer cache and each mamba layer's final SSM and conv states.
+    The cache is sized for ``max_len`` total positions (default: the
+    prompt's length), counted over the whole context: an image prefix's
+    positions come first, so pass prefix + prompt + decode budget, or the
+    decoded tokens overwrite the oldest prefix positions.
     """
-    _check_supported(cfg)
     window = window if window is not None else cfg.attention_window
-    x = _embed_inputs(params, tokens)
+    x, _ = _embed_inputs(params, cfg, tokens, img_embeds)
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, device=dev)[None, :].expand(B, S)
@@ -534,13 +608,15 @@ def sample_logits(logits: torch.Tensor, key: torch.Generator | None,
     may be ``None``); otherwise a categorical draw at the given temperature
     from ``key`` (its stream is not JAX's).
 
-    logits: (B, V) -> (B,) int32.
+    logits: (B, V) or (B, nq, V) -> (B,) / (B, nq) int32.
     """
     lg = logits.float()
     if temperature <= 0:
         return torch.argmax(lg, dim=-1).to(torch.int32)
     probs = torch.softmax(lg / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=key)[:, 0].to(torch.int32)
+    flat = probs.reshape(-1, probs.shape[-1])
+    return torch.multinomial(flat, 1, generator=key)[:, 0].reshape(
+        probs.shape[:-1]).to(torch.int32)
 
 
 def decode_loop(params: PyTree, cfg: ModelConfig, cache: Cache,
@@ -551,22 +627,25 @@ def decode_loop(params: PyTree, cfg: ModelConfig, cache: Cache,
     device, with no host sync per token.
 
     Args:
-      first_logits: the last-position logits from :func:`prefill` (B, V).
+      first_logits: the last-position logits from :func:`prefill`, (B, V)
+        or (B, nq, V) with codebooks.
       key: generator for sampled decoding; unused at ``temperature <= 0``.
       n: number of tokens to generate.
 
     Returns ``(tokens, last_logits, cache)`` with ``tokens`` int32 (B, n)
-    and ``last_logits`` the logits the (n+1)-th token would be sampled from.
+    or (B, n, nq) and ``last_logits`` the logits the (n+1)-th token would
+    be sampled from (carry them into the next call to continue the
+    generation, as the serve loop's chunks do).
     """
     lg = first_logits
     toks = []
     for _ in range(n):
-        nxt = sample_logits(lg, key, temperature)
+        nxt = sample_logits(lg, key, temperature)        # (B,) or (B, nq)
         toks.append(nxt)
         new_lg, cache = decode_step(params, cfg, cache, nxt[:, None],
                                     window=window)
         lg = new_lg[:, 0]
-    B = first_logits.shape[0]
+    shape = (first_logits.shape[0], 0) + tuple(first_logits.shape[1:-1])
     tokens = (torch.stack(toks, dim=1) if toks else
-              torch.empty((B, 0), dtype=torch.int32, device=lg.device))
+              torch.empty(shape, dtype=torch.int32, device=lg.device))
     return tokens, lg, cache

@@ -1,6 +1,7 @@
 """Port parity: npz checkpoints cross-load between ``repro.checkpoint`` and
 ``repro_torch.checkpoint`` in both directions, bf16 leaves bit-equal."""
 import json
+import zipfile
 
 import pytest
 
@@ -16,6 +17,7 @@ from repro.checkpoint import load_checkpoint as ref_load  # noqa: E402
 from repro.checkpoint import save_checkpoint as ref_save  # noqa: E402
 from repro_torch.checkpoint import (load_checkpoint, load_meta,  # noqa: E402
                                     save_checkpoint)
+from repro_torch.checkpoint.store import _stored_data  # noqa: E402
 from repro_torch.models.convert import params_from_jax, to_numpy  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 
@@ -87,3 +89,67 @@ def test_load_validates_structure(tmp_path):
     got, _ = load_checkpoint(path[:-4], {"a": torch.zeros(2, 3)},
                              device="cpu")
     assert torch.equal(got["a"], torch.zeros(2, 3))
+
+
+def _odd_tree():
+    rng = np.random.default_rng(1)
+    return {"bf16": torch.as_tensor(rng.standard_normal((3, 5)),
+                                    dtype=torch.float32).to(torch.bfloat16),
+            "f16": torch.as_tensor(rng.standard_normal(7)).half(),
+            "i64": torch.arange(6, dtype=torch.int64).reshape(2, 3),
+            "mask": torch.as_tensor([True, False, True]),
+            "step": torch.tensor(5, dtype=torch.int32),
+            "empty": torch.zeros((0, 4)),
+            "host": np.arange(4, dtype=np.float64)}
+
+
+def test_streamed_archive_equals_savez_and_round_trips(tmp_path):
+    tree = _odd_tree()
+    path = str(tmp_path / "s")                    # np.savez adds .npz
+    save_checkpoint(path, tree, step=2)
+    arrays, dtypes = {}, {}
+    for k, v in tree.items():
+        arr = to_numpy(v) if isinstance(v, torch.Tensor) else v
+        if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16:
+            arr, dtypes[k] = arr.view("V2"), "bfloat16"
+        arrays[k] = arr
+    ref_path = str(tmp_path / "ref.npz")
+    np.savez(ref_path, __meta__=json.dumps(
+        {"step": 2, "keys": sorted(arrays), "dtypes": dtypes}), **arrays)
+    with np.load(path + ".npz") as a, np.load(ref_path) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            assert a[k].tobytes() == b[k].tobytes()
+    # every member of either archive is read in place, not through np.load
+    for name in (path + ".npz", ref_path):
+        with zipfile.ZipFile(name) as z, open(name, "rb") as f:
+            assert all(_stored_data(f, i) is not None for i in z.infolist()
+                       if i.filename != "__meta__.npy")
+    got, meta = load_checkpoint(path, tree, device="cpu")
+    assert meta["step"] == 2
+    for k, v in tree.items():
+        want = torch.as_tensor(v)
+        assert got[k].dtype == want.dtype and got[k].shape == want.shape
+        assert torch.equal(got[k], want)
+
+
+@pytest.mark.parametrize("layout", ["compressed", "fortran"])
+def test_members_np_load_must_read_still_load(tmp_path, layout):
+    """A compressed or Fortran-ordered member goes through np.load."""
+    rng = np.random.default_rng(2)
+    arr = np.asfortranarray(rng.standard_normal((4, 3)).astype(np.float32))
+    bits = rng.integers(-2**15, 2**15, (2, 3), dtype=np.int16)
+    path = str(tmp_path / "c.npz")
+    save = np.savez_compressed if layout == "compressed" else np.savez
+    save(path, __meta__=json.dumps({"step": 1, "keys": ["a", "b"],
+                                    "dtypes": {"b": "bfloat16"}}),
+         a=arr, b=bits.view("V2"))
+    like = {"a": torch.zeros(4, 3), "b": torch.zeros(2, 3)}
+    got, _ = load_checkpoint(path, like, device="cpu")
+    assert torch.equal(got["a"], torch.as_tensor(np.ascontiguousarray(arr)))
+    assert got["b"].dtype == torch.bfloat16
+    assert torch.equal(got["b"].view(torch.int16), torch.as_tensor(bits))
+    with pytest.raises(ValueError, match="shape"):
+        load_checkpoint(path, {"a": torch.zeros(3, 4), "b": like["b"]},
+                        device="cpu")

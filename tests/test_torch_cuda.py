@@ -126,6 +126,11 @@ def test_cuda_kernel_matches_attention_ref(dtype):
     cases += [(1, 1024, 1024, 64, 8, 112, True, None),
               (1, 256, 256, 4, 2, 112, True, 96),
               (2, 200, 333, 4, 2, 112, False, None)]
+    # llava's full-width layer over its 2,880-token image prefix and 1,024
+    # tokens (3,904 queries, ragged against the 128-query tiles) and
+    # musicgen's (24 heads of 64, no GQA)
+    cases += [(1, 3904, 3904, 32, 8, 128, True, None),
+              (1, 1024, 1024, 24, 24, 64, True, None)]
     tol = ATTN_TOL[dtype]
     for B, Sq, Skv, H, Kv, D, causal, window in cases:
         q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
@@ -183,6 +188,89 @@ def test_cuda_moe_smoke_forward_matches_the_cpu(arch):
         assert torch.equal(a, b)
     torch.testing.assert_close(lg.cpu(), lg_cpu, atol=2e-3, rtol=0)
     torch.testing.assert_close(aux.cpu(), aux_cpu, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b", "musicgen-medium"])
+def test_cuda_modality_smoke_matches_the_cpu(arch):
+    """llava's image prefix and musicgen's codebooks at smoke size in
+    float32, card (the attention kernel on, one launch a layer) against
+    the CPU from the same weights and inputs: the logits within ROADMAP's
+    2e-3, the loss within 1e-5 relative, ``n_prefix`` equal."""
+    _need_card()
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    cfg = get_config(arch).smoke
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(1)
+    shape = (2, 48) + ((cfg.num_codebooks,) if cfg.num_codebooks else ())
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape, generator=gen),
+             "labels": torch.randint(0, cfg.vocab_size, shape, generator=gen)}
+    if cfg.img_tokens:
+        batch["img_embeds"] = 0.02 * torch.randn(
+            (2, cfg.img_tokens, tf.VISION_DIM), generator=gen)
+    with torch.no_grad():
+        lg_cpu, _, n_cpu = tf.forward(params, cfg, batch["tokens"],
+                                      img_embeds=batch.get("img_embeds"),
+                                      remat=False)
+        loss_cpu = tf.train_loss(params, cfg, batch, remat=False)
+        p, b = (tree_map(lambda x: x.cuda(), t) for t in (params, batch))
+        kern = dataclasses.replace(cfg, use_kernels=True)
+        before = fa.flash_attention.launches
+        lg, _, n = tf.forward(p, kern, b["tokens"],
+                              img_embeds=b.get("img_embeds"), remat=False)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + cfg.num_layers
+        loss = tf.train_loss(p, kern, b, remat=False)
+    assert n == n_cpu == cfg.img_tokens
+    torch.testing.assert_close(lg.cpu(), lg_cpu, atol=2e-3, rtol=0)
+    torch.testing.assert_close(loss.cpu(), loss_cpu, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_serveloop_replays_and_matches_the_cpu():
+    """The continuous-batching loop on the card at musicgen's smoke size in
+    float32: swaps after every tick while 5 requests share 2 slots; every
+    completion replays under its generations on the card (alone and at
+    the loop's width), and the card's tokens and tags equal the CPU's."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serving import (Request, ServeLoop,
+                                            replay_completion)
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_map
+
+    cfg = get_config("musicgen-medium").smoke
+    base = tf.init_params(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(5)
+    reqs = [Request(i, rng.integers(0, cfg.vocab_size, (7 + 3 * i, 4)
+                                    ).astype(np.int32), 6 + i)
+            for i in range(5)]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        params = tree_map(lambda x: x.to(device), base)
+        loop = ServeLoop(cfg, params, slots=2, max_len=48, chunk=3)
+        for r in reqs:
+            loop.submit(r)
+        by_gen, done = {0: params}, []
+        while loop._queue or loop.active:
+            done.extend(loop.step())
+            g = loop.store.generation + 1
+            newp = tree_map(lambda x, s=g: x * (1.0 + 0.03 * s), params)
+            by_gen[loop.store.swap(newp)] = newp
+        runs[device] = sorted(done, key=lambda c: c.uid)
+        if device == "cuda":
+            spans = [replay_completion(cfg, by_gen, c, max_len=48)
+                     for c in done]
+            for c in done:
+                replay_completion(cfg, by_gen, c, max_len=48, slots=2)
+            assert max(spans) > 1
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        assert a.tokens == b.tokens and a.generations == b.generations
 
 
 @pytest.mark.cuda
@@ -744,6 +832,39 @@ def test_cuda_spec_checkpoint_serves_on_the_cpu(tmp_path):
 def _leaves(tree):
     from repro_torch.tree import tree_leaves
     return tree_leaves(tree)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_streams_through_the_staging_buffers(tmp_path):
+    """A tree on the card saved and loaded through the pinned staging
+    buffers (one leaf of 80 MiB: two pieces of 64 MiB and 16 MiB each
+    way) equals a save of its host copy byte for byte, and loads back
+    bit-equal on the card and on the CPU."""
+    _need_card()
+    import zipfile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tree = {"big": torch.randn(40 << 20, generator=g, device="cuda").to(
+                torch.bfloat16),
+            "f32": torch.randn(3, 7, generator=g, device="cuda"),
+            "mask": torch.rand(9, generator=g, device="cuda") > 0.5,
+            "step": torch.tensor(4, dtype=torch.int32, device="cuda"),
+            "empty": torch.zeros((0, 3), device="cuda")}
+    card, host = str(tmp_path / "card.npz"), str(tmp_path / "host.npz")
+    save_checkpoint(card, tree, step=1)
+    save_checkpoint(host, {k: v.cpu() for k, v in tree.items()}, step=1)
+    with zipfile.ZipFile(card) as a, zipfile.ZipFile(host) as b:
+        assert sorted(a.namelist()) == sorted(b.namelist())
+        for name in a.namelist():
+            assert a.read(name) == b.read(name)
+    for device in ("cuda", "cpu"):
+        got, meta = load_checkpoint(card, tree, device=device)
+        assert meta["step"] == 1 and meta["dtypes"] == {"big": "bfloat16"}
+        for k, v in tree.items():
+            assert got[k].device.type == device and got[k].dtype == v.dtype
+            assert torch.equal(got[k].cpu(), v.cpu())
 
 
 @pytest.mark.cuda

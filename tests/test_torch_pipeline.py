@@ -233,12 +233,21 @@ def test_train_block_struct_matches_the_reference():
     got = pipe.train_block_struct(cfg, T=1, K=2, batch=1, seq=8)
     assert got["tokens"][0] == (1, 2, 1, 8, 4)
     assert got["img_embeds"][0] == (1, 2, 1, 3, pipe.VISION_DIM)
-    # the image-prefix archs are not ported: their providers say so
+    # every provider adds the image stream of an image-prefix config:
+    # float32 normals times 0.02 from the block's key
     img = dataclasses.replace(get_config("smollm-360m").smoke, img_tokens=3)
     for kind in pipe.DATA_KINDS:
-        with pytest.raises(NotImplementedError, match="item 17"):
-            pipe.make_block_provider(kind, img, num_agents=4, local_steps=1,
-                                     batch=1, seq=64, device="cpu")
+        provider = pipe.make_block_provider(kind, img, num_agents=4,
+                                            local_steps=1, batch=1, seq=64,
+                                            device="cpu")
+        block = provider(0, torch.Generator().manual_seed(1))
+        x = block["img_embeds"]
+        assert tuple(x.shape) == (1, 4, 1, 3, pipe.VISION_DIM)
+        assert x.dtype == torch.float32
+        assert 0.015 < float(x.std()) < 0.025
+        again = provider(0, torch.Generator().manual_seed(1))
+        assert torch.equal(again["img_embeds"], x)
+        assert torch.equal(again["tokens"], block["tokens"])
 
 
 @pytest.mark.parametrize("kind,kw,match", [

@@ -117,9 +117,15 @@ def test_serve_without_checkpoint_and_pending_paths(tmp_path, capsys):
     with pytest.raises(KeyError, match="missing leaf"):
         serve.main(["--device", "cpu", "--checkpoint", path])
     assert "model kind 'external'" in capsys.readouterr().out
-    # --watch needs ServeLoop (ROADMAP.md queue 1 item 26)
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--watch", str(tmp_path)])
+    # --watch runs the ServeLoop: on a directory with no checkpoint it
+    # serves the fresh weights (generation 0) for its ticks
+    (tmp_path / "watch").mkdir()
+    out = serve.main(["--device", "cpu", "--watch", str(tmp_path / "watch"),
+                      "--watch-ticks", "3", "--watch-poll", "0", "--batch",
+                      "2", "--prompt-len", "4", "--decode", "2",
+                      "--temperature", "0"])
+    assert sorted(c.uid for c in out["completions"]) == [0, 1]
+    assert all(c.generations == [0, 0] for c in out["completions"])
 
 
 def test_entry_points_without_device_refuse_the_cpu(tmp_path):

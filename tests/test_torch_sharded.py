@@ -640,6 +640,27 @@ def test_world_2_is_bit_equal_to_world_1_and_checkpoints_equal(tmp_path):
     assert torch.equal(out["tokens"], ref["tokens"])
 
 
+@pytest.mark.parametrize("arch", ["llava-next-mistral-7b",
+                                  "musicgen-medium"])
+def test_world_2_slices_the_image_stream_and_codebooks(arch, tmp_path):
+    """The sharded engine's row split of the block reaches each rank's
+    agents with llava's float32 image stream and musicgen's (T, K, B, S,
+    4) tokens as at world 1: the world-2 train driver's checkpoint (K = 4,
+    two agents a rank) equals world 1's byte for byte."""
+    def argv(path):
+        return ["--device", "cpu", "--arch", arch, "--smoke", "--agents",
+                "4", "--blocks", "2", "--batch", "1", "--seq", "8", "--mix",
+                "pallas", "--engine", "sharded", "--checkpoint", str(path)]
+
+    (tmp_path / "w2").mkdir()
+    _spawn(2, tmp_path / "w2", [], argv(tmp_path / "w2.npz"))
+    train.main(argv(tmp_path / "w1.npz"))
+    w1, w2 = np.load(tmp_path / "w1.npz"), np.load(tmp_path / "w2.npz")
+    assert sorted(w1.files) == sorted(w2.files)
+    for f in w1.files:
+        assert w1[f].tobytes() == w2[f].tobytes(), f
+
+
 def test_world_4_is_bit_equal_to_world_1(tmp_path):
     """A spawned gloo group of 4: two agent rows a rank at K = 8, and
     K = 5 replicated."""

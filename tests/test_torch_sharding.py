@@ -37,7 +37,7 @@ MESHES = {"data4_model2": _fake_mesh((4, 2), ("data", "model")),
                                             ("pod", "data", "model"))}
 ARCHS = ("smollm-360m", "mamba2-2.7b", "zamba2-1.2b", "chatglm3-6b",
          "qwen3-32b", "starcoder2-15b", "granite-moe-1b-a400m",
-         "kimi-k2-1t-a32b")
+         "kimi-k2-1t-a32b", "llava-next-mistral-7b", "musicgen-medium")
 
 
 class _DeviceMeshLike:

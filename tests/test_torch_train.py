@@ -237,14 +237,25 @@ def test_train_flag_guards_raise(flags, match):
 
 
 @pytest.mark.parametrize("flag,item", [
-    pytest.param(["--arch", "llava-next-mistral-7b"], "item 17",
+    pytest.param(["--arch", "llava-next-mistral-7b"], "img_embeds",
                  id="flag4-item 17"),
-    pytest.param(["--arch", "musicgen-medium"], "item 17",
+    pytest.param(["--arch", "musicgen-medium"], "tokens",
                  id="flag5-item 17"),
 ])
 def test_unported_flags_name_their_roadmap_item(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        train.main(["--device", "cpu", "--blocks", "1"] + flag)
+    """Both archs of item 17's rest now train at smoke size: finite
+    losses, moved parameters, and the block carries the arch's own leaf
+    (llava's float32 image stream, musicgen's (T, K, B, S, nq) tokens)."""
+    out = train.main(["--device", "cpu", "--blocks", "2", "--smoke",
+                      "--seq", "16"] + flag)
+    cfg = out["cfg"]
+    assert np.isfinite(out["losses"]).all() and out["blocks_done"] == 2
+    block = out["provider"](0, torch.Generator().manual_seed(0))
+    leaf = block[item]
+    assert leaf.dtype == (torch.float32 if item == "img_embeds"
+                          else torch.int32)
+    assert leaf.shape[-1] == (tf.VISION_DIM if item == "img_embeds"
+                              else cfg.num_codebooks)
 
 
 @pytest.mark.parametrize("flag,error", [

@@ -36,10 +36,16 @@ def test_config_fields_match_reference():
 
 
 def test_unported_archs_name_their_roadmap_item():
+    """Every arch of the reference's zoo is ported (llava and musicgen
+    last): each config equals the reference's field for field; an unknown
+    name still raises KeyError."""
     for arch in ("llava-next-mistral-7b", "musicgen-medium"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 17"):
-            get_config(arch)
+        ref, port = ref_get_config(arch), get_config(arch)
+        for a, b in ((ref.model, port.model), (ref.smoke, port.smoke)):
+            assert dataclasses.asdict(a) == dataclasses.asdict(b)
+        assert dataclasses.asdict(ref.parallel) == dataclasses.asdict(
+            port.parallel)
+        assert ref.citation == port.citation
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -176,11 +182,23 @@ def test_stacked_conversion_checks_agent_axis():
 
 
 def test_unported_block_types_raise():
-    """Every block type is ported (``moe`` included); the multi-codebook
-    and image-prefix embeddings still raise, naming their ROADMAP item."""
+    """Every block type and both modalities are ported: a smollm smoke
+    config with 4 codebooks, and one with an 8-token image prefix, init
+    and run forward (logits (B, S, nq, V) / prefix first, ``n_prefix``)
+    and raise nothing."""
     base = get_config("smollm-360m").smoke
+    B, S = 2, 6
     for change in ({"num_codebooks": 4}, {"img_tokens": 8}):
         cfg = dataclasses.replace(base, **change)
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 17"):
-            tf.init_params(torch.Generator(), cfg)
+        params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+        shape = (B, S) + ((4,) if cfg.num_codebooks else ())
+        toks = torch.randint(0, cfg.vocab_size, shape)
+        img = (torch.randn(B, 8, tf.VISION_DIM) * 0.02 if cfg.img_tokens
+               else None)
+        with torch.no_grad():
+            logits, _, n_prefix = tf.forward(params, cfg, toks,
+                                             img_embeds=img, remat=False)
+        assert n_prefix == cfg.img_tokens
+        assert tuple(logits.shape) == (B, S + n_prefix) + shape[2:] + (
+            cfg.vocab_size,)
+        assert bool(torch.isfinite(logits).all())
