@@ -328,6 +328,22 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     would choose otherwise under the same schedule are counted, each
     completion's first such token within twice the batch-vs-single logit
     difference of its top two.
+24. The dry run (``repro_torch.launch.dryrun``) against the card: (a)
+    ``python -m repro_torch.launch.dryrun --all`` as a subprocess with the
+    card hidden (``CUDA_VISIBLE_DEVICES=""``): 80 ``OK`` lines (10 archs x
+    4 shapes x 2 meshes) and 80 JSON files, exit 0; (b) its prediction on
+    the port's own mesh at world 1 against the allocator: smollm-360m's
+    train_4k state (K = 16 agents of the full width, SGD with no optimizer
+    state, as the reference's dry-run step holds none) built through
+    ``api.build`` with one block from the iid provider and no step run:
+    ``torch.cuda.memory_allocated``'s growth equals
+    ``argument_size_in_bytes`` less the 8-byte key, within the allocator's
+    rounding of 512 B a tensor; (c) the same for the long_500k decode
+    cache (window 8,192) from ``init_cache``; (d) the card path of
+    ``load_checkpoint``: an archive whose member spans four 64 MiB pieces
+    loads bit-equal, and one flipped byte in its data or in its .npy
+    header raises ``zipfile.BadZipFile``.  Phases 3, 21b, 22b and 22c
+    print each checkpoint load's GB/s (every member's CRC-32 checked).
 
 Every full-width training phase (5, 8, 11, 14, 16, 18, 19a, 20, 21a, 22a,
 22c) draws its stack on the card (``train.main(..., init_on_device=True)``);
@@ -434,6 +450,14 @@ def card_info() -> str:
     return out.strip().splitlines()[0]
 
 
+def load_rate(label: str, nbytes: int, load_s: float, card: str) -> None:
+    """A checkpoint load's rate: the archive's bytes over the load's
+    seconds, every member's CRC-32 checked."""
+    print(f"{label}: load {nbytes / 1e9:.2f} GB in {load_s:.2f}s = "
+          f"{nbytes / load_s / 1e9:.2f} GB/s, every member's CRC-32 checked "
+          f"[{card}]")
+
+
 def card_clocks() -> str:
     """The card's SM and memory clocks, temperature and power draw now."""
     out = subprocess.run(
@@ -474,14 +498,20 @@ def _device_ms_of(fn, name: str, iters: int = 20) -> tuple[float, float]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = list(device_events(prof))
-    total = sum(n for _, n in events)
-    if not total:
-        raise AssertionError("the profiler saw no device time")
+    # the profiler has now and then come back empty from a window of
+    # launches that ran: profile the window again, up to three times
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = list(device_events(prof))
+        total = sum(n for _, n in events)
+        if total:
+            break
+        print(f"the profiler saw no device time in window {attempt} of 3")
+    else:
+        raise AssertionError("the profiler saw no device time in 3 windows")
     part = sum(n for e, n in events if name in e)
     return total / 1e6 / iters, part / 1e6 / iters
 
@@ -1292,6 +1322,7 @@ class SharedStack:
     the host copy."""
 
     cache: dict = {}
+    read_s: dict = {}          # path -> seconds of the read from disk
 
     def __enter__(self):
         from repro_torch.checkpoint import store
@@ -1313,7 +1344,10 @@ class SharedStack:
 
         key = str(path)
         if key not in self.cache:
+            t0 = time.perf_counter()
             tree, meta = self._store_load(path, like, device=device)
+            torch.cuda.synchronize()
+            self.read_s[key] = time.perf_counter() - t0
             self.cache[key] = (tree_map(lambda t: torch.empty(
                 t.shape, dtype=t.dtype, pin_memory=True).copy_(t), tree),
                 meta)
@@ -1327,6 +1361,7 @@ class SharedStack:
     @classmethod
     def clear(cls) -> None:
         cls.cache.clear()
+        cls.read_s.clear()
 
 
 def phase_small(scratch: Path) -> None:
@@ -1415,6 +1450,9 @@ def phase_full(scratch: Path, card: str) -> tuple[dict, dict, str]:
         # phases 12 and 15, copy the stack it kept in pinned host memory
         first = serve.main(argv + ["--mix", "pallas"])
         launches = read_launches()
+        # the read alone: the first run's load_s also keeps a pinned copy
+        load_rate("phase 3", Path(path).stat().st_size,
+                  SharedStack.read_s[path], card)
         # one combination of the (K, M) stack: one launch per column tile
         tiles = num_tiles(K, full_width_M())
         if launches["diffusion_mix"] != tiles:
@@ -5638,7 +5676,8 @@ def phase_train_granite(card: str, scratch: Path) -> tuple[dict, dict, str]:
                              "leaves are not the router")
     del out
     torch.cuda.empty_cache()
-    ckpt_gb = Path(path).stat().st_size / 1e9
+    ckpt_bytes = Path(path).stat().st_size
+    ckpt_gb = ckpt_bytes / 1e9
     _check_stacked_step("phase 21a", spec, cfg, keep)
     agent = tree_map(lambda x: x[0].clone(), keep["before"])
     keep.clear()
@@ -5707,6 +5746,7 @@ def phase_serve_granite(path: str, card: str) -> tuple[dict, dict]:
 
     gate = _ulp_gate("phase 21b: consensus vs float64 mean", exact())
     t = out["timings"]
+    load_rate("phase 21b", Path(path).stat().st_size, t["load_s"], card)
     print(f"phase 21b: load {t['load_s']:.2f}s, consensus "
           f"{t['consensus_s']:.3f}s ({want['diffusion_mix']} diffusion_mix "
           f"launches), prefill 4 x 128 {t['prefill_s']:.3f}s, decode 32 "
@@ -5903,7 +5943,8 @@ def phase_train_musicgen(card: str, scratch: Path):
     stack = out["state"].params
     del out
     torch.cuda.empty_cache()
-    ckpt_gb = Path(path).stat().st_size / 1e9
+    ckpt_bytes = Path(path).stat().st_size
+    ckpt_gb = ckpt_bytes / 1e9
     _check_stacked_step("phase 22a", spec, cfg, keep)
     keep.clear()
     torch.cuda.empty_cache()
@@ -5970,6 +6011,7 @@ def phase_serve_musicgen(path: str, stack, card: str):
     del dense
     torch.cuda.empty_cache()
     t = out["timings"]
+    load_rate("phase 22b", Path(path).stat().st_size, t["load_s"], card)
     print(f"phase 22b: load {t['load_s']:.2f}s, consensus "
           f"{t['consensus_s']:.3f}s ({want['diffusion_mix']} diffusion_mix "
           f"launches; the dense mixer {dense_s:.3f}s), prefill 4 x 128 x "
@@ -6290,7 +6332,8 @@ def phase_llava(card: str, scratch: Path):
                              f"{img.dtype}")
     del out
     torch.cuda.empty_cache()
-    ckpt_gb = Path(path).stat().st_size / 1e9
+    ckpt_bytes = Path(path).stat().st_size
+    ckpt_gb = ckpt_bytes / 1e9
     _check_stacked_step("phase 22c", spec, cfg, keep)
     keep.clear()
     torch.cuda.empty_cache()
@@ -6318,6 +6361,7 @@ def phase_llava(card: str, scratch: Path):
         raise AssertionError(f"phase 22c: tokens {tuple(toks.shape)}, "
                              f"cache {served['max_len']}")
     t = served["timings"]
+    load_rate("phase 22c", ckpt_bytes, t["load_s"], card)
     print(f"phase 22c: serve load {t['load_s']:.2f}s, consensus "
           f"{t['consensus_s']:.3f}s, prefill 4 x ({cfg.img_tokens} + 128) "
           f"{t['prefill_s']:.3f}s, decode 32 steps {t['decode_s']:.3f}s "
@@ -6330,6 +6374,170 @@ def phase_llava(card: str, scratch: Path):
                serve_launches=serve_launches, decode_check=decode)
     print(json.dumps({"phase": "22c", **row}))
     return train_launches, serve_launches, row
+
+
+def _allocated() -> tuple[int, int]:
+    """The allocator's (allocated, requested) bytes once the card is
+    idle: ``memory_allocated`` counts each block as rounded, the requested
+    bytes as asked for."""
+    import torch
+
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats().get("requested_bytes.all.current", 0))
+
+
+def _hold_allocator(label: str, want: int, base: tuple, tensors: list,
+                    card: str, what: str) -> dict:
+    """The dry run's bytes against the card's: ``tensors`` hold exactly
+    ``want`` bytes, and ``memory_allocated`` grew from ``base`` by that
+    plus the allocator's rounding, at most 512 B a tensor."""
+    now = _allocated()
+    grown, requested = now[0] - base[0], now[1] - base[1]
+    exact, n = sum(t.numel() * t.element_size() for t in tensors), len(tensors)
+    if exact != want or not 0 <= grown - want <= 512 * n:
+        raise AssertionError(f"{label}: the dry run predicts {want:,} B, the "
+                             f"{n} tensors hold {exact:,} B and the "
+                             f"allocator grew {grown:,} B")
+    print(f"{label}: {what}: the dry run predicts {want:,} B; {n} tensors "
+          f"hold {exact:,} B; memory_allocated grew {grown:,} B "
+          f"(+{grown - want} B, at most 512 B a tensor), the requested "
+          f"bytes {requested:,} B [{card}]")
+    return {"predicted": want, "tensor_bytes": exact, "grown": grown,
+            "requested": requested, "tensors": n}
+
+
+def phase_dryrun(card: str, scratch: Path) -> dict:
+    """Phase 24: the dry run's sweep with the card hidden, its argument
+    bytes against the card's allocator for smollm-360m's train_4k state
+    and long_500k cache at world 1, and the CRC check of the card's
+    checkpoint load (the module docstring's item 24)."""
+    import argparse
+    import dataclasses
+    import os
+    import struct
+    import zipfile
+
+    import torch
+
+    from repro_torch.api import build
+    from repro_torch.api.cli import add_spec_args, spec_from_args
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves
+
+    arch = "smollm-360m"
+    out_dir = scratch / "dryrun"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--out", str(out_dir)], capture_output=True, text=True, cwd=ROOT,
+        timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+                          "CUDA_VISIBLE_DEVICES": ""})
+    sweep_s = time.perf_counter() - t0
+    ok = [line for line in proc.stdout.splitlines()
+          if line.startswith("OK   ")]
+    files = sorted(out_dir.glob("*.json"))
+    if proc.returncode or len(ok) != 80 or len(files) != 80:
+        raise AssertionError(f"phase 24a: exit {proc.returncode}, {len(ok)} "
+                             f"OK lines, {len(files)} files:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    train = json.loads((out_dir / "smollm_360m_train_4k_single_dense.json")
+                       .read_text())
+    print(f"phase 24a: the dry run with the card hidden: 80 OK lines and 80 "
+          f"JSON files in {sweep_s:.1f}s (its process start included); "
+          f"smollm-360m train_4k on the 16 x 16 mesh "
+          f"{train['memory']['argument_size_in_bytes']:,} B a device, "
+          f"{train['collectives']['total_bytes']:,} B gathered a block "
+          f"[{card}]")
+
+    # (b) the train state and one block on the port's mesh at world 1
+    world1 = dryrun.MeshShape({"data": 1, "model": 1})
+    bundle, shape = get_config(arch), INPUT_SHAPES["train_4k"]
+    K, _ = dryrun.agent_count(bundle, multi_pod=False)
+    T, B = bundle.parallel.local_steps, shape.global_batch // K
+    pred = dryrun.dryrun_one(arch, "train_4k", "single", mesh=world1)
+    mem = pred["memory"]
+    ap = argparse.ArgumentParser()
+    add_spec_args(ap)
+    spec = spec_from_args(ap.parse_args(
+        ["--arch", arch, "--full", "--agents", str(K), "--local-steps",
+         str(T), "--batch", str(B), "--seq", str(shape.seq_len),
+         "--optimizer", "sgd"]))
+    torch.cuda.empty_cache()
+    eng = build(spec, engine="sharded", device="cuda")
+    base = _allocated()
+    key = torch.Generator().manual_seed(0)
+    params = eng.init_params(torch.Generator(device="cuda").manual_seed(0))
+    state = eng.init_state(params, eng.optimizer.init(params), key=key)
+    del params
+    batch = eng.data(0, key)
+    held = [t for t in tree_leaves(
+        [getattr(state, f.name) for f in dataclasses.fields(state)]
+        + [batch]) if isinstance(t, torch.Tensor)]
+    row = {"train": _hold_allocator(
+        "phase 24b", mem["argument_size_in_bytes"]
+        - mem["argument_parts"]["key"], base, held, card,
+        f"{arch} train_4k at world 1 (K = {K}, T = {T}, B = {B} x "
+        f"{shape.seq_len}, SGD): the state and one block")}
+    del state, batch, held, eng
+    torch.cuda.empty_cache()
+
+    # (c) the long_500k decode cache
+    cfg, shape = bundle.model, INPUT_SHAPES["long_500k"]
+    window = dryrun.serve_window(cfg, shape)
+    pred = dryrun.dryrun_one(arch, "long_500k", "single", mesh=world1)
+    base = _allocated()
+    cache = tf.init_cache(cfg, shape.global_batch, shape.seq_len,
+                          window=window, device="cuda")
+    # the reference's whole-batch pos is a () int32 argument; the port's
+    # is the int 0, on no device
+    row["cache"] = _hold_allocator(
+        "phase 24c", pred["memory"]["argument_parts"]["cache"] - 4, base,
+        tree_leaves(list(cache.segments)) + [cache.slot_pos], card,
+        f"{arch} long_500k cache (batch {shape.global_batch}, window "
+        f"{window})")
+    del cache
+
+    # (d) the card's checkpoint load checks each member's CRC-32
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    tree = {"big": torch.randn(50 << 20, generator=gen, device="cuda")}
+    path, bad = scratch / "crc.npz", scratch / "crc_bad.npz"
+    save_checkpoint(str(path), tree)
+    got, _ = load_checkpoint(str(path), tree, device="cuda")
+    if not torch.equal(got["big"], tree["big"]):
+        raise AssertionError("phase 24d: the intact archive did not load "
+                             "bit-equal")
+    del got
+    with zipfile.ZipFile(path) as z:
+        info = z.getinfo("big.npy")
+    raw = path.read_bytes()
+    name_len, extra_len = struct.unpack(
+        "<HH", raw[info.header_offset + 26:info.header_offset + 30])
+    start = info.header_offset + 30 + name_len + extra_len
+    raised = []
+    for at in (start + info.file_size - 8, start + 20):
+        flipped = bytearray(raw)
+        flipped[at] ^= 0x10
+        bad.write_bytes(flipped)
+        try:
+            load_checkpoint(str(bad), tree, device="cuda")
+        except zipfile.BadZipFile as e:
+            raised.append(str(e))
+        else:
+            raise AssertionError(f"phase 24d: a flipped byte at {at} loaded")
+    path.unlink()
+    bad.unlink()
+    del tree
+    torch.cuda.empty_cache()
+    print(f"phase 24d: an archive of four 64 MiB pieces loads bit-equal on "
+          f"the card; a flipped data byte and a flipped .npy header byte "
+          f"each raise BadZipFile ({raised[0]}) [{card}]")
+    row.update(sweep_s=sweep_s, crc_errors=raised, card=card)
+    print(json.dumps({"phase": "24", **row}))
+    return row
 
 
 def main() -> int:
@@ -6436,6 +6644,8 @@ def main() -> int:
         modality_launches = timed(
             "phase 22d", phase_arch_forwards, card, MODALITY_FORWARDS,
             "phase 22d", 240)
+        torch.cuda.empty_cache()
+        timed("phase 24", phase_dryrun, card, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for

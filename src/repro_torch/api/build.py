@@ -236,12 +236,13 @@ def _transformer(spec: ModelSpec):
 
 # -- datasets (per-agent block providers) -----------------------------------
 
-def train_block_struct(cfg, *, T: int, K: int, batch: int, seq: int) -> dict:
+def train_block_struct(cfg, *, T: int, K: int, batch: int, seq: int,
+                       img_dtype: torch.dtype = torch.float32) -> dict:
     """(shape, dtype) of every leaf of one (T, K, B, S[, C]) training block
     (the reference's ``train_block_struct``; the port's
     :func:`repro_torch.data.pipeline.train_block_struct`)."""
     from repro_torch.data.pipeline import train_block_struct as struct
-    return struct(cfg, T=T, K=K, batch=batch, seq=seq)
+    return struct(cfg, T=T, K=K, batch=batch, seq=seq, img_dtype=img_dtype)
 
 
 def _provider(kind: str, dspec: DataSpec, spec: ExperimentSpec, cfg, device,

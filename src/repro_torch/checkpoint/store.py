@@ -27,9 +27,14 @@ card while piece i is written.  A load reads
 each stored member's data straight from its offset in the file into the
 destination: on the CPU into the tensor's own buffer, on a card through
 two pinned 64 MiB buffers, one filled from the file while the other is
-copied to the card.  This read skips the zip CRC check that
-``np.load`` makes; a compressed, Fortran-ordered or big-endian member
-goes through ``np.load`` and keeps it.
+copied to the card.  As ``zipfile`` does, the load checks each member's
+CRC-32 (its ``.npy`` header and data) and raises ``zipfile.BadZipFile``
+on a mismatch: the pieces are hashed on a few threads while the next one
+is read (``zlib.crc32`` releases the GIL), the hashes joined by
+:func:`crc32_combine`, and a staging buffer is refilled only after both
+its copy to the card and its hash have ended.  A compressed,
+Fortran-ordered or big-endian member goes through ``np.load``, whose
+``zipfile`` read makes the same check.
 """
 from __future__ import annotations
 
@@ -38,7 +43,10 @@ import json
 import math
 import os
 import struct
+import tokenize
 import zipfile
+import zlib
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Any
 
 import numpy as np
@@ -51,7 +59,8 @@ from repro_torch.tree import tree_flatten_with_path, tree_unflatten
 PyTree = Any
 
 __all__ = ["save_checkpoint", "load_checkpoint", "load_meta",
-           "save_experiment", "load_spec", "load_experiment"]
+           "save_experiment", "load_spec", "load_experiment",
+           "crc32_combine"]
 
 
 def _path_str(path) -> str:
@@ -59,33 +68,105 @@ def _path_str(path) -> str:
 
 
 _CHUNK = 64 << 20        # bytes a write or a staged copy moves at a time
+_HASH_PIECE = 16 << 20   # bytes one CRC-32 task hashes
+_HASHERS = 8             # threads hashing while the next piece is read
+
+_CRC_POLY = 0xEDB88320   # the reflected CRC-32 polynomial (zlib's)
+
+
+def _multmodp(a: int, b: int) -> int:
+    """a(x) b(x) modulo the CRC-32 polynomial, bit-reflected (zlib's
+    ``multmodp``)."""
+    m, p = 1 << 31, 0
+    while True:
+        if a & m:
+            p ^= b
+            if a & (m - 1) == 0:
+                return p
+        m >>= 1
+        b = (b >> 1) ^ _CRC_POLY if b & 1 else b >> 1
+
+
+#: x^(2^k) modulo the polynomial, k = 0..31
+_X2N = [1 << 30]
+for _ in range(31):
+    _X2N.append(_multmodp(_X2N[-1], _X2N[-1]))
+
+
+def crc32_combine(crc1: int, crc2: int, len2: int) -> int:
+    """The CRC-32 of ``a + b`` from ``crc1 = crc32(a)``, ``crc2 =
+    crc32(b)`` and ``len2 = len(b)`` (zlib's ``crc32_combine``: ``crc1``
+    times x^(8 len2) modulo the polynomial, plus ``crc2``)."""
+    p, k = 1 << 31, 3                    # x^0; 8 len2 = len2 << 3
+    while len2:
+        if len2 & 1:
+            p = _multmodp(_X2N[k & 31], p)
+        len2 >>= 1
+        k += 1
+    return _multmodp(p, crc1) ^ crc2
+
+
+class _MemberCrc:
+    """The CRC-32 of one stored member, as ``zipfile`` checks it: the
+    ``.npy`` header bytes, then the data, hashed in pieces on ``pool``
+    while the next piece is read."""
+
+    def __init__(self, pool: ThreadPoolExecutor, info: zipfile.ZipInfo,
+                 head: bytes):
+        self.pool, self.info = pool, info
+        self.head = zlib.crc32(head)
+        self.parts = []                  # (future of a piece's CRC, length)
+
+    def hash(self, view: memoryview) -> list:
+        """Queue the member's next bytes; returns the futures reading
+        ``view``, which must not change before they end."""
+        futures = []
+        for i in range(0, len(view), _HASH_PIECE):
+            piece = view[i:i + _HASH_PIECE]
+            futures.append(self.pool.submit(zlib.crc32, piece))
+            self.parts.append((futures[-1], len(piece)))
+        return futures
+
+    def check(self) -> None:
+        crc = self.head
+        for future, n in self.parts:
+            crc = crc32_combine(crc, future.result(), n)
+        if crc != self.info.CRC:
+            raise zipfile.BadZipFile(
+                f"Bad CRC-32 for file {self.info.filename!r}")
 
 
 class _Staging:
     """Two pinned 64 MiB host buffers taking turns between the file and a
-    card: one is filled (or written out) while the other's copy runs."""
+    card: one is filled (or written out) while the other's copy runs.  On
+    a load a buffer is refilled only after its copy to the card and its
+    CRC-32 hash have both ended."""
 
     def __init__(self):
         self.bufs = [torch.empty(_CHUNK, dtype=torch.uint8,
                                  pin_memory=True) for _ in range(2)]
         self.done = [torch.cuda.Event(), torch.cuda.Event()]
+        self.hashing = [[], []]          # futures still reading each buffer
         self.turn = 0
 
     def _next(self):
-        buf, done = self.bufs[self.turn], self.done[self.turn]
+        k = self.turn
         self.turn ^= 1
-        return buf, done
+        return k, self.bufs[k], self.done[k]
 
-    def read(self, f, out: torch.Tensor) -> None:
+    def read(self, f, out: torch.Tensor, crc: _MemberCrc) -> None:
         """The next ``out.numel()`` bytes of ``f`` into ``out`` (uint8,
-        on a card)."""
+        on a card), each piece hashed into ``crc``."""
         for i in range(0, out.numel(), _CHUNK):
             n = min(_CHUNK, out.numel() - i)
-            buf, done = self._next()
+            k, buf, done = self._next()
             done.synchronize()               # its previous copy has ended
-            _readinto(f, buf[:n])
+            wait(self.hashing[k])            # and so has its hash
+            view = memoryview(buf[:n].numpy())
+            _readinto(f, view)
             out[i:i + n].copy_(buf[:n], non_blocking=True)
             done.record()
+            self.hashing[k] = crc.hash(view)
 
     def write(self, fid, data: torch.Tensor) -> None:
         """``data`` (uint8, on a card) to ``fid``: chunk i+1's copy to the
@@ -93,7 +174,7 @@ class _Staging:
         held = None
         for i in range(0, data.numel(), _CHUNK):
             n = min(_CHUNK, data.numel() - i)
-            buf, done = self._next()
+            _, buf, done = self._next()
             buf[:n].copy_(data[i:i + n], non_blocking=True)
             done.record()
             if held is not None:
@@ -180,9 +261,14 @@ def _to_tensor(arr: np.ndarray, dtype_name: str | None,
 
 
 def _stored_data(f, info: zipfile.ZipInfo):
-    """``(offset, dtype, shape)`` of a stored ``.npy`` member's data in the
-    archive ``f``, or None where the member has to go through ``np.load``
-    (compressed, Fortran order, an object or big-endian dtype)."""
+    """``(offset, dtype, shape, head)`` of a stored ``.npy`` member of the
+    archive ``f``: where its data starts, its dtype and shape, and the
+    bytes before the data (the ``.npy`` magic and header, which the
+    member's CRC-32 covers); or None where the member has to go through
+    ``np.load`` (compressed, Fortran order, an object or big-endian
+    dtype).  A header that does not parse, or does not fit the member's
+    size, is checked against the CRC first: a damaged one raises
+    ``zipfile.BadZipFile``."""
     if info.compress_type != zipfile.ZIP_STORED:
         return None
     f.seek(info.header_offset)
@@ -192,22 +278,40 @@ def _stored_data(f, info: zipfile.ZipInfo):
     name_len, extra_len = struct.unpack("<HH", local[26:30])
     start = info.header_offset + 30 + name_len + extra_len
     f.seek(start)
-    read = {(1, 0): np.lib.format.read_array_header_1_0,
-            (2, 0): np.lib.format.read_array_header_2_0}.get(
-                np.lib.format.read_magic(f))
-    if read is None:
+    try:
+        read = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}.get(
+                    np.lib.format.read_magic(f))
+        shape, fortran, dtype = read(f) if read else (None, None, None)
+    except (ValueError, TypeError, SyntaxError, tokenize.TokenError):
+        read = None                      # what numpy raises on a bad header
+    offset = f.tell()
+    if read is None or offset - start + math.prod(shape) * dtype.itemsize \
+            != info.file_size:
+        _check_whole(f, start, info)
         return None
-    shape, fortran, dtype = read(f)
     if fortran or dtype.hasobject or dtype.byteorder == ">":
         return None
-    offset = f.tell()
-    if offset - start + math.prod(shape) * dtype.itemsize != info.file_size:
-        return None
-    return offset, dtype, shape
+    f.seek(start)
+    return offset, dtype, shape, f.read(offset - start)
 
 
-def _readinto(f, buf: torch.Tensor) -> None:
-    view = memoryview(buf.numpy()).cast("B")
+def _check_whole(f, start: int, info: zipfile.ZipInfo) -> None:
+    """Raise ``zipfile.BadZipFile`` unless the ``info.file_size`` bytes of
+    ``f`` from ``start`` have the member's CRC-32."""
+    f.seek(start)
+    crc, left = 0, info.file_size
+    while left:
+        piece = f.read(min(left, _CHUNK))
+        if not piece:
+            break
+        crc, left = zlib.crc32(piece, crc), left - len(piece)
+    if left or crc != info.CRC:
+        raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r}")
+
+
+def _readinto(f, view: memoryview) -> None:
+    view = view.cast("B")
     while len(view):
         n = f.readinto(view)
         if not n:
@@ -215,8 +319,9 @@ def _readinto(f, buf: torch.Tensor) -> None:
         view = view[n:]
 
 
-def _read_leaf(f, data, dtype_name, device, staging) -> torch.Tensor:
-    offset, dtype, shape = data
+def _read_leaf(f, data, crc: _MemberCrc, dtype_name, device,
+               staging) -> torch.Tensor:
+    offset, dtype, shape, _ = data
     if dtype_name == "bfloat16":
         tdtype = torch.bfloat16
     elif dtype_name is not None:
@@ -227,9 +332,12 @@ def _read_leaf(f, data, dtype_name, device, staging) -> torch.Tensor:
                       device=device)
     f.seek(offset)
     if device.type == "cpu":
-        _readinto(f, out)
+        view = memoryview(out.numpy())
+        for i in range(0, len(view), _CHUNK):
+            _readinto(f, view[i:i + _CHUNK])
+            crc.hash(view[i:i + _CHUNK])
     else:
-        staging.read(f, out)
+        staging.read(f, out, crc)
     return out.view(tdtype).view(shape)
 
 
@@ -243,14 +351,16 @@ def load_checkpoint(path: str, like: PyTree, *,
     full-width agent stack without allocating it.  Leaves are read from
     the file one at a time, straight into their tensors (through two
     64 MiB pinned buffers for a card).  ``None`` leaves of ``like`` stay
-    ``None``.
+    ``None``.  A member whose CRC-32 does not match raises
+    ``zipfile.BadZipFile``, as ``np.load`` does.
     """
     dev = resolve_device(device)
     if not path.endswith(".npz"):
         path = path + ".npz"
-    leaves = []
+    leaves, crcs = [], []
     with np.load(path, allow_pickle=False) as z, \
-            open(path, "rb", buffering=0) as f:
+            open(path, "rb", buffering=0) as f, \
+            ThreadPoolExecutor(_HASHERS, thread_name_prefix="crc32") as pool:
         meta = json.loads(str(z["__meta__"]))
         dtypes = meta.get("dtypes", {})
         infos = {i.filename[:-4]: i for i in z.zip.infolist()
@@ -269,9 +379,14 @@ def load_checkpoint(path: str, like: PyTree, *,
             if hasattr(v, "shape") and tuple(shape) != tuple(v.shape):
                 raise ValueError(f"{key}: shape {tuple(shape)} != "
                                  f"{tuple(v.shape)}")
-            leaves.append(_to_tensor(arr, dtypes.get(key), dev) if data is None
-                          else _read_leaf(f, data, dtypes.get(key), dev,
-                                          staging))
+            if data is None:
+                leaves.append(_to_tensor(arr, dtypes.get(key), dev))
+                continue
+            crcs.append(_MemberCrc(pool, infos[key], data[3]))
+            leaves.append(_read_leaf(f, data, crcs[-1], dtypes.get(key),
+                                     dev, staging))
+        for crc in crcs:
+            crc.check()
         if staging is not None:
             torch.cuda.current_stream(dev).synchronize()
     return tree_unflatten(like, leaves), meta

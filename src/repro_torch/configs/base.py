@@ -3,7 +3,10 @@
 The fields are the reference's, so a config converts field for field;
 ``dtype`` stays a string and :attr:`ModelConfig.param_dtype` maps it to a
 torch dtype.  The registry lists the reference's ten architectures; an
-unknown name raises ``KeyError``.
+unknown name raises ``KeyError``.  :data:`INPUT_SHAPES` are the
+reference's four dry-run shapes, and :meth:`ModelConfig.total_params` /
+:meth:`~ModelConfig.active_params` its parameter-count formula (an
+approximation that leaves out the norms, kept as the reference has it).
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Any
 import torch
 
 __all__ = ["ModelConfig", "ParallelConfig", "ArchBundle", "get_config",
-           "ARCH_IDS"]
+           "ARCH_IDS", "INPUT_SHAPES", "InputShape"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -91,6 +94,38 @@ class ModelConfig:
                 segs.append((t, 1))
         return segs
 
+    def active_params(self) -> int:
+        """Approximate active parameter count (MoE: top-k experts only)."""
+        return _param_count(self, active_only=True)
+
+    def total_params(self) -> int:
+        return _param_count(self, active_only=False)
+
+
+def _param_count(cfg: ModelConfig, active_only: bool) -> int:
+    """The reference's count: embeddings, attention, MLP, experts and the
+    router, the mamba projections; no norms, biases or convolutions."""
+    D, F, V = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    emb = V * D * max(1, cfg.num_codebooks or 1)
+    n = emb if cfg.tie_embeddings else 2 * emb
+    attn = (D * cfg.num_heads * cfg.head_dim * 2
+            + D * cfg.num_kv_heads * cfg.head_dim * 2)
+    mlp_gated = 3 if cfg.mlp_act == "silu" else 2
+    dense_mlp = mlp_gated * D * F
+    d_inner = cfg.ssm_expand * D
+    mamba = (D * (2 * d_inner + 2 * cfg.ssm_state
+                  + d_inner // max(cfg.ssm_head_dim, 1))
+             + d_inner * D) if cfg.ssm_state else 0
+    for t in cfg.block_types():
+        if t == "attn":
+            n += attn + (dense_mlp if cfg.d_ff else 0)
+        elif t == "moe":
+            E = cfg.num_experts_per_token if active_only else cfg.num_experts
+            n += attn + mlp_gated * D * cfg.moe_d_ff * E + D * cfg.num_experts
+        elif t == "mamba":
+            n += mamba
+    return n
+
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
@@ -107,6 +142,23 @@ class ParallelConfig:
     topology: str = "ring"
     participation: float = 0.9
     mix_path: str = "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+#: the reference's dry-run shapes (``repro.configs.base.INPUT_SHAPES``)
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

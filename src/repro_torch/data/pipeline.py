@@ -177,10 +177,12 @@ class BlockIterator:
 # the training driver's block providers
 # ---------------------------------------------------------------------------
 
-def train_block_struct(cfg, *, T: int, K: int, batch: int,
-                       seq: int) -> dict:
+def train_block_struct(cfg, *, T: int, K: int, batch: int, seq: int,
+                       img_dtype: torch.dtype = torch.float32) -> dict:
     """``{name: (shape, dtype)}`` of one (T, K, B, S[, C]) training block:
-    the one place the engines' block layout is written down."""
+    the one place the engines' block layout is written down (the data
+    path's image prefix is float32; the dry run describes it in
+    ``img_dtype`` bfloat16, as the reference's does)."""
     tok_shape = (T, K, batch, seq)
     if cfg.num_codebooks:
         tok_shape = tok_shape + (cfg.num_codebooks,)
@@ -188,7 +190,7 @@ def train_block_struct(cfg, *, T: int, K: int, batch: int,
            "labels": (tok_shape, torch.int32)}
     if cfg.img_tokens:
         out["img_embeds"] = ((T, K, batch, cfg.img_tokens, VISION_DIM),
-                             torch.float32)
+                             img_dtype)
     return out
 
 

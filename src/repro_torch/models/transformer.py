@@ -66,8 +66,8 @@ from repro_torch.tree import tree_leaves, tree_map
 PyTree = Any
 
 __all__ = ["init_params", "param_specs", "forward", "train_loss", "Cache",
-           "init_cache", "prefill", "decode_step", "sample_logits",
-           "decode_loop", "VISION_DIM"]
+           "init_cache", "cache_specs", "prefill", "decode_step",
+           "sample_logits", "decode_loop", "VISION_DIM"]
 
 #: the stubbed vision encoder's output width (CLIP-large), the reference's
 VISION_DIM = 1024
@@ -395,34 +395,50 @@ def _cache_len(cfg: ModelConfig, max_seq: int, window: int | None) -> int:
     return min(max_seq, w) if w else max_seq
 
 
+def _cache(cfg: ModelConfig, batch: int, C: int, per_slot: bool,
+           make) -> Cache:
+    """The cache's leaves, each from ``make(shape, dtype, fill)``: the one
+    place the layout is written down (:func:`init_cache` allocates it,
+    :func:`cache_specs` describes it on ``meta``)."""
+    Kv, Dh = cfg.num_kv_heads, cfg.head_dim
+    segs = []
+    for kind, n in cfg.segments():
+        if kind == "mamba":
+            s_shape, c_shape = ssm_lib.ssm_state_shapes(batch, cfg.d_model,
+                                                        **_ssm_kw(cfg))
+            segs.append({"ssm": make((n,) + s_shape, torch.float32, 0),
+                         "conv": make((n,) + c_shape, cfg.param_dtype, 0)})
+        else:
+            segs.append({"k": make((n, batch, C, Kv, Dh), cfg.param_dtype, 0),
+                         "v": make((n, batch, C, Kv, Dh), cfg.param_dtype,
+                                   0)})
+    if per_slot:
+        return Cache(segments=tuple(segs),
+                     pos=make((batch,), torch.int32, 0),
+                     slot_pos=make((batch, C), torch.int32, -1))
+    return Cache(segments=tuple(segs), pos=0,
+                 slot_pos=make((C,), torch.int32, -1))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                window: int | None = None, per_slot: bool = False,
                device=None) -> Cache:
     """An empty cache for ``batch`` rows and ``max_seq`` positions, in the
     whole-batch layout or (``per_slot=True``) the per-slot one."""
     dev = resolve_device(device)
-    C = _cache_len(cfg, max_seq, window)
-    Kv, Dh = cfg.num_kv_heads, cfg.head_dim
+    return _cache(cfg, batch, _cache_len(cfg, max_seq, window), per_slot,
+                  lambda shape, dtype, fill: torch.full(
+                      shape, fill, dtype=dtype, device=dev))
 
-    def zeros(shape, dtype=cfg.param_dtype):
-        return torch.zeros(shape, dtype=dtype, device=dev)
 
-    segs = []
-    for kind, n in cfg.segments():
-        if kind == "mamba":
-            s_shape, c_shape = ssm_lib.ssm_state_shapes(batch, cfg.d_model,
-                                                        **_ssm_kw(cfg))
-            segs.append({"ssm": zeros((n,) + s_shape, torch.float32),
-                         "conv": zeros((n,) + c_shape)})
-        else:
-            segs.append({"k": zeros((n, batch, C, Kv, Dh)),
-                         "v": zeros((n, batch, C, Kv, Dh))})
-    if per_slot:
-        return Cache(segments=tuple(segs), pos=zeros((batch,), torch.int32),
-                     slot_pos=torch.full((batch, C), -1, dtype=torch.int32,
-                                         device=dev))
-    return Cache(segments=tuple(segs), pos=0,
-                 slot_pos=torch.full((C,), -1, dtype=torch.int32, device=dev))
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int, *,
+                window: int | None = None, per_slot: bool = False) -> Cache:
+    """:func:`init_cache`'s cache as ``meta`` tensors of its shapes and
+    dtypes (zero allocation); the whole-batch ``pos`` is the int 0, as
+    there."""
+    return _cache(cfg, batch, _cache_len(cfg, max_seq, window), per_slot,
+                  lambda shape, dtype, fill: torch.empty(
+                      shape, dtype=dtype, device="meta"))
 
 
 def _attn_block_decode(cfg: ModelConfig, kind: str, bp: dict,

@@ -153,3 +153,101 @@ def test_members_np_load_must_read_still_load(tmp_path, layout):
     with pytest.raises(ValueError, match="shape"):
         load_checkpoint(path, {"a": torch.zeros(3, 4), "b": like["b"]},
                         device="cpu")
+
+
+def _member_start(path: str, name: str) -> tuple[int, zipfile.ZipInfo]:
+    """Where member ``name``'s bytes (its .npy magic) start in the file."""
+    with zipfile.ZipFile(path) as z:
+        info = z.getinfo(name)
+    with open(path, "rb") as f:
+        f.seek(info.header_offset + 26)
+        name_len, extra_len = np.frombuffer(f.read(4), "<u2")
+    return info.header_offset + 30 + int(name_len) + int(extra_len), info
+
+
+def _flip(path: str, where: int, out: str) -> str:
+    raw = bytearray(open(path, "rb").read())
+    raw[where] ^= 0x10
+    with open(out, "wb") as f:
+        f.write(raw)
+    return out
+
+
+@pytest.mark.parametrize("where", ["data", "header"])
+def test_flipped_byte_raises_bad_zip_file(tmp_path, where):
+    """The streamed load checks each member's CRC-32 as np.load does: one
+    flipped byte in a member's data or in its .npy header raises
+    BadZipFile naming the member; the unflipped file loads bit-equal."""
+    tree = {"w": torch.randn(4096), "b": torch.randn(3, 5).to(torch.bfloat16)}
+    path = str(tmp_path / "c.npz")
+    save_checkpoint(path, tree)
+    start, info = _member_start(path, "w.npy")
+    at = start + info.file_size - 100 if where == "data" else start + 20
+    bad = _flip(path, at, str(tmp_path / "bad.npz"))
+    if where == "data":              # numpy's parser meets a bad header first
+        with pytest.raises(zipfile.BadZipFile, match="'w.npy'"):
+            np.load(bad)["w"]                   # the reference's reader
+    with pytest.raises(zipfile.BadZipFile, match="Bad CRC-32 for file "
+                                                 "'w.npy'"):
+        load_checkpoint(bad, tree, device="cpu")
+    got, _ = load_checkpoint(path, tree, device="cpu")
+    assert all(torch.equal(got[k], tree[k]) for k in tree)
+
+
+def test_every_flipped_header_byte_raises(tmp_path):
+    """A flip anywhere in the magic, the version, the header length or the
+    header text raises BadZipFile, whatever numpy's parser would say."""
+    path = str(tmp_path / "c.npz")
+    tree = {"w": torch.arange(64, dtype=torch.float32)}
+    save_checkpoint(path, tree)
+    start, _ = _member_start(path, "w.npy")
+    bad = str(tmp_path / "bad.npz")
+    for at in range(start, start + 128):
+        with pytest.raises(zipfile.BadZipFile):
+            load_checkpoint(_flip(path, at, bad), tree, device="cpu")
+
+
+def test_flipped_byte_in_a_member_np_load_reads_raises(tmp_path):
+    """A Fortran-ordered member goes through np.load, whose zipfile read
+    makes the check."""
+    arr = np.asfortranarray(np.arange(12, dtype=np.float32).reshape(4, 3))
+    path = str(tmp_path / "c.npz")
+    np.savez(path, __meta__=json.dumps({"step": 0, "keys": ["a"],
+                                        "dtypes": {}}), a=arr)
+    start, info = _member_start(path, "a.npy")
+    bad = _flip(path, start + info.file_size - 4, str(tmp_path / "b.npz"))
+    with pytest.raises(zipfile.BadZipFile, match="'a.npy'"):
+        load_checkpoint(bad, {"a": torch.zeros(4, 3)}, device="cpu")
+
+
+def test_crc_over_many_pieces(tmp_path, monkeypatch):
+    """With pieces of a few bytes every member is read and hashed in many
+    pieces, joined by crc32_combine: the load is bit-equal and a flip in
+    the last piece still raises."""
+    from repro_torch.checkpoint import store
+
+    monkeypatch.setattr(store, "_CHUNK", 4096)
+    monkeypatch.setattr(store, "_HASH_PIECE", 1000)
+    tree = {"a": torch.randn(10_001), "b": torch.randn(3, 333).half()}
+    path = str(tmp_path / "c.npz")
+    save_checkpoint(path, tree)
+    got, _ = load_checkpoint(path, tree, device="cpu")
+    assert all(torch.equal(got[k], tree[k]) for k in tree)
+    start, info = _member_start(path, "a.npy")
+    bad = _flip(path, start + info.file_size - 1, str(tmp_path / "b.npz"))
+    with pytest.raises(zipfile.BadZipFile, match="'a.npy'"):
+        load_checkpoint(bad, tree, device="cpu")
+
+
+def test_crc32_combine_equals_zlib():
+    import zlib
+
+    from repro_torch.checkpoint.store import crc32_combine
+
+    rng = np.random.default_rng(3)
+    for n1, n2 in [(0, 0), (0, 7), (5, 0), (1, 1), (100, 4096),
+                   (3, 1 << 20), (65_537, 12_345)]:
+        a = rng.integers(0, 256, n1, dtype=np.uint8).tobytes()
+        b = rng.integers(0, 256, n2, dtype=np.uint8).tobytes()
+        assert crc32_combine(zlib.crc32(a), zlib.crc32(b), n2) \
+            == zlib.crc32(a + b)

@@ -910,3 +910,39 @@ def test_cuda_ef_host_offload_parks_pinned_and_fetches_bit_equal():
     for a, b in zip(tree_leaves(off["state"].comm_state),
                     tree_leaves(on["state"].comm_state)):
         assert torch.equal(a, b.cuda())
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_load_checks_the_crc(tmp_path):
+    """The card's staged load: a file whose largest member spans four 64
+    MiB pieces (the two pinned buffers take turns) loads bit-equal, and a
+    flipped byte in that member's last piece or in a .npy header raises
+    BadZipFile."""
+    _need_card()
+    import zipfile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    tree = {"big": torch.randn((50 << 20,), generator=gen, device="cuda"),
+            "bf16": torch.randn((3, 1000), generator=gen,
+                                device="cuda").to(torch.bfloat16),
+            "host": torch.arange(10)}
+    path = str(tmp_path / "c.npz")
+    save_checkpoint(path, tree)
+    got, _ = load_checkpoint(path, tree, device="cuda")
+    for k, v in tree.items():
+        assert got[k].is_cuda and torch.equal(got[k].cpu(), v.cpu()), k
+    with zipfile.ZipFile(path) as z:
+        info = z.getinfo("big.npy")
+    raw = bytearray(open(path, "rb").read())
+    name_len, extra_len = np.frombuffer(
+        bytes(raw[info.header_offset + 26:info.header_offset + 30]), "<u2")
+    start = info.header_offset + 30 + int(name_len) + int(extra_len)
+    for at in (start + info.file_size - 8, start + 20):
+        bad = bytearray(raw)
+        bad[at] ^= 0x10
+        with open(tmp_path / "bad.npz", "wb") as f:
+            f.write(bad)
+        with pytest.raises(zipfile.BadZipFile, match="'big.npy'"):
+            load_checkpoint(str(tmp_path / "bad.npz"), tree, device="cuda")
