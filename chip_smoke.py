@@ -3,8 +3,11 @@
 
   python3 chip_smoke.py
 
-Every kernel source is built first, one ``nvcc`` per source, all started
-together.  Phases (any failure exits non-zero; nothing is swallowed):
+Every kernel source is built at the start, one ``nvcc`` per source, all
+started together; phases 1-6, which run only ``diffusion_mix`` and
+``flash_attention``, start once those two are built, and every build has
+ended before phase 7.  Phases (any failure exits non-zero; nothing is
+swallowed):
 
 1. ``diffusion_mix`` against its plain version ``mix_ref`` on the card:
    K in {4, 12, 20, 64}, Metropolis and FedAvg matrices, all-zero, all-one
@@ -183,7 +186,8 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     matrices equal): link dropout with corr 0 and 0.6 and gossip under
     ``pallas``, ``sparse``, ``gather`` and the neighbourhood trimmed mean
     (fused kernel), tv_erdos under ``pallas``, with the i.i.d., Markov and
-    cyclic processes in turn.
+    cyclic processes in turn (but link dropout 0.3 under ``pallas`` and
+    the i.i.d. process, which 19c's link_dropout_diffusion preset holds).
 17. The paper's §VII regression at its published size (K=20, N=100, M=2,
     mu=0.01, rho=0.1, T=5, erdos, ``--mix pallas``: one ``diffusion_mix``
     launch a block) through the engine: (a) 100 blocks, card against CPU
@@ -241,9 +245,10 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     within one bf16 ulp plus the float32 summation bound of a float64 sum
     over the loaded stack, the same greedy tokens; (c) each of the 13
     presets at smoke size through ``--preset`` (K=8, ``--mix pallas``
-    overlaid on all but the robust one): exact launch counts, bit-equal
-    to the same run in hand-written flags, card against CPU under phase
-    6's gates (the compressed presets block by block with injected draws,
+    overlaid on all but the robust one): exact launch counts, the same
+    spec JSON as the preset written out in flags, card against CPU under
+    phase 6's gates (compressed_diffusion block by block with injected
+    draws, compressed_fedavg in 14c's lockstep on the same configuration,
     the private one at noise 0); ``--engine auto`` builds the sharded
     engine, bit-equal to ``--engine sharded``; (d) exact diffusion on the
     recipe of the reference's test (K=8 ring, mu 0.01, 1,200 blocks, mean
@@ -323,8 +328,8 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     codebooks and 32 new tokens, 22a's checkpoint ingested after the
     first tick (``ingest_checkpoint``, the watch path: its consensus
     through ``diffusion_mix``) and a perturbed copy swapped in after the
-    third: every completion replays at the loop's width
-    (``replay_completion(..., slots=4)``), and the tokens batch-1 serving
+    third: every completion replays at the loop's width (the decode of
+    ``replay_completion(..., slots=4)``), and the tokens batch-1 serving
     would choose otherwise under the same schedule are counted, each
     completion's first such token within twice the batch-vs-single logit
     difference of its top two.
@@ -342,19 +347,42 @@ together.  Phases (any failure exits non-zero; nothing is swallowed):
     cache (window 8,192) from ``init_cache``; (d) the card path of
     ``load_checkpoint``: an archive whose member spans four 64 MiB pieces
     loads bit-equal, and one flipped byte in its data or in its .npy
-    header raises ``zipfile.BadZipFile``.  Phases 3, 21b, 22b and 22c
+    header raises ``zipfile.BadZipFile``.  Phases 3, 21b, 22b, 22c and 26
     print each checkpoint load's GB/s (every member's CRC-32 checked).
+25. The six examples of ``repro_torch.examples`` on the card, in process
+    through their functions at the reference's sizes, each one's own
+    check holding: quickstart (3,000 blocks) with sim/theory inside
+    QUICKSTART_BAND, federated_comparison (15,500 blocks) ``bounded``,
+    custom_graph (2 x 400 blocks) ``CUSTOM_GRAPH_OK`` with the hub index
+    at 400, train_lm (100 blocks) with its last printed loss below its
+    first and its checkpoint read back bit-equal, train_federated_text
+    (40 blocks) with its mean loss falling, serve_lm's three smoke archs
+    at cache position 64, card == CPU (logits within 1e-4, the same
+    greedy tokens); no kernel launched (the plain mixers and smoke
+    configs of the reference's defaults), each example's seconds.
+26. mamba2-2.7b at full width (all 64 layers, M = 2,702,579,200 an agent)
+    served from a K = 2 bf16 stacked checkpoint of random weights drawn
+    on the card through ``serve.main --mix pallas`` (4 prompts of 128, 32
+    greedy steps): ``diffusion_mix`` launched once a column tile (21)
+    and nothing else, the consensus within one bf16 ulp plus the
+    summation bound of the dense mixer's, a second greedy run equal,
+    tokens in the vocabulary; every decode step within DECODE_TOL of the
+    uncached forward over the same context with float32 weights, and
+    within MAMBA_DECODE_WITNESS_RATIO times the bf16 forward's own
+    rounding (plus DECODE_TOL) in bf16; the write and load GB/s,
+    consensus, prefill, decode tokens/s and the peak printed.
 
 Every full-width training phase (5, 8, 11, 14, 16, 18, 19a, 20, 21a, 22a,
 22c) draws its stack on the card (``train.main(..., init_on_device=True)``);
 phase 6 keeps the host draw its card-against-CPU check needs.  The kernel
 mixers run over a column-tiled flatten, one launch per tile
 (``repro_torch.core.mixing.num_tiles``): phases 3, 5, 8, 11, 12, 14, 15,
-16, 18, 19, 20, 21, 22 and 23 count tiles.  Each path's launch counts
+16, 18, 19, 20, 21, 22, 23 and 26 count tiles.  Each path's launch counts
 (all six kernels) are set to 0 just before its first run and read just
-after it (phases 3, 5, 8, 9, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22
-and 23; 20b counts in each rank).  The last lines are a JSON object of the kernels' numbers, the card's name and power limit (``nvidia-smi``), and
-``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
+after it (phases 3, 5, 8, 9, 11, 12, 14, 15, 16, 17, 18, 19, 20, 21, 22,
+23, 25 and 26; 20b counts in each rank).  The last lines are a
+JSON object of the kernels' numbers, the card's name and power limit
+(``nvidia-smi``), and ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout of
 the repository, it exits non-zero and prints no result.  Scratch files go
 to ``.repro_torch_build/`` in the checkout and are removed at the end.
 """
@@ -3535,19 +3563,23 @@ def _lockstep_compressed(name: str, preset: dict, K: int = 8,
     return out
 
 
+#: phase 14c's two compressed presets at smoke size (K = 8, SGD mu 0.05, q
+#: 0.9, --mix pallas; T = 2 for int8, 1 for top-k)
+COMPRESSED_SMOKE = {"compressed_fedavg": {"topology": "fedavg",
+                                          "compress": "int8",
+                                          "error_feedback": True},
+                    "compressed_diffusion": {"topology": "ring",
+                                             "compress": "topk",
+                                             "compress_ratio": 0.1,
+                                             "error_feedback": True}}
+
+
 def phase_compressed_devices() -> dict:
     """Phase 14c: both presets at smoke size (K = 8), card against CPU
     block by block with the same injected draws, every threshold flip
     accounted for (:func:`_lockstep_compressed`)."""
-    presets = {"compressed_fedavg": {"topology": "fedavg",
-                                     "compress": "int8",
-                                     "error_feedback": True},
-               "compressed_diffusion": {"topology": "ring",
-                                        "compress": "topk",
-                                        "compress_ratio": 0.1,
-                                        "error_feedback": True}}
     rows = {}
-    for name, preset in presets.items():
+    for name, preset in COMPRESSED_SMOKE.items():
         T = 2 if preset["compress"] == "int8" else 1
         r = _lockstep_compressed(name, preset, T=T)
         print(f"phase 14c: {name} smoke K=8, {r['blocks']} blocks, card vs "
@@ -3790,6 +3822,10 @@ _ON_SUPPORT_MIXERS = (["--mix", "pallas"], ["--mix", "sparse"],
 _PROCESSES = ([], ["--participation-process", "markov", "--markov-corr",
                    "0.5"],
               ["--participation-process", "cyclic", "--num-groups", "2"])
+#: every graph kind x mixer x process but link dropout 0.3 under
+#: ``pallas`` and the i.i.d. process, which phase 19c's
+#: link_dropout_diffusion preset holds card against CPU at K = 8 under the
+#: same gates
 GRAPH_DEVICE_CASES = [
     (graph, mixer, _PROCESSES[(i + j) % 3])
     for i, graph in enumerate((["--graph", "link_dropout", "--link-drop",
@@ -3797,7 +3833,7 @@ GRAPH_DEVICE_CASES = [
                                ["--graph", "link_dropout", "--link-drop",
                                 "0.3", "--graph-corr", "0.6"],
                                ["--graph", "gossip"]))
-    for j, mixer in enumerate(_ON_SUPPORT_MIXERS)] + [
+    for j, mixer in enumerate(_ON_SUPPORT_MIXERS) if i + j] + [
     (["--graph", "tv_erdos", "--graph-p", "0.3"], ["--mix", "pallas"],
      _PROCESSES[1]),
     (["--graph", "tv_erdos", "--graph-p", "0.3"], ["--mix", "pallas"],
@@ -4916,11 +4952,13 @@ def phase_presets(card: str) -> dict:
     """Phase 19c: each of the 13 presets through ``train.main(["--preset",
     name, ...])`` at smoke size (K = 8, T = 2 unless the preset fixes it,
     q = 0.9, B = 2, S = 64, 3 blocks, SGD mu = 0.05; ``--mix pallas``
-    overlaid on all but the robust one): its exact launch counts; the same
-    run through the hand-written flags of :data:`PRESET_FLAGS` (the same
-    spec JSON) bit-equal in parameters; and the card against the CPU under
-    phase 6's gates (the compressed presets block by block with injected
-    draws, :func:`_lockstep_compressed`; the private one at noise 0,
+    overlaid on all but the robust one): its exact launch counts; the
+    hand-written flags of :data:`PRESET_FLAGS` parse to the same spec JSON
+    (``train.main`` runs the spec, so a second run from those flags would
+    repeat the first); and the card against the CPU under phase 6's gates
+    (the compressed presets block by block with injected draws,
+    :func:`_lockstep_compressed`, but compressed_fedavg, whose lockstep
+    phase 14c runs on the same configuration; the private one at noise 0,
     :class:`_ClipOnly`).  Then ``--engine auto`` on a transformer spec
     builds the sharded engine, as the reference's does, and ``--engine
     sharded`` trains."""
@@ -4930,6 +4968,7 @@ def phase_presets(card: str) -> dict:
     import torch
 
     from repro_torch.api.cli import spec_from_args
+    from repro_torch.core.diffusion import DiffusionConfig
     from repro_torch.launch import train
     from repro_torch.tree import tree_leaves
 
@@ -4951,14 +4990,17 @@ def phase_presets(card: str) -> dict:
         if launches != want:
             raise AssertionError(f"phase 19c: {name}: launches {launches}, "
                                  f"expected {want}")
-        b = train.main(by_flags, use_kernels=True)
-        if a["active"] != b["active"] or not all(
-                torch.equal(x, y) for x, y in zip(
-                    tree_leaves(a["state"].params),
-                    tree_leaves(b["state"].params))):
-            raise AssertionError(f"phase 19c: {name}: --preset and the "
-                                 "hand-written flags differ")
-        if spec.compression.kind != "none":
+        if name == "compressed_fedavg":
+            # phase 14c ran this very configuration card against CPU in
+            # lockstep; a second lockstep would repeat it
+            want_cfg = DiffusionConfig(
+                num_agents=8, local_steps=2, step_size=0.05,
+                participation=0.9, mix="pallas", **COMPRESSED_SMOKE[name])
+            if spec.to_diffusion_config() != want_cfg:
+                raise AssertionError(f"phase 19c: {name} is not phase "
+                                     "14c's configuration")
+            gate = {"lockstep": "phase 14c, the same configuration"}
+        elif spec.compression.kind != "none":
             r = _lockstep_compressed(name, None, spec=a["spec"])
             gate = {"lockstep": r}
         elif spec.privacy.enabled:
@@ -4984,8 +5026,9 @@ def phase_presets(card: str) -> dict:
         print(f"phase 19c: {name}: {a['blocks_done']} blocks in "
               f"{preset_s:.2f}s, launches "
               f"{ {k: v for k, v in launches.items() if v} }; --preset == "
-              f"hand-written flags (bit-equal); card vs CPU {gate} [{card}]")
-        del a, b
+              f"hand-written flags (one spec JSON); card vs CPU {gate} "
+              f"[{card}]")
+        del a
     argv = ["--agents", "2", "--blocks", "1", "--batch", "1", "--seq", "16"]
     with contextlib.redirect_stdout(io.StringIO()):
         auto = train.main(argv, use_kernels=True)
@@ -6134,17 +6177,17 @@ def phase_serveloop(path: str, params, cfg, card: str):
     checkpoint is ingested (``ingest_checkpoint``: the watch path, its
     consensus through ``diffusion_mix``), after the third a perturbed copy
     is swapped in, both while decodes are in flight.  Every completion
-    passes ``replay_completion`` at the loop's width (``slots=4``).  The
-    same replay alone (batch 1, single-request serving under the same
-    schedule) is reported: the tokens it would choose otherwise, and for
+    replays at the loop's width (``_replay_logits(..., slots=4)``, the
+    decode of ``replay_completion(..., slots=4)`` with its logits kept:
+    every token their argmax).  The same replay alone (batch 1,
+    single-request serving under the same schedule) is reported: the tokens it would choose otherwise, and for
     each completion's first such token the top-two gap of its batch-1
     logits against twice the largest batch-4-vs-batch-1 logit difference
     there (the most two logits can move apart: a larger gap fails)."""
     import numpy as np
     import torch
 
-    from repro_torch.launch.serving import (Request, ServeLoop,
-                                            replay_completion)
+    from repro_torch.launch.serving import Request, ServeLoop
     from repro_torch.tree import tree_map
 
     smoke = _serveloop_smoke(card)
@@ -6182,16 +6225,20 @@ def phase_serveloop(path: str, params, cfg, card: str):
     done.sort(key=lambda c: c.uid)
     if sorted(c.uid for c in done) != [r.uid for r in reqs]:
         raise AssertionError("phase 23: not every request completed")
-    spans = [replay_completion(cfg, by_gen, c, max_len=SERVELOOP["max_len"],
-                               slots=SERVELOOP["slots"]) for c in done]
-    if loop.store.generation != 2 or max(spans) < 2:
-        raise AssertionError(f"phase 23: generations {loop.store.generation}"
-                             f", spans {spans}: no swap landed mid-request")
     n_tok = n_diff = 0
-    firsts = []
+    firsts, spans = [], []
     for c in done:
+        # the replay at the loop's width (replay_completion(..., slots=4)'s
+        # decode), its logits kept for the divergence gate below
+        wide = _replay_logits(cfg, by_gen, c, SERVELOOP["max_len"],
+                              SERVELOOP["slots"])
+        for i, (w, t) in enumerate(zip(wide, c.tokens)):
+            if not torch.equal(w.argmax(-1), torch.as_tensor(t)):
+                raise AssertionError(f"phase 23: uid {c.uid} token {i}: the "
+                                     "loop-width replay disagrees (torn or "
+                                     "mis-tagged update)")
+        spans.append(len(set(c.generations)))
         alone = _replay_logits(cfg, by_gen, c, SERVELOOP["max_len"], 1)
-        wide = None
         first = None
         for i, (a, t) in enumerate(zip(alone, c.tokens)):
             t = torch.as_tensor(t)
@@ -6199,13 +6246,6 @@ def phase_serveloop(path: str, params, cfg, card: str):
             n_tok += t.numel()
             n_diff += int(differs.sum())
             if first is None and bool(differs.any()):
-                # the loop-width logits (the ones the token came from)
-                wide = wide or _replay_logits(cfg, by_gen, c,
-                                              SERVELOOP["max_len"],
-                                              SERVELOOP["slots"])
-                if not torch.equal(wide[i].argmax(-1), t):
-                    raise AssertionError(f"phase 23: uid {c.uid} token {i}:"
-                                         " the loop-width replay disagrees")
                 top2 = a.topk(2, dim=-1).values
                 gap = float((top2[..., 0] - top2[..., 1])[differs].max())
                 delta = float((wide[i] - a).abs().max())
@@ -6217,6 +6257,9 @@ def phase_serveloop(path: str, params, cfg, card: str):
                         f"phase 23: uid {c.uid} token {i}: batch-1 serving "
                         f"picks otherwise at a top-two gap {gap:.4g} above "
                         f"twice the batch-vs-single difference {delta:.4g}")
+    if loop.store.generation != 2 or max(spans) < 2:
+        raise AssertionError(f"phase 23: generations {loop.store.generation}"
+                             f", spans {spans}: no swap landed mid-request")
     decode_steps = ticks * SERVELOOP["chunk"]
     row = {"smoke": smoke, "requests": len(reqs),
            "prompt_lens": list(SERVELOOP_PROMPTS), **SERVELOOP,
@@ -6540,6 +6583,291 @@ def phase_dryrun(card: str, scratch: Path) -> dict:
     return row
 
 
+#: phase 25's band for the quickstart example's sim/theory (its seed-0
+#: run, 3,000 blocks, the last 800): the port's mean 1.0150 +- 4 standard
+#: deviations (0.0478) over seeds 0-63 on an H100, rounded outward
+#: (tools/quickstart_band.py; PERF.md); the reference's mean over seeds
+#: 0-15 on a CPU, 1.0213, lies inside
+QUICKSTART_BAND = (0.8239, 1.2062)
+
+MAMBA2 = "mamba2-2.7b"
+
+#: phase 26's bf16 decode gate: each step's logits within this many times
+#: the bf16 model's own rounding witness (the uncached bf16 forward's
+#: distance from the float32 one over the same context), plus the float32
+#: gate DECODE_TOL, of the float32 uncached forward
+MAMBA_DECODE_WITNESS_RATIO = 2.0
+
+
+def phase_examples(card: str, scratch: Path) -> dict:
+    """Phase 25: the six examples of ``repro_torch.examples`` on the card,
+    in process through their functions at the reference's sizes, each
+    example's own check holding: quickstart's sim/theory inside
+    QUICKSTART_BAND, federated_comparison's ``bounded=True``,
+    custom_graph's ``CUSTOM_GRAPH_OK`` with the hub index at the block
+    count, train_lm's last printed eval loss below its first and its
+    checkpoint read back bit-equal through ``load_checkpoint``,
+    train_federated_text's mean loss falling, serve_lm's cache at position
+    64 on all three archs with the card's prefill logits within 1e-4 and
+    greedy tokens equal to the CPU's.  The examples run the plain mixers
+    (dense, sparse) and smoke configs without kernels, as the reference's
+    defaults do: no kernel launches."""
+    import torch
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.examples import (custom_graph, federated_comparison,
+                                      quickstart, serve_lm,
+                                      train_federated_text, train_lm)
+    from repro_torch.tree import tree_leaves
+
+    secs, row = {}, {"card": card}
+
+    def clock(name, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    reset_launches()
+    qs = clock("quickstart", quickstart.run)
+    lo, hi = QUICKSTART_BAND
+    row["quickstart"] = {"theory": qs["theory"], "sim": qs["sim"],
+                         "ratio": qs["ratio"], "band": [lo, hi]}
+    if not lo <= qs["ratio"] <= hi:
+        raise AssertionError(f"phase 25: quickstart sim/theory "
+                             f"{qs['ratio']:.4f} outside {QUICKSTART_BAND}")
+    fc = clock("federated_comparison", federated_comparison.run)
+    row["federated_comparison"] = {
+        "degradation": fc["part2"]["degradation"],
+        "bounded": fc["part2"]["bounded"],
+        "bytes_per_block": {n: r["bytes_per_block"] for n, r in
+                            fc["part2"]["schemes"].items()},
+        "steady": {n: r["msd"] for n, r in fc["part1"].items()}}
+    if fc["part2"]["bounded"] is not True:
+        raise AssertionError("phase 25: federated_comparison not bounded")
+    cg = clock("custom_graph", custom_graph.run)
+    row["custom_graph"] = {"steady": cg["steady"],
+                           "hub_index": cg["hub_index"]}
+    if cg["hub_index"] != custom_graph.BLOCKS:
+        raise AssertionError(f"phase 25: hub index {cg['hub_index']}")
+    path = str(scratch / "train_lm.npz")
+    lm = clock("train_lm", train_lm.main, ["--checkpoint", path])
+    losses = lm["losses"]
+    first, last = losses[min(losses)], losses[max(losses)]
+    back, meta = load_checkpoint(path, lm["state"].params, device="cuda")
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(back), tree_leaves(lm["state"].params)))
+    Path(path).unlink()
+    row["train_lm"] = {"losses": losses, "checkpoint_bit_equal": same,
+                       "step": meta["step"]}
+    if not (last < first and same and meta["step"] == 100):
+        raise AssertionError(f"phase 25: train_lm losses {first} -> {last},"
+                             f" checkpoint bit-equal {same}")
+    ft = clock("train_federated_text", train_federated_text.main, [])
+    means = {i: sum(v) / len(v) for i, v in ft["losses"].items()}
+    row["train_federated_text"] = {"mean_losses": means}
+    if not means[max(means)] < means[min(means)]:
+        raise AssertionError(f"phase 25: train_federated_text mean loss "
+                             f"{means}")
+    served = clock("serve_lm", serve_lm.main, [])
+    launches = read_launches()
+    row["serve_lm"] = {}
+    for arch, card_out in served.items():
+        cpu = serve_lm.serve(arch, device="cpu")
+        err = (card_out["prefill_logits"].cpu().float()
+               - cpu["prefill_logits"].float()).abs().max().item()
+        same = torch.equal(card_out["tokens"], cpu["tokens"])
+        row["serve_lm"][arch] = {"cache_pos": card_out["cache_pos"],
+                                 "prefill_logits_vs_cpu": err,
+                                 "tokens_equal_cpu": same}
+        if not (card_out["cache_pos"] == cpu["cache_pos"] == 64
+                and err <= 1e-4 and same):
+            raise AssertionError(f"phase 25: serve_lm {arch}: cache "
+                                 f"{card_out['cache_pos']}, logits vs CPU "
+                                 f"{err:.3e}, tokens equal {same}")
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    if launches != want:
+        raise AssertionError(f"phase 25: launches {launches}, expected "
+                             f"{want}")
+    row["seconds"], row["launches"] = secs, launches
+    print(f"phase 25: the six examples on the card, each one's own check "
+          f"held: quickstart sim/theory {qs['ratio']:.4f} (band "
+          f"{lo:.4f}-{hi:.4f}), federated_comparison bounded (max "
+          f"degradation {fc['part2']['degradation']:.2f}x), custom_graph "
+          f"hub index {cg['hub_index']}, train_lm loss {first:.4f} -> "
+          f"{last:.4f} (checkpoint bit-equal), train_federated_text mean "
+          f"loss {means[min(means)]:.3f} -> {means[max(means)]:.3f}, "
+          f"serve_lm cache 64 and card == CPU on all three archs; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items())
+          + f" [{card}]")
+    print(json.dumps({"phase": "25", **row}, default=str))
+    return launches
+
+
+def _decode_logits(params, cfg, prompts, gen, max_len: int):
+    """Prefill's last-position logits then one decode step per token of
+    ``gen`` (B, n), teacher-forced: (B, n + 1, V); and the uncached
+    forward's logits over the same contexts, (B, n + 1, V)."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    S, n = prompts.shape[1], gen.shape[1]
+    with torch.no_grad():
+        full, _, _ = tf.forward(params, cfg, torch.cat([prompts, gen], 1),
+                                remat=False)
+        full = full[:, S - 1:].float()
+        lg, cache = tf.prefill(params, cfg, prompts, max_len=max_len)
+        steps = [lg[:, -1].float()]
+        for t in range(n):
+            lg, cache = tf.decode_step(params, cfg, cache, gen[:, t:t + 1])
+            steps.append(lg[:, 0].float())
+        del cache
+    return torch.stack(steps, 1), full
+
+
+def _mamba_decode_check(served: dict, card: str) -> dict:
+    """Phase 26's decode gates on the served consensus: in float32
+    (weights upcast), every one of the 32 decode steps within the
+    reference's DECODE_TOL of the uncached forward over the prompt and
+    the tokens decoded so far (prefill's last position within 2e-3, as
+    22c); in bf16 (as served), every step within
+    MAMBA_DECODE_WITNESS_RATIO times the bf16 forward's own distance from
+    the float32 forward, plus DECODE_TOL, of the float32 forward."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.tree import tree_map
+
+    cfg, prompts = served["cfg"], served["prompts"]
+    gen = served["tokens"].to(prompts.device, prompts.dtype)
+    max_len = served["max_len"]
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda x: x.float(), served["params"])
+    dec32, full32 = _decode_logits(p32, cfg32, prompts, gen, max_len)
+    del p32
+    torch.cuda.empty_cache()
+    err32 = (dec32 - full32).abs().amax(dim=(0, 2)).tolist()
+    ok32 = (torch.allclose(dec32[:, 0], full32[:, 0], atol=2e-3, rtol=2e-3)
+            and torch.allclose(dec32[:, 1:], full32[:, 1:], atol=DECODE_TOL,
+                               rtol=DECODE_TOL))
+    dec16, full16 = _decode_logits(served["params"], cfg, prompts, gen,
+                                   max_len)
+    # the bf16 replay is a second greedy run: prefill, then one decode
+    # step a token, each token the argmax of the step before
+    if not torch.equal(dec16[:, :-1].argmax(-1).cpu(),
+                       served["tokens"].long()):
+        raise AssertionError("phase 26: two greedy runs gave different "
+                             "tokens")
+    drift16 = (dec16 - full32).abs().max().item()
+    witness = (full16 - full32).abs().max().item()
+    self16 = (dec16 - full16).abs().max().item()
+    gate16 = MAMBA_DECODE_WITNESS_RATIO * witness + DECODE_TOL
+    out = {"float32_max_abs_by_step": err32, "float32_ok": ok32,
+           "bf16_decode_vs_float32_forward": drift16,
+           "bf16_forward_vs_float32_forward": witness,
+           "bf16_decode_vs_bf16_forward": self16, "bf16_gate": gate16,
+           "logit_scale": full32.abs().max().item()}
+    print(f"phase 26: decode vs the uncached forward ({prompts.shape[1]} + "
+          f"{gen.shape[1]} context, every step): float32 max |diff| "
+          f"{max(err32):.3e} (gate {DECODE_TOL}); bf16 decode vs float32 "
+          f"forward {drift16:.3e}, the bf16 forward's own {witness:.3e} "
+          f"(gate {gate16:.3e}), bf16 decode vs bf16 forward {self16:.3e}; "
+          f"logits up to {out['logit_scale']:.2f} [{card}]")
+    if not ok32:
+        raise AssertionError("phase 26: float32 cached decode beyond the "
+                             "5e-3 gate of the uncached forward")
+    if not drift16 <= gate16:
+        raise AssertionError("phase 26: bf16 decode beyond its witnessed "
+                             "gate")
+    return out
+
+
+def phase_serve_mamba2(card: str, scratch: Path) -> tuple[dict, dict]:
+    """Phase 26: mamba2-2.7b at full width (all 64 layers) served from a
+    K = 2 stacked bf16 checkpoint of seeded random weights drawn on the
+    card, through ``serve.main`` with ``--mix pallas`` (4 prompts of 128,
+    32 greedy steps): the consensus through ``diffusion_mix`` (one launch
+    a column tile, nothing else launched) within one bf16 ulp plus the
+    float32 summation bound of the dense mixer's over the same stack,
+    every token in the vocabulary, and ``_mamba_decode_check`` (whose bf16
+    replay is the second greedy run).  Prints the write and load
+    GB/s, consensus, prefill and decode seconds, tokens/s and the peak."""
+    import torch
+
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.core.serving import consensus_from_stacked
+    from repro_torch.launch import serve
+
+    K = 2
+    cfg = get_config(MAMBA2).model
+    M = full_width_M(MAMBA2)
+    tiles = num_tiles(K, M)
+    stack = _stack_agents(cfg, K, seed=2600)
+    path = str(scratch / "mamba2_k2.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(path, stack)
+    write_s = time.perf_counter() - t0
+    nbytes = Path(path).stat().st_size
+    floors = _sum_floors(stack, K)
+    t0 = time.perf_counter()
+    dense = consensus_from_stacked(stack, K, "dense")
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    del stack
+    torch.cuda.empty_cache()
+    print(f"phase 26: {MAMBA2} M = {M:,} an agent, all {cfg.num_layers} "
+          f"layers, K = {K} ({tiles} column tiles); wrote {nbytes / 1e9:.2f}"
+          f" GB in {write_s:.2f}s = {nbytes / write_s / 1e9:.2f} GB/s "
+          f"[{card}]")
+    argv = ["--arch", MAMBA2, "--full", "--agents", str(K), "--checkpoint",
+            path, "--batch", "4", "--prompt-len", "128", "--decode", "32",
+            "--temperature", "0", "--mix", "pallas"]
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    out = serve.main(argv)
+    launches = read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    Path(path).unlink()
+    want = dict.fromkeys(kernel_wrappers(), 0)
+    want["diffusion_mix"] = tiles
+    if launches != want:
+        raise AssertionError(f"phase 26: launches {launches}, expected "
+                             f"{want}")
+    gate = _ulp_gate("phase 26: kernel vs dense consensus",
+                     _sliced(out["params"], dense, floors))
+    del dense
+    torch.cuda.empty_cache()
+    toks = out["tokens"]
+    if (tuple(toks.shape) != (4, 32) or toks.min() < 0
+            or toks.max() >= cfg.vocab_size
+            or not torch.isfinite(out["prefill_logits"]).all()):
+        raise AssertionError(f"phase 26: tokens {tuple(toks.shape)} out of "
+                             "range or non-finite logits")
+    decode = _mamba_decode_check(out, card)
+    t = out["timings"]
+    load_rate("phase 26", nbytes, t["load_s"], card)
+    print(f"phase 26: load {t['load_s']:.2f}s, consensus "
+          f"{t['consensus_s']:.3f}s ({tiles} diffusion_mix launches; the "
+          f"dense mixer {dense_s:.3f}s), prefill 4 x 128 {t['prefill_s']:.3f}"
+          f"s, decode 32 steps {t['decode_s']:.3f}s "
+          f"({out['tokens_per_s']:.1f} tokens/s); peak device memory "
+          f"{peak_gb:.2f} GB (with the dense consensus kept for the check, "
+          f"{M * 2 / 1e9:.2f} GB); greedy tokens repeat [{card}]")
+    row = {"M": M, "tiles": tiles, "checkpoint_gb": nbytes / 1e9,
+           "write_s": write_s, "timings": t,
+           "tokens_per_s": out["tokens_per_s"], "dense_consensus_s": dense_s,
+           "consensus_vs_dense": gate, "peak_mem_gb": peak_gb,
+           "decode_check": decode, "launches": launches, "card": card}
+    print(json.dumps({"phase": "26", **row}))
+    del out
+    torch.cuda.empty_cache()
+    return launches, row
+
+
 def main() -> int:
     import torch
 
@@ -6557,10 +6885,15 @@ def main() -> int:
     scratch = ROOT / ".repro_torch_build" / "chip_smoke"
     scratch.mkdir(parents=True, exist_ok=True)
     t_start = time.perf_counter()
-    built = build.build_all()
-    print(f"built every kernel source, one nvcc each in parallel, in "
-          f"{time.perf_counter() - t_start:.1f}s: "
-          + ", ".join(f"{n} {s:.1f}s" for n, s in built.items()))
+    # one nvcc per source, all started together; phases 1-6 need only the
+    # two kernels that build in seconds, so they run while the others
+    # compile, and every build is waited for before phase 7
+    builds = build.start_builds()
+    for name in ("diffusion_mix", "flash_attention"):
+        builds[name].result()
+    print(f"built diffusion_mix and flash_attention in "
+          f"{time.perf_counter() - t_start:.1f}s; the other sources go on "
+          f"compiling through phases 1-6")
     seconds = {}
 
     def timed(phase, fn, *args, **kwargs):
@@ -6578,6 +6911,11 @@ def main() -> int:
         attn_row = timed("phase 4", phase_attention, card)
         train_launches, _ = timed("phase 5", phase_train, card)
         timed("phase 6", phase_train_devices)
+        built = {n: f.result() for n, f in builds.items()}
+        print(f"built every kernel source, one nvcc each in parallel: "
+              + ", ".join(f"{n} {s:.1f}s" for n, s in built.items())
+              + f"; all done {time.perf_counter() - t_start:.1f}s after "
+              f"the start")
         ssd_row = timed("phase 7", phase_ssd, card)
         mamba_launches, _ = timed("phase 8", phase_train_mamba, card)
         zamba_launches = timed("phase 9", phase_ssm_devices, scratch, card)
@@ -6646,6 +6984,9 @@ def main() -> int:
             "phase 22d", 240)
         torch.cuda.empty_cache()
         timed("phase 24", phase_dryrun, card, scratch)
+        examples_launches = timed("phase 25", phase_examples, card, scratch)
+        mamba_serve_launches, _ = timed("phase 26", phase_serve_mamba2,
+                                        card, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     # each row's numbers are at its own training path's shape (smollm for
@@ -6685,7 +7026,9 @@ def main() -> int:
                "train_llava": llava_launches,
                "serve_llava": llava_serve_launches,
                **{f"forward_{arch}": counts
-                  for arch, counts in modality_launches.items()}}
+                  for arch, counts in modality_launches.items()},
+               "examples": examples_launches,
+               "serve_mamba2": mamba_serve_launches}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
             (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),

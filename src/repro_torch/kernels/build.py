@@ -18,11 +18,11 @@ import subprocess
 import tempfile
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build_all", "build_log",
-           "find_nvcc", "load_library"]
+           "find_nvcc", "load_library", "start_builds"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".repro_torch_build"
@@ -90,11 +90,12 @@ def load_library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def build_all() -> dict[str, float]:
-    """Compile every source in ``csrc`` that has no library yet, one
-    ``nvcc`` per source, all started together; returns the seconds each
-    took (0 for a library already built).  Loading stays with
-    :func:`load_library`."""
+def start_builds() -> dict[str, Future]:
+    """Start compiling every source in ``csrc`` that has no library yet,
+    one ``nvcc`` per source, all at once, and return at once: each
+    source's future gives the seconds its build took (0 for a library
+    already built) or raises its failure.  A caller that waits for the
+    sources it needs can run while the others compile."""
     def one(src: Path) -> float:
         out = _lib_path(src.stem)
         if out.exists():
@@ -104,9 +105,17 @@ def build_all() -> dict[str, float]:
         return time.perf_counter() - t0
 
     sources = sorted(CSRC.glob("*.cu"))
-    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
-        secs = list(pool.map(one, sources))
-    return {src.stem: s for src, s in zip(sources, secs)}
+    pool = ThreadPoolExecutor(max_workers=max(1, len(sources)))
+    futures = {src.stem: pool.submit(one, src) for src in sources}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def build_all() -> dict[str, float]:
+    """Compile every source in ``csrc`` that has no library yet
+    (:func:`start_builds`) and wait; returns the seconds each took.
+    Loading stays with :func:`load_library`."""
+    return {name: f.result() for name, f in start_builds().items()}
 
 
 def build_log(name: str) -> str:

@@ -946,3 +946,27 @@ def test_cuda_checkpoint_load_checks_the_crc(tmp_path):
             f.write(bad)
         with pytest.raises(zipfile.BadZipFile, match="'big.npy'"):
             load_checkpoint(str(tmp_path / "bad.npz"), tree, device="cuda")
+
+
+@pytest.mark.cuda
+def test_cuda_serve_lm_example_matches_the_cpu():
+    """``repro_torch.examples.serve_lm`` on the card against the CPU: the
+    weights and prompts come from one host generator, so each smoke arch's
+    prefill logits agree within 1e-4 and its 16 greedy tokens are equal,
+    the cache at position 64 on both."""
+    _need_card()
+    import contextlib
+    import io
+
+    from repro_torch.examples import serve_lm
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        for arch in serve_lm.ARCHS:
+            card = serve_lm.serve(arch)
+            cpu = serve_lm.serve(arch, device="cpu")
+            assert card["prefill_logits"].is_cuda
+            torch.testing.assert_close(card["prefill_logits"].cpu(),
+                                       cpu["prefill_logits"], atol=1e-4,
+                                       rtol=0)
+            assert torch.equal(card["tokens"], cpu["tokens"]), arch
+            assert card["cache_pos"] == cpu["cache_pos"] == 64

@@ -158,7 +158,13 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.core.async_engine', 'repro_torch.core.variants', "
         "'repro_torch.core.sharded', 'repro_torch.sharding.rules', "
         "'repro_torch.sharding.agents', 'repro_torch.launch.mesh', "
-        "'repro_torch.models.moe', 'repro_torch.launch.dryrun'}\n"
+        "'repro_torch.models.moe', 'repro_torch.launch.dryrun', "
+        "'repro_torch.examples.quickstart', "
+        "'repro_torch.examples.federated_comparison', "
+        "'repro_torch.examples.custom_graph', "
+        "'repro_torch.examples.train_lm', "
+        "'repro_torch.examples.train_federated_text', "
+        "'repro_torch.examples.serve_lm'}\n"
         "assert need <= set(sys.modules), need - set(sys.modules)\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
