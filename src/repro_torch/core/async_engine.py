@@ -58,6 +58,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import graphs as graph_lib
 from repro_torch.core import participation as part
 from repro_torch.core import schedules
@@ -336,65 +337,75 @@ class AsyncEngine:
           and ``"combine_s"`` the seconds of the local updates and of the
           receive + combination, and with the privacy tier ``"epsilon"``.
         """
-        cfg = self.config
-        self._check_state(state)
-        active, part_state = self.process.sample(state.part_state, key,
-                                                 u=part_u)   # eq. (18)
-        active = torch.as_tensor(active, dtype=torch.float32).to(self.device)
-        A_t, graph_state = self.graph.sample(state.graph_state, key,
-                                             u=graph_u)
-        if tick_u is not None:
-            u = part.injected_uniforms(tick_u, tuple(self._rel_rate.shape))
-            tick = (u < self._rel_rate).float()
-        elif self._tick_sure:
-            tick = torch.ones_like(self._rel_rate)
-        else:
-            tick = torch.bernoulli(self._rel_rate.to(key.device),
-                                   generator=key)
-        fire = active * tick.to(self.device)
-        mus = part.step_size_matrix(cfg.step_size, fire, self._q_eff,
-                                    cfg.drift_correction)     # (K,)
-        t0 = time.perf_counter()
-        psi, opt_state = local_update_scan(
-            self._grad_fn, state.params, state.opt_state, mus, block_batch,
-            local_steps=cfg.local_steps, grad_transform=self.grad_transform,
-            step_mask=self.step_mask)
-        _sync(self.device)
-        t1 = time.perf_counter()
+        with spans.span("engine.block"):
+            return self._step(state, block_batch, key, part_u, graph_u,
+                              tick_u)
 
-        idx = self._idx
-        K = cfg.num_agents
-        # receive: fired sources refresh their slots everywhere (slot 0 is
-        # self: a fired agent refreshes its own entry)
-        nf = fire[idx] > 0                                    # (K, D)
-        ages = torch.where(nf, 0, state.async_state["ages"] + 1).to(
-            torch.int32)
-        buffer = state.async_state["buffer"]
-        if bool(nf.any()):
-            src = idx[nf]
-            for b, p in zip(tree_leaves(buffer), tree_leaves(psi)):
-                b[nf] = p[src].to(b.dtype)
-        # combine: age-discounted realized weights over the buffer, the
-        # self slot completing each row to exactly 1 (removed or
-        # discounted neighbor mass folds into the always-fresh self slot)
-        gw = (A_t.to(device=self.device, dtype=torch.float32)[
-            idx, torch.arange(K, device=self.device)[:, None]]
-            * self._valid * self._discount(ages))
-        gw[:, 0] = 0.0
-        gw[:, 0] = 1.0 - gw.sum(dim=1)
-        # non-fired agents keep their iterate bit-exactly (the eq.-20
-        # inactive-keep invariant)
-        keep = fire > 0
-        params = tree_map(
-            lambda p, b: torch.where(_bshape(keep, p),
-                                     combine_buffer(gw, b).to(p.dtype), p),
-            psi, buffer)
-        del psi
-        t_local = state.async_state["t_local"] + fire * self._delays
-        _sync(self.device)
+    def _step(self, state, block_batch, key, part_u, graph_u, tick_u):
+        cfg = self.config
+        with spans.span("engine.prologue"):
+            self._check_state(state)
+            active, part_state = self.process.sample(state.part_state, key,
+                                                     u=part_u)   # eq. (18)
+            active = torch.as_tensor(active, dtype=torch.float32).to(
+                self.device)
+            A_t, graph_state = self.graph.sample(state.graph_state, key,
+                                                 u=graph_u)
+            if tick_u is not None:
+                u = part.injected_uniforms(tick_u,
+                                           tuple(self._rel_rate.shape))
+                tick = (u < self._rel_rate).float()
+            elif self._tick_sure:
+                tick = torch.ones_like(self._rel_rate)
+            else:
+                tick = torch.bernoulli(self._rel_rate.to(key.device),
+                                       generator=key)
+            fire = active * tick.to(self.device)
+            mus = part.step_size_matrix(cfg.step_size, fire, self._q_eff,
+                                        cfg.drift_correction)     # (K,)
+        with spans.span("engine.local_updates"):
+            t0 = time.perf_counter()
+            psi, opt_state = local_update_scan(
+                self._grad_fn, state.params, state.opt_state, mus,
+                block_batch, local_steps=cfg.local_steps,
+                grad_transform=self.grad_transform, step_mask=self.step_mask)
+            _sync(self.device)
+            t1 = time.perf_counter()
+        with spans.span("engine.combination"):
+            idx = self._idx
+            K = cfg.num_agents
+            # receive: fired sources refresh their slots everywhere (slot
+            # 0 is self: a fired agent refreshes its own entry)
+            nf = fire[idx] > 0                                # (K, D)
+            ages = torch.where(nf, 0, state.async_state["ages"] + 1).to(
+                torch.int32)
+            buffer = state.async_state["buffer"]
+            if bool(nf.any()):
+                src = idx[nf]
+                for b, p in zip(tree_leaves(buffer), tree_leaves(psi)):
+                    b[nf] = p[src].to(b.dtype)
+            # combine: age-discounted realized weights over the buffer, the
+            # self slot completing each row to exactly 1 (removed or
+            # discounted neighbor mass folds into the always-fresh self
+            # slot)
+            gw = (A_t.to(device=self.device, dtype=torch.float32)[
+                idx, torch.arange(K, device=self.device)[:, None]]
+                * self._valid * self._discount(ages))
+            gw[:, 0] = 0.0
+            gw[:, 0] = 1.0 - gw.sum(dim=1)
+            # non-fired agents keep their iterate bit-exactly (the eq.-20
+            # inactive-keep invariant)
+            keep = fire > 0
+            params = tree_map(
+                lambda p, b: torch.where(
+                    _bshape(keep, p), combine_buffer(gw, b).to(p.dtype), p),
+                psi, buffer)
+            del psi
+            t_local = state.async_state["t_local"] + fire * self._delays
+            _sync(self.device)
+            t2 = time.perf_counter()
         metrics = {"active": fire, "t_wall": t_local.max(), "A_t": A_t,
-                   "weights": gw, "local_s": t1 - t0,
-                   "combine_s": time.perf_counter() - t1}
+                   "weights": gw, "local_s": t1 - t0, "combine_s": t2 - t1}
         privacy_state = state.privacy_state
         if self.privacy is not None:
             privacy_state = self.privacy.advance(privacy_state, fire)

@@ -41,6 +41,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import compression
 from repro_torch.core import graphs as graph_lib
 from repro_torch.core import mixing
@@ -166,13 +167,17 @@ def stacked_grad(loss_fn: LossFn):
         K = leaves[0].shape[0]
         # one unbind per leaf: its backward stacks the K slices' gradients
         slices = [leaf.unbind(0) for leaf in leaves]
+
+        def agent_loss(k):
+            with spans.span("local.forward"):
+                return loss_fn(tree_unflatten(params, [s[k] for s in slices]),
+                               tree_map(lambda x: x[k], batch),
+                               *(() if rngs is None else (rngs[k],)))
+
         with torch.enable_grad():
-            total = sum(
-                loss_fn(tree_unflatten(params, [s[k] for s in slices]),
-                        tree_map(lambda x, k=k: x[k], batch),
-                        *(() if rngs is None else (rngs[k],)))
-                for k in range(K))
-            grads = torch.autograd.grad(total, leaves, allow_unused=True)
+            total = sum(agent_loss(k) for k in range(K))
+            with spans.span("local.backward"):
+                grads = torch.autograd.grad(total, leaves, allow_unused=True)
         return tree_unflatten(params, [
             torch.zeros_like(p) if g is None else g
             for g, p in zip(grads, leaves)])
@@ -219,26 +224,28 @@ def local_update_scan(grad_fn, params: PyTree, opt_state: PyTree,
         lead = tree_leaves(params)[0]
         agents = range(lead.shape[0]) if agents is None else agents
     for t in range(local_steps):
-        batch_t = tree_map(lambda x: x[t], block_batch)
-        if loss_key is None:
-            grads = grad_fn(p, batch_t)
-        else:
-            grads = grad_fn(p, batch_t, [
-                compression.seeded_generator(lead.device, loss_key, t, k)
-                for k in agents])
-        with torch.no_grad():
-            if grad_transform is None:
-                updates = grads
+        with spans.span("local.step"):
+            batch_t = tree_map(lambda x: x[t], block_batch)
+            if loss_key is None:
+                grads = grad_fn(p, batch_t)
             else:
-                frozen = _frozen_slices(s, step_mask, t)
-                updates, s = grad_transform(grads, s, p)
-                for leaf, (idx, old) in frozen:
-                    leaf[idx] = old
-            del grads
-            m = mus if step_mask is None else mus * step_mask[t].to(mus.dtype)
-            p = tree_map(lambda w, g: w - _bshape(m, w).to(w.dtype)
-                         * g.to(w.dtype), p, updates)
-            del updates
+                grads = grad_fn(p, batch_t, [
+                    compression.seeded_generator(lead.device, loss_key, t, k)
+                    for k in agents])
+            with torch.no_grad(), spans.span("local.update"):
+                if grad_transform is None:
+                    updates = grads
+                else:
+                    frozen = _frozen_slices(s, step_mask, t)
+                    updates, s = grad_transform(grads, s, p)
+                    for leaf, (idx, old) in frozen:
+                        leaf[idx] = old
+                del grads
+                m = (mus if step_mask is None
+                     else mus * step_mask[t].to(mus.dtype))
+                p = tree_map(lambda w, g: w - _bshape(m, w).to(w.dtype)
+                             * g.to(w.dtype), p, updates)
+                del updates
     return p, s
 
 
@@ -391,35 +398,46 @@ class DiffusionEngine:
           around work that ends in a device sync), and with the privacy
           tier ``metrics["epsilon"]`` the spent epsilon (a float32 tensor).
         """
+        with spans.span("engine.block"):
+            return self._step(state, block_batch, key, active, comm_key,
+                              part_u, graph_u)
+
+    def _step(self, state, block_batch, key, active, comm_key, part_u,
+              graph_u):
         cfg = self.config
-        check_engine_state(self.process, self.pipeline, state,
-                           "engine.init_state", graph=self.graph,
-                           privacy=self.privacy)
-        part_state = state.part_state
-        if active is None:
-            active, part_state = self.process.sample(part_state, key,
-                                                     u=part_u)
-        else:
-            part_state = self.process.advance(part_state, active)
-        active = torch.as_tensor(active, dtype=torch.float32).to(self.device)
-        A_t, graph_state = self.graph.sample(state.graph_state, key,
-                                             u=graph_u)
-        if comm_key is None and self.pipeline.needs_key:
-            comm_key = compression.device_stream(key, self.device)
-        mus = part.step_size_matrix(cfg.step_size, active, self._q,
-                                    cfg.drift_correction)
-        t0 = time.perf_counter()
-        params, opt_state = local_update_scan(
-            self._grad_fn, state.params, state.opt_state, mus, block_batch,
-            local_steps=cfg.local_steps, grad_transform=self.grad_transform,
-            step_mask=self.step_mask)
-        _sync(self.device)
-        t1 = time.perf_counter()
-        params, comm_state = self.pipeline(params, active, A_t,
-                                           state.comm_state, comm_key)
-        _sync(self.device)
+        with spans.span("engine.prologue"):
+            check_engine_state(self.process, self.pipeline, state,
+                               "engine.init_state", graph=self.graph,
+                               privacy=self.privacy)
+            part_state = state.part_state
+            if active is None:
+                active, part_state = self.process.sample(part_state, key,
+                                                         u=part_u)
+            else:
+                part_state = self.process.advance(part_state, active)
+            active = torch.as_tensor(active, dtype=torch.float32).to(
+                self.device)
+            A_t, graph_state = self.graph.sample(state.graph_state, key,
+                                                 u=graph_u)
+            if comm_key is None and self.pipeline.needs_key:
+                comm_key = compression.device_stream(key, self.device)
+            mus = part.step_size_matrix(cfg.step_size, active, self._q,
+                                        cfg.drift_correction)
+        with spans.span("engine.local_updates"):
+            t0 = time.perf_counter()
+            params, opt_state = local_update_scan(
+                self._grad_fn, state.params, state.opt_state, mus,
+                block_batch, local_steps=cfg.local_steps,
+                grad_transform=self.grad_transform, step_mask=self.step_mask)
+            _sync(self.device)
+            t1 = time.perf_counter()
+        with spans.span("engine.combination"):
+            params, comm_state = self.pipeline(params, active, A_t,
+                                               state.comm_state, comm_key)
+            _sync(self.device)
+            t2 = time.perf_counter()
         metrics = {"active": active, "A_t": A_t, "local_s": t1 - t0,
-                   "combine_s": time.perf_counter() - t1}
+                   "combine_s": t2 - t1}
         privacy_state = state.privacy_state
         if self.privacy is not None:
             privacy_state = self.privacy.advance(privacy_state, active)

@@ -49,11 +49,11 @@ compression the pipeline IS the mixer; with int8 and the fused mixer the
 encode and combine stages fuse into the dequantize+mix kernel
 (:meth:`PallasFusedMixer.mix_int8`), whose column tiles are cut at
 multiples of the int8 tile over the zero-padded width.  The tiled
-flatten and the fused int8 path mark their stages with
-``torch.profiler.record_function`` ranges (``tiled.gather``,
-``tiled.scatter``; ``mix_int8.draw``, ``.quantize``, ``.cast``,
-``.kernel``, ``.messages``), so a profiler trace can group a
-combination's device time by stage.
+flatten and the fused int8 path mark their stages with program spans
+(:mod:`repro_torch.spans`: ``tiled.gather``, ``tiled.scatter``;
+``mix_int8.draw``, ``.quantize``, ``.cast``, ``.kernel``, ``.messages``),
+so a profiler trace can group a combination's device time by stage; with
+no profiler running they cost a flag read.
 
 ``make_mixer("auto")`` resolves to the fused kernel on CUDA, as the
 reference's TPU branch does, and follows the reference's non-TPU policy
@@ -79,8 +79,8 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from repro_torch import spans
 from repro_torch.core import compression as comp_lib
 from repro_torch.core.compression import _weak
 from repro_torch.core import participation as part
@@ -309,7 +309,7 @@ def _tiled(leaves: list, fn, *, cols: int, width: int,
         w = min(cols, width - a)
         tile = buf[:K * w].view(K, w)
         segs, t = [], 0
-        with record_function("tiled.gather"):
+        with spans.span("tiled.gather"):
             while t < w and i < len(sizes):
                 n = min(sizes[i] - off, w - t)
                 if n:
@@ -321,7 +321,7 @@ def _tiled(leaves: list, fn, *, cols: int, width: int,
             if t < w:
                 tile[:, t:].zero_()      # the padding, in the last tile only
         res = fn(tile, a)
-        with record_function("tiled.scatter"):
+        with spans.span("tiled.scatter"):
             for r, out in zip(res, outs):
                 for j, o, t0, n in segs:
                     out[j][:, o:o + n].copy_(r[:, t0:t0 + n])
@@ -534,7 +534,7 @@ class PallasFusedMixer(Mixer):
             w = x.shape[1]
             x3 = x.view(Kl, w // tile, tile)
             full = (K, w // tile, tile)
-            with record_function("mix_int8.draw"):
+            with spans.span("mix_int8.draw"):
                 if u is None:
                     uu = torch.rand(full, generator=key,
                                     device=key.device).to(x.device)
@@ -542,16 +542,16 @@ class PallasFusedMixer(Mixer):
                     uu = u[:, start:start + w].to(
                         device=x.device, dtype=torch.float32).reshape(full)
                 uu = _constrain_agent_stack(uu, shard)
-            with record_function("mix_int8.quantize"):
+            with spans.span("mix_int8.quantize"):
                 q, scale = comp_lib.quantize_int8(x3, axis=2, u=uu)
             del uu
-            with record_function("mix_int8.cast"):
+            with spans.span("mix_int8.cast"):
                 wq = q.to(torch.int8).view(Kl, w)
                 sc = scale[:, :, 0].contiguous()
             if shard is not None:
-                with record_function("mix_int8.gather"):
+                with spans.span("mix_int8.gather"):
                     wq, sc = shard.gather(wq), shard.gather(sc)
-            with record_function("mix_int8.kernel"):
+            with spans.span("mix_int8.kernel"):
                 delta = diffusion_mix_int8(A, active, wq, sc, tile_m=tile,
                                            subtract_identity=True)
             del wq, sc
@@ -560,7 +560,7 @@ class PallasFusedMixer(Mixer):
                 return (delta,)
             # the integer-valued float32 q times its scale: exactly the
             # values the kernel dequantizes
-            with record_function("mix_int8.messages"):
+            with spans.span("mix_int8.messages"):
                 return delta, q.mul_(scale).view(Kl, w)
 
         outs = _tiled(leaves, fn, cols=cols, width=width,

@@ -66,6 +66,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.core import compression as comp_lib
 from repro_torch.core import graphs as graph_lib
 from repro_torch.core import mixing
@@ -306,45 +307,60 @@ def make_block_step(
 
     def block_step(state: EngineState, block_batch, key, *, active=None,
                    part_u=None, graph_u=None, comm_key=None):
-        check_engine_state(process, pipeline, state, "block_step.init_state",
-                           graph=graph_proc, privacy=privacy)
-        part_state = state.part_state
-        if active is None:
-            active, part_state = process.sample(part_state, key, u=part_u)
-        else:
-            part_state = process.advance(part_state, active)
-        active = torch.as_tensor(active, dtype=torch.float32).to(dev)
-        A_t, graph_state = graph_proc.sample(state.graph_state, key,
-                                             u=graph_u)
-        loss_key = (int(torch.randint(0, 2 ** 62, (1,), generator=key))
-                    if key is not None else 0)
-        if comm_key is None and pipeline.needs_key:
-            comm_key = comp_lib.device_stream(key, dev)
-        mus = part.step_size_matrix(config.step_size, active, q,
-                                    config.drift_correction)
-        batch = tree_map(lambda x: x[:, rows], block_batch)
-        t0 = time.perf_counter()
-        with local_rows(shard):
-            params, opt_state = local_update_scan(
-                grad_fn, state.params, state.opt_state, mus[rows], batch,
-                local_steps=config.local_steps,
-                grad_transform=grad_transform, step_mask=local_mask,
-                loss_key=loss_key, agents=agents)
-        del batch
-        _sync(dev)
-        t1 = time.perf_counter()
-        comm_state = state.comm_state
-        if ef_host_offload and not pipeline.streams_residual:
-            # the pipeline memory comes onto the card for the combination
-            # only; the fused int8 path streams its residual from the host
-            comm_state = fetch_comm_state(comm_state, dev)
-        params, comm_state = pipeline(params, active, A_t, comm_state,
-                                      comm_key)
-        if ef_host_offload:
-            comm_state = offload_comm_state(comm_state)
-        _sync(dev)
+        with spans.span("engine.block"):
+            return _block_step(state, block_batch, key, active=active,
+                               part_u=part_u, graph_u=graph_u,
+                               comm_key=comm_key)
+
+    def _block_step(state, block_batch, key, *, active, part_u, graph_u,
+                    comm_key):
+        with spans.span("engine.prologue"):
+            check_engine_state(process, pipeline, state,
+                               "block_step.init_state", graph=graph_proc,
+                               privacy=privacy)
+            part_state = state.part_state
+            if active is None:
+                active, part_state = process.sample(part_state, key,
+                                                    u=part_u)
+            else:
+                part_state = process.advance(part_state, active)
+            active = torch.as_tensor(active, dtype=torch.float32).to(dev)
+            A_t, graph_state = graph_proc.sample(state.graph_state, key,
+                                                 u=graph_u)
+            loss_key = (int(torch.randint(0, 2 ** 62, (1,),
+                                          generator=key))
+                        if key is not None else 0)
+            if comm_key is None and pipeline.needs_key:
+                comm_key = comp_lib.device_stream(key, dev)
+            mus = part.step_size_matrix(config.step_size, active, q,
+                                        config.drift_correction)
+            batch = tree_map(lambda x: x[:, rows], block_batch)
+        with spans.span("engine.local_updates"):
+            t0 = time.perf_counter()
+            with local_rows(shard):
+                params, opt_state = local_update_scan(
+                    grad_fn, state.params, state.opt_state, mus[rows],
+                    batch, local_steps=config.local_steps,
+                    grad_transform=grad_transform, step_mask=local_mask,
+                    loss_key=loss_key, agents=agents)
+            del batch
+            _sync(dev)
+            t1 = time.perf_counter()
+        with spans.span("engine.combination"):
+            comm_state = state.comm_state
+            if ef_host_offload and not pipeline.streams_residual:
+                # the pipeline memory comes onto the card for the
+                # combination only; the fused int8 path streams its
+                # residual from the host
+                comm_state = fetch_comm_state(comm_state, dev)
+            params, comm_state = pipeline(params, active, A_t, comm_state,
+                                          comm_key)
+            if ef_host_offload:
+                comm_state = offload_comm_state(comm_state)
+            _sync(dev)
+            t2 = time.perf_counter()
         metrics = {"active": active, "A_t": A_t, "local_s": t1 - t0,
-                   "combine_s": time.perf_counter() - t1}
+                   "combine_s": t2 - t1}
         privacy_state = state.privacy_state
         if privacy is not None:
             privacy_state = privacy.advance(privacy_state, active)

@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.core.mixing import tiled_apply
 from repro_torch.kernels.diffusion_mix import diffusion_mix
 from repro_torch.kernels.flash_attention import flash_attention
@@ -54,7 +55,7 @@ class _Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
-        with torch.enable_grad():
+        with torch.enable_grad(), spans.span("model.attention.backward"):
             out = flash_attention_jnp(q, k, v, causal=ctx.causal,
                                       window=ctx.window)
             dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
@@ -85,7 +86,7 @@ class _SSD(torch.autograd.Function):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         x, dt, A, B, C = inputs
         s = x.shape[1]
-        with torch.enable_grad():
+        with torch.enable_grad(), spans.span("model.ssm.backward"):
             xp, dtp, Bp, Cp = pad_to_chunk(x, dt, B, C, ctx.chunk)
             y, final = ssd_chunked(xp, dtp, A, Bp, Cp, chunk=ctx.chunk)
             grads = torch.autograd.grad((y[:, :s], final), inputs,

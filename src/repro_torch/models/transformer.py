@@ -55,6 +55,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import attention_op
@@ -292,23 +293,28 @@ def _apply_block(cfg: ModelConfig, kind: str, bp: dict, x: torch.Tensor,
     ``attn`` block is attention then the dense MLP, a ``moe`` block
     attention then the MoE FFN.  Returns (x, aux), aux the MoE's
     load-balance loss or None."""
-    h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
     if kind == "mamba":
-        return x + ssm_lib.ssm_forward(bp["ssm"], h, chunk=cfg.ssm_chunk,
-                                       norm_eps=cfg.norm_eps,
-                                       use_kernel=cfg.use_kernels,
-                                       **_ssm_kw(cfg)), None
-    q, k, v = L.qkv_project(bp["attn"], h, _adims(cfg), positions=positions,
-                            rotary_pct=cfg.rotary_pct, theta=cfg.rope_theta,
-                            qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps)
-    if cfg.use_kernels:
-        o = attention_op(q, k, v, causal=True, window=window)
-    else:
-        o = L.flash_attention_jnp(q, k, v, causal=True, window=window,
-                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
-    B, S = x.shape[:2]
-    x = x + o.reshape(B, S, -1) @ bp["attn"]["wo"]
-    return _ffn(cfg, kind, bp, x)
+        with spans.span("model.ssm"):
+            h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+            return x + ssm_lib.ssm_forward(
+                bp["ssm"], h, chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps,
+                use_kernel=cfg.use_kernels, **_ssm_kw(cfg)), None
+    with spans.span("model.attention"):
+        h = L.rms_norm(x, bp["ln1"]["scale"], cfg.norm_eps)
+        q, k, v = L.qkv_project(bp["attn"], h, _adims(cfg),
+                                positions=positions,
+                                rotary_pct=cfg.rotary_pct,
+                                theta=cfg.rope_theta, qk_norm=cfg.qk_norm,
+                                norm_eps=cfg.norm_eps)
+        if cfg.use_kernels:
+            o = attention_op(q, k, v, causal=True, window=window)
+        else:
+            o = L.flash_attention_jnp(q, k, v, causal=True, window=window,
+                                      q_chunk=q_chunk, kv_chunk=kv_chunk)
+        B, S = x.shape[:2]
+        x = x + o.reshape(B, S, -1) @ bp["attn"]["wo"]
+    with spans.span("model.moe" if kind == "moe" else "model.mlp"):
+        return _ffn(cfg, kind, bp, x)
 
 
 def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
@@ -326,8 +332,21 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
     (``torch.utils.checkpoint``, non-reentrant), as the reference's
     ``jax.checkpoint`` of the scan body does.
     """
+    x, aux, n_prefix = _hidden(params, cfg, tokens, img_embeds=img_embeds,
+                               window=window, remat=remat, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk)
+    return _head(params, cfg, x), aux, n_prefix
+
+
+def _hidden(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
+            img_embeds: torch.Tensor | None = None,
+            window: int | None = None, remat: bool = True,
+            q_chunk: int = 512, kv_chunk: int = 512):
+    """:func:`forward` up to the final norm: (x, aux_loss, n_prefix).
+    While a profiler runs, each layer's backward is marked as a span."""
     window = window if window is not None else cfg.attention_window
-    x, n_prefix = _embed_inputs(params, cfg, tokens, img_embeds)
+    with spans.span("model.embed"):
+        x, n_prefix = _embed_inputs(params, cfg, tokens, img_embeds)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -337,13 +356,20 @@ def forward(params: PyTree, cfg: ModelConfig, tokens: torch.Tensor, *,
                 kind_j, bp = "attn", params["shared_attn"]
             else:
                 kind_j = kind
+            x, slot = spans.mark_layer_input(x)
             args = (cfg, kind_j, bp, x, positions, window, q_chunk, kv_chunk)
             x, a = (checkpoint(_apply_block, *args, use_reentrant=False)
                     if remat else _apply_block(*args))
+            x = spans.mark_layer_output(x, slot)
             if a is not None:
                 aux = aux + a
+    return x, aux, n_prefix
+
+
+def _head(params: PyTree, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head: the logits."""
     x = L.rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    return _lm_logits(params, cfg, x), aux, n_prefix
+    return _lm_logits(params, cfg, x)
 
 
 def train_loss(params: PyTree, cfg: ModelConfig, batch: dict,
@@ -354,17 +380,19 @@ def train_loss(params: PyTree, cfg: ModelConfig, batch: dict,
     image-prefix config, whose prefix logits are dropped.  ``rng`` is
     unused, as in the reference."""
     del rng
-    logits, aux, n_prefix = forward(params, cfg, batch["tokens"],
-                                    img_embeds=batch.get("img_embeds"),
-                                    remat=remat)
-    if n_prefix:
-        logits = logits[:, n_prefix:]
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    labels = batch["labels"].long()
-    loss = -logp.gather(-1, labels[..., None])[..., 0].mean()
-    if cfg.num_experts:
-        loss = loss + cfg.aux_loss_coef * aux
-    return loss
+    x, aux, n_prefix = _hidden(params, cfg, batch["tokens"],
+                               img_embeds=batch.get("img_embeds"),
+                               remat=remat)
+    with spans.span("model.head_loss"):
+        logits = _head(params, cfg, x)
+        if n_prefix:
+            logits = logits[:, n_prefix:]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        labels = batch["labels"].long()
+        loss = -logp.gather(-1, labels[..., None])[..., 0].mean()
+        if cfg.num_experts:
+            loss = loss + cfg.aux_loss_coef * aux
+        return loss
 
 
 # ---------------------------------------------------------------------------
