@@ -54,10 +54,26 @@ swallowed):
    64, 8, 112); and phase 22's: llava's (1, 3904, 32, 8, 128) (2,880
    image positions and 1,024 tokens, ragged against the 128-query tiles)
    and musicgen's (1, 1024, 24, 24, 64).
+4b. The bf16 attention backward kernel (``flash_attention_backward``) at
+   the training cells' shapes, mistral-7b's (1, 4096, 32, 8, 128) and
+   llava's (1, 3904, 32, 8, 128), causal, on the forward kernel's own
+   output and log-sum-exp: the same bits on two runs; dq, dk and dv
+   within 2^-8 (relative Frobenius norm) of its plain model
+   ``attention_bf16_backward_ref`` and within 2^-7 of the plain float32
+   backward (autograd through
+   ``flash_attention_jnp``); the ``ptxas`` lines of its kernels; its
+   device time (profiler) beside its bound (five products over the kept
+   pairs at the bf16 rate, or its bytes), the plain backward's time and,
+   as the library's yardstick only, the backward of
+   ``scaled_dot_product_attention`` with the kv heads repeated (which the
+   port never calls).
 5. Train, full width: Algorithm 1 on smollm-360m through
    ``repro_torch.launch.train.main`` (K=4, T=2, B=2, S=1024, 3 blocks,
    Adam, ``--mix pallas``, ``use_kernels=True``); both kernels' launch
-   counts, finite losses and parameters, the per-block split into local
+   counts and the bf16 attention backward kernel's (once per training
+   forward; every training phase's launch gate counts it too, in the
+   kernels line as ``flash_attention_backward``), finite losses and
+   parameters, the per-block split into local
    updates and combination, tokens/s and peak memory; then one local
    step's loss and gradients, kernel path against plain path.
 6. Train, small: smoke training with SGD and with Adam on the card and on
@@ -418,6 +434,16 @@ TRAIN_ATTN_SHAPE = (2, 1024, 15, 5, 64)
 TRAIN_LOSS_TOL = 2e-3
 TRAIN_GRAD_TOL = 5e-2
 TF32_FLOPS_PER_S = 495e12        # H100 SXM, TF32 tensor cores, dense
+# (B, S, H, Kv, D) of one layer's attention backward in phase 4b: the
+# mistral-7b training cell's, and llava's 2,880 image positions and 1,024
+# tokens
+ATTN_BWD_SHAPES = {"mistral-7b": (1, 4096, 32, 8, 128),
+                   "llava-next-mistral-7b": (1, 3904, 32, 8, 128)}
+# the backward kernel against its plain model and against the plain
+# float32 backward, relative Frobenius norm of dq, dk and dv
+# (tests/test_torch_attention_backward.py states why)
+ATTN_BWD_MODEL_TOL = 2.0 ** -8
+ATTN_BWD_EXACT_TOL = 2.0 ** -7
 # the reference's SSD gates (tests/test_kernels.py), atol = rtol
 SSD_TOL = {"float32": 2e-3, "bfloat16": 5e-2}
 # the intra-chunk kernel against its plain version: at mamba2's shape each
@@ -638,7 +664,20 @@ def kernel_wrappers() -> dict:
             "ssd_intra_chunk": ssd_scan.ssd_intra_chunk,
             "gather_mix": gm.gather_mix,
             "gather_robust_mix": grm.gather_robust_mix,
-            "diffusion_mix_int8": dmi.diffusion_mix_int8}
+            "diffusion_mix_int8": dmi.diffusion_mix_int8,
+            "flash_attention_backward": fa.flash_attention_backward}
+
+
+def with_backward(want: dict, cfg, trained: int) -> dict:
+    """``want`` with ``flash_attention_backward``'s launches: one for each
+    of the ``trained`` attention forwards that took a gradient, where the
+    model is bf16 (the backward kernel's route; float32 keeps the plain
+    backward, which launches no kernel)."""
+    import torch
+
+    want["flash_attention_backward"] = (
+        trained if cfg.param_dtype == torch.bfloat16 else 0)
+    return want
 
 
 def full_width_M(arch: str = "smollm-360m", layers: int | None = None) -> int:
@@ -1114,6 +1153,116 @@ def _bf16p_share(out, q, k, v, *, causal=True, window=None,
     return share
 
 
+def _frobenius_rel(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+def phase_attention_backward(card: str) -> dict:
+    """Phase 4b: the bf16 attention backward kernel at the training
+    shapes, against its plain model and the plain float32 backward, and
+    timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_bf16_backward_ref
+    from repro_torch.models.layers import flash_attention_jnp
+
+    fa.build()
+    ptxas = ptxas_lines("flash_attention")
+    for line in ptxas:
+        print("  ptxas:", line)
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    row = {"name": "flash_attention_backward", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "none: the reference differentiates the plain "
+                       "streaming attention (src/repro/kernels/ops.py:49)",
+           "dtype": "bfloat16", "ptxas": ptxas}
+    for arch, (B, S, H, Kv, D) in ATTN_BWD_SHAPES.items():
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((B, S, Kv, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        g = torch.randn((B, S, H, D), generator=gen, device="cuda").bfloat16()
+        out, lse = fa.flash_attention_lse(q, k, v)
+        got = fa.flash_attention_backward(q, k, v, out, g, lse)
+        again = fa.flash_attention_backward(q, k, v, out, g, lse)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_backward {arch}: two runs "
+                                 f"on the same operands differ")
+        del again
+        model = attention_bf16_backward_ref(q, k, v, out, g, lse)
+
+        def plain():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = flash_attention_jnp(*leaves, causal=True)
+            return torch.autograd.grad(o, leaves, g)
+
+        errs = {}
+        for name, a, m, pl in zip(("dq", "dk", "dv"), got, model, plain()):
+            errs[name] = {"model": _frobenius_rel(a, m),
+                          "plain": _frobenius_rel(a, pl)}
+            if not (errs[name]["model"] <= ATTN_BWD_MODEL_TOL
+                    and errs[name]["plain"] <= ATTN_BWD_EXACT_TOL):
+                raise AssertionError(
+                    f"flash_attention_backward {arch} {name}: "
+                    f"{errs[name]} beyond {ATTN_BWD_MODEL_TOL} (model) or "
+                    f"{ATTN_BWD_EXACT_TOL} (plain)")
+        del got, model
+        torch.cuda.empty_cache()
+
+        def kernel():
+            return fa.flash_attention_backward(q, k, v, out, g, lse)
+
+        ms, kernel_ms = _device_ms_of(kernel, "flash_attention_bf16_backward")
+        main_ms = _device_ms_of(kernel,
+                                "flash_attention_bf16_backward_kernel")[1]
+        loop_ms = time_ms(kernel, iters=20)
+        plain_ms = time_ms(plain, iters=3)
+        # the library's yardstick: SDPA's backward with the kv heads
+        # repeated to H (its flash route takes no GQA)
+        qt = q.transpose(1, 2).detach().requires_grad_()
+        kt, vt = (x.repeat_interleave(H // Kv, dim=2).transpose(1, 2)
+                  .detach().requires_grad_() for x in (k, v))
+        ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        gt = g.transpose(1, 2)
+        library_ms = device_ms(lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), gt, retain_graph=True))
+        del qt, kt, vt, ot, gt
+        pairs = S * (S + 1) // 2
+        flops = 5 * 2 * B * H * pairs * D
+        nbytes = 2 * (4 * q.numel() + 4 * k.numel())
+        bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ops = flops / BF16_FLOPS_PER_S * 1e3
+        bound = max(bound_bytes, bound_ops)
+        res = {"shape": [B, S, H, Kv, D], "ms": ms,
+               "kernel_only_ms": kernel_ms, "main_kernel_ms": main_ms,
+               "loop_ms": loop_ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": bound,
+               "bound_by": ("bytes" if bound_bytes >= bound_ops
+                            else "operations"),
+               "roofline_pct": 100 * bound / kernel_ms, "flops": flops,
+               "bytes": nbytes, "rel_err": errs}
+        row[arch] = res
+        print(f"phase 4b: {arch} {(B, S, H, Kv, D)} bf16 causal backward: "
+              f"kernels device {kernel_ms:.4f} ms (main "
+              f"{main_ms:.4f} ms; all device work {ms:.4f} ms; loop "
+              f"{loop_ms:.4f} ms), bound {bound:.4f} ms "
+              f"({res['bound_by']}: {flops:.3e} operations at "
+              f"{BF16_FLOPS_PER_S:.3g}/s; the kernels at "
+              f"{res['roofline_pct']:.1f} % of it), plain float32 backward "
+              f"{plain_ms:.3f} ms, SDPA backward device {library_ms:.4f} ms; "
+              f"relative error vs model "
+              + ", ".join(f"{n} {e['model']:.2e}" for n, e in errs.items())
+              + "; vs plain "
+              + ", ".join(f"{n} {e['plain']:.2e}" for n, e in errs.items())
+              + f" [{card}]")
+        del q, k, v, g, out, lse
+        torch.cuda.empty_cache()
+    return row
+
+
 def _grads_one_step(params, cfg, batch, *, remat: bool = False):
     """Loss and gradients of one agent's local step."""
     import torch
@@ -1223,6 +1372,14 @@ def phase_train(card: str) -> tuple[dict, dict]:
         raise AssertionError(f"flash_attention launched "
                              f"{launches['flash_attention']}x on the training "
                              f"path, expected {want}")
+    # the bf16 backward kernel once per training forward, none for the
+    # logging forwards
+    want = with_backward({}, cfg, cfg.num_layers * K * T * blocks)
+    if launches["flash_attention_backward"] != want[
+            "flash_attention_backward"]:
+        raise AssertionError(f"flash_attention_backward launched "
+                             f"{launches['flash_attention_backward']}x on "
+                             f"the training path, expected {want}")
     tiles = num_tiles(K, full_width_M())
     if launches["diffusion_mix"] != tiles * blocks:
         raise AssertionError(f"diffusion_mix launched "
@@ -1743,7 +1900,8 @@ def phase_train_mamba(card: str) -> tuple[dict, dict]:
     want = {"ssd_intra_chunk": cfg.num_layers * K * (T * blocks
                                                      + len(out["losses"])),
             "diffusion_mix": num_tiles(K, M) * blocks, "flash_attention": 0, "gather_mix": 0,
-            "gather_robust_mix": 0, "diffusion_mix_int8": 0}
+            "gather_robust_mix": 0, "diffusion_mix_int8": 0,
+            "flash_attention_backward": 0}
     if launches != want:
         raise AssertionError(f"launches on the mamba2 training path "
                              f"{launches}, expected {want}")
@@ -1930,7 +2088,8 @@ def phase_ssm_devices(scratch: Path, card: str) -> dict:
     n_attn = sum(n for kind, n in cfg.segments() if kind == "attn")
     want = {"flash_attention": n_attn,
             "ssd_intra_chunk": cfg.num_layers - n_attn, "diffusion_mix": 0,
-            "gather_mix": 0, "gather_robust_mix": 0, "diffusion_mix_int8": 0}
+            "gather_mix": 0, "gather_robust_mix": 0, "diffusion_mix_int8": 0,
+            "flash_attention_backward": 0}
     if launches != want:
         raise AssertionError(f"zamba2 forward launches {launches}, expected "
                              f"{want}")
@@ -2405,11 +2564,11 @@ def phase_train_robust(card: str) -> tuple[dict, dict]:
     M = full_width_M(layers=CUT_LAYERS)
 
     def want(cfg, n_logged):
-        return {"gather_robust_mix": num_tiles(K, M) * blocks,
-                "flash_attention": cfg.num_layers * K * (2 * blocks
-                                                         + n_logged),
-                "diffusion_mix": 0, "gather_mix": 0, "ssd_intra_chunk": 0,
-                "diffusion_mix_int8": 0}
+        return with_backward(
+            {"gather_robust_mix": num_tiles(K, M) * blocks,
+             "flash_attention": cfg.num_layers * K * (2 * blocks + n_logged),
+             "diffusion_mix": 0, "gather_mix": 0, "ssd_intra_chunk": 0,
+             "diffusion_mix_int8": 0}, cfg, cfg.num_layers * K * 2 * blocks)
 
     out, row = _train_full(card, "phase 11a",
                            BYZANTINE_FLAGS + ["--robust-gather", "fused"],
@@ -2476,11 +2635,12 @@ def phase_train_gather(card: str) -> tuple[dict, dict]:
     M = full_width_M(layers=CUT_LAYERS)
 
     def want(cfg, n_logged):
-        return {"gather_mix": num_tiles(K, M) * blocks,
-                "flash_attention": cfg.num_layers * K * (2 * blocks
-                                                         + n_logged),
-                "diffusion_mix": 0, "gather_robust_mix": 0,
-                "ssd_intra_chunk": 0, "diffusion_mix_int8": 0}
+        return with_backward(
+            {"gather_mix": num_tiles(K, M) * blocks,
+             "flash_attention": cfg.num_layers * K * (2 * blocks + n_logged),
+             "diffusion_mix": 0, "gather_robust_mix": 0,
+             "ssd_intra_chunk": 0, "diffusion_mix_int8": 0},
+            cfg, cfg.num_layers * K * 2 * blocks)
 
     out, row = _train_full(card, "phase 11b",
                            ["--mix", "gather", "--attack", "none"], blocks,
@@ -3091,11 +3251,11 @@ def phase_train_int8(card: str) -> tuple[dict, dict]:
     tiles = num_tiles(K, M, int8=True)
 
     def want(cfg, n_logged):
-        return {"diffusion_mix_int8": tiles * blocks,
-                "flash_attention": cfg.num_layers * K * (2 * blocks
-                                                         + n_logged),
-                "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
-                "ssd_intra_chunk": 0}
+        return with_backward(
+            {"diffusion_mix_int8": tiles * blocks,
+             "flash_attention": cfg.num_layers * K * (2 * blocks + n_logged),
+             "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
+             "ssd_intra_chunk": 0}, cfg, cfg.num_layers * K * 2 * blocks)
 
     out, row = _train_full(card, "phase 14a", ["--mix", "pallas",
                                                *COMPRESSED_FEDAVG_FLAGS],
@@ -3240,10 +3400,12 @@ def phase_train_diff(card: str) -> tuple[dict, dict]:
     M = full_width_M(layers=CUT_LAYERS)
 
     def want(cfg, n_logged):
-        return {"diffusion_mix": num_tiles(K, M) * blocks,
-                "flash_attention": cfg.num_layers * K * (blocks + n_logged),
-                "diffusion_mix_int8": 0, "gather_mix": 0,
-                "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+        return with_backward(
+            {"diffusion_mix": num_tiles(K, M) * blocks,
+             "flash_attention": cfg.num_layers * K * (blocks + n_logged),
+             "diffusion_mix_int8": 0, "gather_mix": 0,
+             "gather_robust_mix": 0, "ssd_intra_chunk": 0},
+            cfg, cfg.num_layers * K * blocks)
 
     out, row = _train_full(card, "phase 14b", ["--mix", "pallas",
                                                *COMPRESSED_DIFFUSION_FLAGS],
@@ -3695,11 +3857,12 @@ def _graph_launches(K: int, M: int, blocks: int):
     """Launch counts of a full-width run whose combination goes through
     ``diffusion_mix``, for :func:`_train_full`."""
     def want(cfg, n_logged):
-        return {"diffusion_mix": num_tiles(K, M) * blocks,
-                "flash_attention": cfg.num_layers * K * (2 * blocks
-                                                         + n_logged),
-                "gather_mix": 0, "gather_robust_mix": 0,
-                "ssd_intra_chunk": 0, "diffusion_mix_int8": 0}
+        return with_backward(
+            {"diffusion_mix": num_tiles(K, M) * blocks,
+             "flash_attention": cfg.num_layers * K * (2 * blocks + n_logged),
+             "gather_mix": 0, "gather_robust_mix": 0,
+             "ssd_intra_chunk": 0, "diffusion_mix_int8": 0},
+            cfg, cfg.num_layers * K * 2 * blocks)
     return want
 
 
@@ -4086,10 +4249,12 @@ def _private_launches(K: int, M: int, mixed: bool):
     ``diffusion_mix`` one per tile a block unless the secure-agg stage
     takes the combination."""
     def want(cfg, n_logged):
-        return {"diffusion_mix": num_tiles(K, M) * n_logged if mixed else 0,
-                "flash_attention": cfg.num_layers * K * 3 * n_logged,
-                "gather_mix": 0, "gather_robust_mix": 0,
-                "ssd_intra_chunk": 0, "diffusion_mix_int8": 0}
+        return with_backward(
+            {"diffusion_mix": num_tiles(K, M) * n_logged if mixed else 0,
+             "flash_attention": cfg.num_layers * K * 3 * n_logged,
+             "gather_mix": 0, "gather_robust_mix": 0,
+             "ssd_intra_chunk": 0, "diffusion_mix_int8": 0},
+            cfg, cfg.num_layers * K * 2 * n_logged)
     return want
 
 
@@ -4691,9 +4856,11 @@ def phase_train_async(card: str, scratch: Path) -> tuple[dict, dict, str]:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg, eng, state = out["cfg"], out["engine"], out["state"]
     n_logged = len(out["losses"])
-    want = {"flash_attention": cfg.num_layers * K * (T * blocks + n_logged),
-            "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
-            "ssd_intra_chunk": 0, "diffusion_mix_int8": 0}
+    want = with_backward(
+        {"flash_attention": cfg.num_layers * K * (T * blocks + n_logged),
+         "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
+         "ssd_intra_chunk": 0, "diffusion_mix_int8": 0},
+        cfg, cfg.num_layers * K * T * blocks)
     if launches != want:
         raise AssertionError(f"phase 19a: launches {launches}, expected "
                              f"{want}")
@@ -4883,6 +5050,7 @@ def _preset_launches(spec, cfg, out) -> dict:
     M = sum(x[0].numel() for x in tree_leaves(out["state"].params))
     want = dict.fromkeys(kernel_wrappers(), 0)
     want["flash_attention"] = cfg.num_layers * K * (T * n + logged)
+    with_backward(want, cfg, cfg.num_layers * K * T * n)
     if (spec.mixer.kind in ("trimmed_mean", "median")
             and spec.mixer.scope == "neighborhood"):
         # the neighborhood trimmed mean and median fuse on CUDA ("auto")
@@ -5210,11 +5378,12 @@ def phase_train_sharded(card: str) -> tuple[dict, dict]:
                         active=metrics["active"], batch=metrics["batch"])
 
     def want(cfg, n_logged):
-        return {"diffusion_mix": tiles * blocks,
-                "flash_attention": cfg.num_layers * K * (2 * blocks
-                                                         + n_logged),
-                "diffusion_mix_int8": 0, "gather_mix": 0,
-                "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+        return with_backward(
+            {"diffusion_mix": tiles * blocks,
+             "flash_attention": cfg.num_layers * K * (2 * blocks + n_logged),
+             "diffusion_mix_int8": 0, "gather_mix": 0,
+             "gather_robust_mix": 0, "ssd_intra_chunk": 0},
+            cfg, cfg.num_layers * K * 2 * blocks)
 
     out, row = _train_full(card, "phase 20a", ["--engine", "auto", "--mix",
                                                "pallas"], blocks, want, K=K,
@@ -5251,11 +5420,13 @@ def phase_train_sharded(card: str) -> tuple[dict, dict]:
 def _int8_launches(K: int, M: int, blocks: int, agents: int | None = None):
     """Launches of phase 20b/20c's run (``agents``: the rank's rows)."""
     def want(cfg, n_logged):
-        return {"diffusion_mix_int8": num_tiles(K, M, int8=True) * blocks,
-                "flash_attention": cfg.num_layers * (agents or K)
-                * (2 * blocks + n_logged),
-                "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
-                "ssd_intra_chunk": 0}
+        return with_backward(
+            {"diffusion_mix_int8": num_tiles(K, M, int8=True) * blocks,
+             "flash_attention": cfg.num_layers * (agents or K)
+             * (2 * blocks + n_logged),
+             "diffusion_mix": 0, "gather_mix": 0, "gather_robust_mix": 0,
+             "ssd_intra_chunk": 0},
+            cfg, cfg.num_layers * (agents or K) * 2 * blocks)
     return want
 
 
@@ -5377,6 +5548,7 @@ def phase_train_two_ranks(card: str, scratch: Path,
     the gathered parameters are bit-equal to 20c's world 1.  Prints the
     bytes each combination's gathers moved against the float32 stack's,
     the launches, peak memory and block seconds of each rank."""
+    import torch
     import torch.multiprocessing as mp
 
     from repro_torch.core.mixing import int8_layout
@@ -5412,8 +5584,10 @@ def phase_train_two_ranks(card: str, scratch: Path,
     tile, width, _ = int8_layout(K, M)
     float32_bytes = K * M * 4
     for r in ranks:
+        # each rank trains the full (bf16) config's CUT_LAYERS layers
         want = _int8_launches(K, M, blocks, agents=K // world)(
-            type("C", (), {"num_layers": CUT_LAYERS}), r["n_logged"])
+            type("C", (), {"num_layers": CUT_LAYERS,
+                           "param_dtype": torch.bfloat16}), r["n_logged"])
         if r["launches"] != want:
             raise AssertionError(f"phase 20b: rank {r['rank']} launches "
                                  f"{r['launches']}, expected {want}")
@@ -5468,12 +5642,13 @@ GRANITE = "granite-moe-1b-a400m"
 # norm, within MOE_GRAD_TOL_F32 (ROADMAP's gradient gate).  In bf16 the
 # loss within TRAIN_LOSS_TOL and every gradient leaf within
 # MOE_GRAD_WITNESS_RATIO times the same leaf's witness, taken in the same
-# run: the distance from the plain route of a forward whose attention is
-# the kernel's rounding model attention_bf16p_ref.  The ratio is the
+# run: the distance from the plain route of a step whose attention is
+# the kernels' rounding models (attention_bf16p_ref forward,
+# attention_bf16_backward_ref backward).  The ratio is the
 # triangle inequality, |kernel - plain| <= |kernel - model| + |model -
 # plain|, with the kernel no farther from its model than the model from
-# the plain version (phase 4 holds the kernel's output within its rounding
-# budget of the model; kernel against model is printed).  The
+# the plain version (phases 4 and 4b hold the kernels within their
+# rounding budgets of the models; kernel against model is printed).  The
 # token-expert assignments the kernel route would have chosen otherwise,
 # layer by layer at the held routing, are counted and printed
 MOE_GRAD_TOL_F32 = 1e-4
@@ -5529,20 +5704,31 @@ def _moe_grads(params, cfg, batch, replay=None):
 
 @contextlib.contextmanager
 def _kernel_model():
-    """The kernel path with the bf16 kernel's rounding model
-    ``attention_bf16p_ref`` in the kernel's place (its backward stays the
-    plain one, as the kernel's does)."""
+    """The kernel path with the bf16 kernels' rounding models in the
+    kernels' places: ``attention_bf16p_ref`` forward (with
+    ``attention_lse_ref`` where the backward kernel needs the log-sum-exp)
+    and ``attention_bf16_backward_ref`` backward."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.ref import attention_bf16p_ref
+    from repro_torch.kernels.ref import (attention_bf16_backward_ref,
+                                         attention_bf16p_ref,
+                                         attention_lse_ref)
 
-    orig = ops.flash_attention
-    ops.flash_attention = (lambda q, k, v, causal=True, window=None:
-                           attention_bf16p_ref(q, k, v, causal=causal,
-                                               window=window))
+    def forward(q, k, v, causal=True, window=None):
+        return attention_bf16p_ref(q, k, v, causal=causal, window=window)
+
+    def forward_lse(q, k, v, causal=True, window=None):
+        return (forward(q, k, v, causal, window),
+                attention_lse_ref(q, k, causal=causal, window=window))
+
+    orig = (ops.flash_attention, ops.flash_attention_lse,
+            ops.flash_attention_backward)
+    ops.flash_attention, ops.flash_attention_lse = forward, forward_lse
+    ops.flash_attention_backward = attention_bf16_backward_ref
     try:
         yield
     finally:
-        ops.flash_attention = orig
+        (ops.flash_attention, ops.flash_attention_lse,
+         ops.flash_attention_backward) = orig
 
 
 def _granite_step_check(params, cfg, card: str) -> dict:
@@ -5648,11 +5834,12 @@ def _train_launches(K: int, tiles: int, blocks: int, T: int = 2):
     ``diffusion_mix`` launch a tile a block, one ``flash_attention`` a
     layer a local step an agent plus the logging forwards, no other."""
     def want(cfg, n_logged):
-        return {"diffusion_mix": tiles * blocks,
-                "flash_attention": cfg.num_layers * K * (T * blocks
-                                                         + n_logged),
-                "diffusion_mix_int8": 0, "gather_mix": 0,
-                "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+        return with_backward(
+            {"diffusion_mix": tiles * blocks,
+             "flash_attention": cfg.num_layers * K * (T * blocks + n_logged),
+             "diffusion_mix_int8": 0, "gather_mix": 0,
+             "gather_robust_mix": 0, "ssd_intra_chunk": 0},
+            cfg, cfg.num_layers * K * T * blocks)
     return want
 
 
@@ -5762,7 +5949,8 @@ def phase_serve_granite(path: str, card: str) -> tuple[dict, dict]:
     cfg = out["cfg"]
     want = {"diffusion_mix": num_tiles(K, full_width_M(GRANITE)),
             "flash_attention": 0, "diffusion_mix_int8": 0, "gather_mix": 0,
-            "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+            "gather_robust_mix": 0, "ssd_intra_chunk": 0,
+            "flash_attention_backward": 0}
     if launches != want:
         raise AssertionError(f"phase 21b: launches {launches}, expected "
                              f"{want}")
@@ -5876,7 +6064,8 @@ def phase_arch_forwards(card: str, forwards=ARCH_FORWARDS,
                                       img_embeds=img, remat=False)[0]
         want = {"flash_attention": cfg.num_layers, "diffusion_mix": 0,
                 "diffusion_mix_int8": 0, "gather_mix": 0,
-                "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+                "gather_robust_mix": 0, "ssd_intra_chunk": 0,
+                "flash_attention_backward": 0}
         if launches != want:
             raise AssertionError(f"{label}: {arch} launches {launches}, "
                                  f"expected {want}")
@@ -6026,7 +6215,8 @@ def phase_serve_musicgen(path: str, stack, card: str):
     cfg = out["cfg"]
     want = {"diffusion_mix": num_tiles(K, full_width_M(MUSICGEN)),
             "flash_attention": 0, "diffusion_mix_int8": 0, "gather_mix": 0,
-            "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+            "gather_robust_mix": 0, "ssd_intra_chunk": 0,
+            "flash_attention_backward": 0}
     if launches != want:
         raise AssertionError(f"phase 22b: launches {launches}, expected "
                              f"{want}")
@@ -6218,7 +6408,8 @@ def phase_serveloop(path: str, params, cfg, card: str):
     launches = read_launches()
     want = {"diffusion_mix": num_tiles(4, full_width_M(MUSICGEN)),
             "flash_attention": 0, "diffusion_mix_int8": 0, "gather_mix": 0,
-            "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+            "gather_robust_mix": 0, "ssd_intra_chunk": 0,
+            "flash_attention_backward": 0}
     if launches != want:
         raise AssertionError(f"phase 23: launches {launches}, expected "
                              f"{want}")
@@ -6393,7 +6584,8 @@ def phase_llava(card: str, scratch: Path):
     Path(path).unlink()
     want = {"diffusion_mix": tiles, "flash_attention": 0,
             "diffusion_mix_int8": 0, "gather_mix": 0,
-            "gather_robust_mix": 0, "ssd_intra_chunk": 0}
+            "gather_robust_mix": 0, "ssd_intra_chunk": 0,
+            "flash_attention_backward": 0}
     if serve_launches != want:
         raise AssertionError(f"phase 22c: serving launches "
                              f"{serve_launches}, expected {want}")
@@ -6909,6 +7101,7 @@ def main() -> int:
         serve_launches, _, stack_path = timed("phase 3", phase_full, scratch,
                                               card)
         attn_row = timed("phase 4", phase_attention, card)
+        attn_bwd_row = timed("phase 4b", phase_attention_backward, card)
         train_launches, _ = timed("phase 5", phase_train, card)
         timed("phase 6", phase_train_devices)
         built = {n: f.result() for n, f in builds.items()}
@@ -7030,7 +7223,7 @@ def main() -> int:
                "examples": examples_launches,
                "serve_mamba2": mamba_serve_launches}
     rows = ((mix_row, "train_smollm"), (attn_row, "train_smollm"),
-            (ssd_row, "train_mamba2"),
+            (attn_bwd_row, "train_smollm"), (ssd_row, "train_mamba2"),
             (gather_row, "train_smollm_gather"),
             (robust_row, "train_smollm_byzantine"),
             (int8_row, "train_smollm_compressed_fedavg"))

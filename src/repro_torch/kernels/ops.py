@@ -1,13 +1,18 @@
 """Differentiable wrappers around the port's kernels.
 
 Counterpart of ``repro.kernels.ops``.  :func:`attention_op` runs the
-flash-attention kernel forward (the plain version for CPU tensors) and
-differentiates the streaming twin
-:func:`repro_torch.models.layers.flash_attention_jnp`; :func:`ssd_op` runs
-the SSD intra-chunk kernel forward and differentiates the plain
-:func:`repro_torch.models.ssm.ssd_chunked`.  Both do what the reference's
-custom VJPs do: kernel forward, framework backward.  The reference has no
-backward kernel, so neither has the port.  :func:`mix_op` is the masked
+flash-attention kernel forward (the plain version for CPU tensors).  Its
+backward takes one of two routes, by the operands' device and dtype: bf16
+on CUDA runs the backward kernel
+(:func:`repro_torch.kernels.flash_attention.flash_attention_backward`) on
+the log-sum-exp the forward stored; a CPU tensor or float32 operands
+differentiate the streaming twin
+:func:`repro_torch.models.layers.flash_attention_jnp` in float32, as the
+reference's custom VJP does.  The reference has no backward kernel: this
+one was added because the plain backward took most of a training block.
+:func:`ssd_op` runs the SSD intra-chunk kernel forward and differentiates
+the plain :func:`repro_torch.models.ssm.ssd_chunked` (kernel forward,
+framework backward, as the reference does).  :func:`mix_op` is the masked
 combination step over a stacked tree through the ``diffusion_mix`` kernel.
 """
 from __future__ import annotations
@@ -18,7 +23,9 @@ import torch.nn.functional as F
 from repro_torch import spans
 from repro_torch.core.mixing import tiled_apply
 from repro_torch.kernels.diffusion_mix import diffusion_mix
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_backward,
+                                                 flash_attention_lse)
 from repro_torch.kernels.ssd_scan import ssd_chunked_kernel
 from repro_torch.models.layers import flash_attention_jnp
 from repro_torch.models.ssm import pad_to_chunk, ssd_chunked
@@ -30,7 +37,7 @@ __all__ = ["attention_op", "mix_op", "ssd_op"]
 BLOCK_KV = 128
 
 
-def _forward(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
+def _pad(q, k, v, causal: bool):
     Sq, Skv = q.shape[1], k.shape[1]
     pad = (-Skv) % BLOCK_KV
     if pad and (not causal or Sq > Skv):
@@ -41,6 +48,11 @@ def _forward(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
         # key is ever visible and nothing is padded.
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    return k, v
+
+
+def _forward(q, k, v, causal: bool, window: int | None) -> torch.Tensor:
+    k, v = _pad(q, k, v, causal)
     return flash_attention(q, k, v, causal=causal, window=window)
 
 
@@ -48,12 +60,30 @@ class _Attention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window):
-        ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        return _forward(q, k, v, causal, window)
+        # the route: bf16 on CUDA keeps what the backward kernel needs
+        ctx.kernel = (q.is_cuda and q.dtype == torch.bfloat16
+                      and any(ctx.needs_input_grad[:3]))
+        if not ctx.kernel:
+            ctx.save_for_backward(q, k, v)
+            return _forward(q, k, v, causal, window)
+        ctx.skv = k.shape[1]
+        kp, vp = _pad(q, k, v, causal)
+        out, lse = flash_attention_lse(q, kp, vp, causal=causal,
+                                       window=window)
+        ctx.save_for_backward(q, kp, vp, out, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.kernel:
+            q, k, v, out, lse = ctx.saved_tensors
+            with spans.span("model.attention.backward"):
+                dq, dk, dv = flash_attention_backward(
+                    q, k, v, out, g.contiguous(), lse, causal=ctx.causal,
+                    window=ctx.window)
+            # the zero keys _pad appended have no gradient to return
+            return dq, dk[:, :ctx.skv], dv[:, :ctx.skv], None, None
         q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
         with torch.enable_grad(), spans.span("model.attention.backward"):
             out = flash_attention_jnp(q, k, v, causal=ctx.causal,

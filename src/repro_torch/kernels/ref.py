@@ -11,9 +11,23 @@ import torch
 from repro_torch.core.participation import masked_combination
 
 __all__ = ["attention_ref", "attention_bf16p_ref", "attention_bf16p_budget",
+           "attention_lse_ref", "attention_bf16_backward_ref",
            "gather_mix_ref", "gather_robust_mix_ref",
            "mix_int8_exact", "mix_int8_ref", "mix_ref", "ssd_ref",
            "ssd_intra_chunk_ref", "ssd_intra_chunk_split_ref", "tf32_rna"]
+
+
+def _attention_mask(Sq: int, k0: int, k1: int, causal: bool,
+                    window: int | None, device) -> torch.Tensor:
+    """(Sq, k1 - k0) bool: which keys k0 .. k1 - 1 each query row sees."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    mask = torch.ones((Sq, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return mask
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -30,13 +44,7 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = 1.0 / np.sqrt(D)
     qg = q.reshape(B, Sq, Kv, G, D).float()
     s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Skv, device=q.device)[None, :]
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kpos <= qpos)
-    if window is not None:
-        mask = mask & (kpos > qpos - window)
+    mask = _attention_mask(Sq, 0, Skv, causal, window, q.device)
     s = s.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqc,bckd->bqkgd", p, v.float())
@@ -64,7 +72,6 @@ def attention_bf16p_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / np.sqrt(D)
     qg = q.reshape(B, Sq, Kv, G, D).float()
     kf, vf = k.float(), v.float()
-    qpos = torch.arange(Sq, device=q.device)[:, None]
     m = torch.full((B, Kv, G, Sq, 1), -1e30, device=q.device)
     l = torch.zeros((B, Kv, G, Sq, 1), device=q.device)
     o = torch.zeros((B, Kv, G, Sq, D), device=q.device)
@@ -73,12 +80,7 @@ def attention_bf16p_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t in tiles:
         k0, k1 = t * block_kv, min((t + 1) * block_kv, Skv)
         s = torch.einsum("bqkgd,bckd->bkgqc", qg, kf[:, k0:k1]) * scale
-        kpos = torch.arange(k0, k1, device=q.device)[None, :]
-        mask = torch.ones((Sq, k1 - k0), dtype=torch.bool, device=q.device)
-        if causal:
-            mask = mask & (kpos <= qpos)
-        if window is not None:
-            mask = mask & (kpos > qpos - window)
+        mask = _attention_mask(Sq, k0, k1, causal, window, q.device)
         s = s.masked_fill(~mask, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         corr = torch.exp(m - m_new)
@@ -89,6 +91,69 @@ def attention_bf16p_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = o / l.clamp(min=1e-30)
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D).to(q.dtype)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True,
+                      window: int | None = None) -> torch.Tensor:
+    """Each query row's log-sum-exp of its scaled scores over the keys it
+    sees, ln sum_j exp(q_i . k_j / sqrt(D)), in float32: (B, H, Sq), what
+    the bf16 forward kernel stores for the backward."""
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, Kv, H // Kv, D).float()
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) / np.sqrt(D)
+    mask = _attention_mask(Sq, 0, Skv, causal, window, q.device)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return lse.reshape(B, H, Sq)
+
+
+def attention_bf16_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                dout: torch.Tensor, lse: torch.Tensor, *,
+                                causal: bool = True,
+                                window: int | None = None,
+                                block_kv: int = 128, tiles=None):
+    """The bf16 flash-attention backward kernel's arithmetic, in float32.
+
+    With z = q k^T / sqrt(D) over the keys a row sees, P = exp(z - lse),
+    delta = rowsum(dout o out) and dZ = P o (dout v^T - delta):
+    dv = bf16(P)^T dout, dk = dZ16^T q / sqrt(D), dq = dZ16 k / sqrt(D),
+    where P and dZ are rounded to bf16 before their products and
+    everything else is float32.  Key tiles of ``block_kv`` keys (the
+    kernel's item) are visited in turn; ``tiles`` lists the tiles to visit
+    (default: all of them once), so that a test can drop one.  lse is (B,
+    H, Sq) float32 (:func:`attention_lse_ref`).  Returns (dq, dk, dv) in
+    q's dtype, shaped like q, k and v.
+    """
+    B, Sq, H, D = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    scale = 1.0 / np.sqrt(D)
+    qg = q.reshape(B, Sq, Kv, G, D).float()
+    dog = dout.reshape(B, Sq, Kv, G, D).float()
+    kf, vf = k.float(), v.float()
+    delta = (dog * out.reshape(B, Sq, Kv, G, D).float()).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)[..., None]             # (b, k, g, q, 1)
+    lse = lse.float().reshape(B, Kv, G, Sq)[..., None]
+    dq = torch.zeros((B, Kv, G, Sq, D), device=q.device)
+    dk = torch.zeros((B, Skv, Kv, D), device=q.device)
+    dv = torch.zeros((B, Skv, Kv, D), device=q.device)
+    if tiles is None:
+        tiles = range(-(-Skv // block_kv))
+    for t in tiles:
+        k0, k1 = t * block_kv, min((t + 1) * block_kv, Skv)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg, kf[:, k0:k1]) * scale
+        mask = _attention_mask(Sq, k0, k1, causal, window, q.device)
+        p = torch.where(mask, torch.exp(s - lse), 0.0)
+        dp = torch.einsum("bqkgd,bckd->bkgqc", dog, vf[:, k0:k1])
+        dz = (p * (dp - delta)).bfloat16().float()
+        dv[:, k0:k1] += torch.einsum("bkgqc,bqkgd->bckd",
+                                     p.bfloat16().float(), dog)
+        dk[:, k0:k1] += torch.einsum("bkgqc,bqkgd->bckd", dz, qg) * scale
+        dq += torch.einsum("bkgqc,bckd->bkgqd", dz, kf[:, k0:k1]) * scale
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:

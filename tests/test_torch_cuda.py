@@ -19,9 +19,13 @@ from repro_torch.kernels import diffusion_mix as dm  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan  # noqa: E402
 from repro_torch.kernels.ops import mix_op, ssd_op  # noqa: E402
-from repro_torch.kernels.ref import (attention_bf16p_budget,  # noqa: E402
-                                     attention_bf16p_ref, attention_ref,
-                                     mix_ref, ssd_intra_chunk_ref, ssd_ref)
+from repro_torch.kernels.ops import attention_op  # noqa: E402
+from repro_torch.kernels.ref import (attention_bf16_backward_ref,  # noqa: E402
+                                     attention_bf16p_budget,
+                                     attention_bf16p_ref, attention_lse_ref,
+                                     attention_ref, mix_ref,
+                                     ssd_intra_chunk_ref, ssd_ref)
+from repro_torch.models.layers import flash_attention_jnp  # noqa: E402
 
 # the reference's attention gates (tests/test_kernels.py), atol = rtol
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -31,6 +35,11 @@ SSD_TOL = {torch.float32: 2e-3, torch.bfloat16: 5e-2}
 # Q N = 16,384 products per output, the kernel's split into three TF32
 # products each (chip_smoke.py states the gate's origin)
 INTRA_TOL = 2e-4
+# the attention backward kernel against its plain model and against the
+# plain float32 backward, relative Frobenius norm of dq, dk and dv
+# (tests/test_torch_attention_backward.py states why)
+ATTN_BWD_MODEL_TOL = 2.0 ** -8
+ATTN_BWD_EXACT_TOL = 2.0 ** -7
 
 
 def _need_card():
@@ -150,6 +159,124 @@ def test_cuda_kernel_matches_attention_ref(dtype):
                                             window=window)
             over = (out.float() - model.float()).abs() > budget
             assert not bool(over.any()), (B, Sq, Skv, H, Kv, D, window)
+
+
+def _bwd_inputs(seed, B, S, H, Kv, D):
+    """Seeded q, k, v and an output gradient on the card, in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(s, generator=gen, device="cuda").bfloat16()
+            for s in ((B, S, H, D), (B, S, Kv, D), (B, S, Kv, D),
+                      (B, S, H, D))]
+
+
+def _frobenius_rel(got, want) -> float:
+    return ((got.float() - want.float()).norm()
+            / want.float().norm()).item()
+
+
+# (B, S, H, Kv, D, window): mistral-7b's training shape, musicgen's (D =
+# 64, no GQA), kimi-k2's head dim 112, a windowed ragged one, and head dim
+# 32 ragged under a window
+ATTN_BWD_SHAPES = [(1, 4096, 32, 8, 128, None), (1, 1024, 24, 24, 64, None),
+                   (1, 1024, 64, 8, 112, None), (2, 1000, 8, 2, 64, 300),
+                   (1, 333, 4, 1, 32, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,D,window", ATTN_BWD_SHAPES)
+def test_cuda_attention_backward_matches_model_and_plain(B, S, H, Kv, D,
+                                                         window):
+    """On the kernel forward's own output and log-sum-exp: the backward
+    kernel's dq, dk and dv within ATTN_BWD_MODEL_TOL of the plain model,
+    and within ATTN_BWD_EXACT_TOL of the plain float32 backward (autograd
+    through ``flash_attention_jnp``); the stored log-sum-exp against the
+    plain one."""
+    _need_card()
+    q, k, v, g = _bwd_inputs(6, B, S, H, Kv, D)
+    out, lse = fa.flash_attention_lse(q, k, v, window=window)
+    torch.cuda.synchronize()
+    want_lse = attention_lse_ref(q, k, window=window)
+    assert bool(((lse - want_lse).abs()
+                 <= 1e-5 * (1 + want_lse.abs())).all())
+    before = fa.flash_attention_backward.launches
+    got = fa.flash_attention_backward(q, k, v, out, g, lse, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == before + 1
+    model = attention_bf16_backward_ref(q, k, v, out, g, lse, window=window)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = torch.autograd.grad(
+        flash_attention_jnp(*leaves, causal=True, window=window), leaves, g)
+    for name, a, m, p in zip(("dq", "dk", "dv"), got, model, plain):
+        assert a.shape == m.shape and a.dtype == torch.bfloat16
+        assert bool(torch.isfinite(a).all()), name
+        assert _frobenius_rel(a, m) <= ATTN_BWD_MODEL_TOL, (
+            name, _frobenius_rel(a, m))
+        assert _frobenius_rel(a, p) <= ATTN_BWD_EXACT_TOL, (
+            name, _frobenius_rel(a, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Kv,D,window", [ATTN_BWD_SHAPES[0],
+                                               ATTN_BWD_SHAPES[3]])
+def test_cuda_attention_backward_is_the_same_bits_every_run(B, S, H, Kv, D,
+                                                            window):
+    """dq, dk and dv are the same bits on three runs of the same operands
+    (dQ is summed in int32 fixed point, so the order in which the key
+    tiles' parts arrive does not round it), and with the output gradient's
+    rows scaled by 2^0 .. 2^-63 (each row's own fixed-point unit) still
+    within ATTN_BWD_MODEL_TOL of the plain model."""
+    _need_card()
+    q, k, v, g = _bwd_inputs(8, B, S, H, Kv, D)
+    out, lse = fa.flash_attention_lse(q, k, v, window=window)
+    runs = [fa.flash_attention_backward(q, k, v, out, g, lse, window=window)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(runs[0], run):
+            assert torch.equal(a, b)
+    rows = torch.arange(S, device="cuda") % 64
+    g = (g.float() * torch.exp2(-rows.float())[None, :, None, None]).bfloat16()
+    got = fa.flash_attention_backward(q, k, v, out, g, lse, window=window)
+    torch.cuda.synchronize()
+    model = attention_bf16_backward_ref(q, k, v, out, g, lse, window=window)
+    for name, a, m in zip(("dq", "dk", "dv"), got, model):
+        assert _frobenius_rel(a, m) <= ATTN_BWD_MODEL_TOL, (
+            name, _frobenius_rel(a, m))
+    # dq's rows scaled back, so the small rows count as much as the large
+    back = torch.exp2(rows.float())[None, :, None, None]
+    assert _frobenius_rel(got[0].float() * back,
+                          model[0].float() * back) <= ATTN_BWD_MODEL_TOL
+
+
+@pytest.mark.cuda
+def test_cuda_attention_op_backward_runs_the_kernel_once_per_forward():
+    """One training block of smollm-360m's full width (2 layers, K = 2, T
+    = 2) through ``train.main`` with the kernels on: the backward kernel
+    launches once for each launch of the forward kernel in the block's
+    local steps (one a layer, agent and step); the forwards that log each
+    agent's loss after the block take no gradient and launch no backward.
+    The float32 route keeps the plain backward (no launch)."""
+    _need_card()
+    from repro_torch.launch import train
+
+    L, K, T = 2, 2, 2
+    argv = ["--full", "--agents", str(K), "--local-steps", str(T),
+            "--batch", "1", "--seq", "256", "--blocks", "1", "--optimizer",
+            "sgd", "--step-size", "0.05"]
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_backward.launches
+    out = train.main(argv, use_kernels=True, num_layers=L,
+                     init_on_device=True)
+    torch.cuda.synchronize()
+    fwd = fa.flash_attention.launches - fwd
+    bwd = fa.flash_attention_backward.launches - bwd
+    assert bwd == L * K * T
+    assert fwd == bwd + L * K * len(out["losses"])
+    q, k, v, g = (t.float() for t in _bwd_inputs(7, 1, 128, 4, 2, 64))
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    bwd = fa.flash_attention_backward.launches
+    torch.autograd.grad(attention_op(*leaves), leaves, g)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_backward.launches == bwd
 
 
 @pytest.mark.cuda
